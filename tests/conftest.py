@@ -18,6 +18,11 @@ def pytest_configure(config):
         "required on tests that spawn subprocesses (shard servers, mesh "
         "runs), so a hung child fails the test instead of the whole suite",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card (CUDA kernels have no CPU mode); skips "
+        "with a reason where torch.cuda.is_available() is False",
+    )
 
 
 @pytest.fixture(autouse=True)

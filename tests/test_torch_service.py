@@ -1,0 +1,232 @@
+"""The port's DedupService against the JAX reference service.
+
+The same submit sequence goes to ``repro_torch.service.DedupService
+(device="cpu")`` and ``repro.service.DedupService``; recipes (keys, chunk
+lengths, packed fingerprints, digests), store accounting (stored, unique,
+compressed bytes) and restored bytes must be equal.  Depots interchange
+both ways, on disk.  A subprocess shows the port imports neither jax nor
+any ``repro`` module, and ``chip_smoke.py`` refuses to run without a card
+or outside a checkout.
+"""
+import dataclasses
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core.params import SeqCDCParams as JParams
+from repro.service import DedupService as JDedupService
+
+import repro_torch
+from repro_torch.service import DedupService, IntegrityError
+from repro_torch.service.api import pack_fps
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+SRC = os.path.join(ROOT, "src")
+
+P = JParams(avg_size=256, seq_length=3, skip_trigger=6, skip_size=32,
+            min_size=64, max_size=512)
+
+
+def versioned_objects(seed: int, versions: int, objects: int,
+                      max_size: int):
+    """Seeded versioned corpus: each version edits a few spans of every
+    object (overwrite, insert or delete), so later versions dedup."""
+    rng = np.random.default_rng(seed)
+    cur = [rng.integers(0, 256, int(rng.integers(0, max_size)),
+                        dtype=np.uint8) for _ in range(objects)]
+    out = [cur]
+    for _ in range(1, versions):
+        nxt = []
+        for obj in cur:
+            for _ in range(2):
+                pos = int(rng.integers(0, obj.size + 1))
+                new = rng.integers(0, 256, int(rng.integers(1, 40)),
+                                   dtype=np.uint8)
+                op = int(rng.integers(0, 3))
+                if op == 0:
+                    obj = np.concatenate([obj[:pos], new, obj[pos:]])
+                elif op == 1:
+                    obj = np.concatenate([obj[:pos], obj[pos + new.size:]])
+                else:
+                    obj = obj.copy()
+                    obj[pos:pos + new.size] = new[: obj.size - pos]
+            nxt.append(obj)
+        cur = nxt
+        out.append(cur)
+    return out
+
+
+def _ingest(svc, corpus):
+    for v, objs in enumerate(corpus):
+        for i, obj in enumerate(objs):
+            svc.submit(f"v{v}/o{i}", obj)
+        svc.flush()
+    # an overwrite and a delete, so release and GC accounting move too
+    svc.put("v0/o0", corpus[-1][-1], overwrite=True)
+    svc.delete("v0/o1")
+    return svc.gc()
+
+
+def _assert_same_service(got, want, corpus):
+    assert got.names() == want.names()
+    for name in want.names():
+        a, b = got.recipes.get(name), want.recipes.get(name)
+        assert a.to_json() == b.to_json(), name
+        assert got.get(name) == want.get(name)
+    for v, objs in enumerate(corpus):
+        for i, obj in enumerate(objs):
+            if f"v{v}/o{i}" in ("v0/o0", "v0/o1"):
+                continue
+            assert got.get(f"v{v}/o{i}") == obj.tobytes()
+    gs, ws = got.stats(), want.stats()
+    for field in ("objects", "logical_bytes", "stored_bytes", "total_chunks",
+                  "unique_chunks", "chunk_size_hist", "fp_estimated_savings",
+                  "batches", "compressed_bytes", "codec"):
+        assert getattr(gs, field) == getattr(ws, field), field
+    assert gs.dedup_ratio == ws.dedup_ratio > 1.0
+
+
+@pytest.mark.parametrize("impl,slots,max_size", [
+    ("split", 3, 6000),  # mixed buckets, partial batches
+    ("fused", 1, 1024),  # one bucket: one interpret-mode kernel compile
+])
+def test_service_matches_reference(impl, slots, max_size):
+    corpus = versioned_objects(7, versions=3, objects=6, max_size=max_size)
+    kw = dict(slots=slots, min_bucket=1024, pipeline_impl=impl)
+    port = DedupService(params=repro_torch.params_from_reference(P),
+                        device="cpu", cross_check_masks=True,
+                        cross_check_fps=True, cross_check_pipeline=True,
+                        codec="zlib", **kw)
+    ref = JDedupService(params=P, packing_impl="off", codec="zlib", **kw)
+    assert dataclasses.asdict(_ingest(port, corpus)) == \
+        dataclasses.asdict(_ingest(ref, corpus))
+    _assert_same_service(port, ref, corpus)
+    for name in port.names():
+        r = port.recipes.get(name)
+        assert r.fps == ref.recipes.get(name).fps
+        assert len(r.fps) == len(r.keys)
+    res_fps = np.array([[3, 5], [1 << 30, 7]], dtype=np.uint32)
+    assert pack_fps(res_fps) == [(3 << 32) | 5, ((1 << 30) << 32) | 7]
+
+
+def test_service_without_fingerprints_matches_reference():
+    """with_fingerprints=False: boundaries only, recipes without fps."""
+    corpus = versioned_objects(11, versions=2, objects=4, max_size=4000)
+    kw = dict(slots=2, min_bucket=1024, with_fingerprints=False)
+    port = DedupService(params=repro_torch.params_from_reference(P),
+                        device="cpu", **kw)
+    ref = JDedupService(params=P, packing_impl="off", **kw)
+    _ingest(port, corpus)
+    _ingest(ref, corpus)
+    _assert_same_service(port, ref, corpus)
+    assert all(r.fps is None for r in port.recipes)
+
+
+@pytest.mark.parametrize("codec", ["none", "zlib"])
+def test_depot_interchange_both_ways(codec, tmp_path):
+    """A depot written by the reference restores SHA-verified under the
+    port, and one the port then extends restores under the reference."""
+    corpus = versioned_objects(3, versions=2, objects=5, max_size=5000)
+    root = str(tmp_path / "depot")
+    kw = dict(slots=2, min_bucket=1024, pipeline_impl="split")
+    ref = JDedupService.open(root, params=P, packing_impl="off",
+                             codec=codec, **kw)
+    for i, obj in enumerate(corpus[0]):
+        ref.submit(f"ref/{i}", obj)
+    ref.flush()
+    del ref
+    port = DedupService.open(root, params=repro_torch.params_from_reference(P),
+                             device="cpu", **kw)
+    assert port.store.codec == codec  # picked up from the depot manifest
+    for i, obj in enumerate(corpus[0]):
+        assert port.get(f"ref/{i}") == obj.tobytes()
+    for i, obj in enumerate(corpus[1]):
+        port.submit(f"port/{i}", obj)
+    port.flush()
+    stored = port.stats().stored_bytes
+    del port
+    ref = JDedupService.open(root, params=P, packing_impl="off", **kw)
+    assert ref.stats().stored_bytes == stored
+    for v, tag in enumerate(("ref", "port")):
+        for i, obj in enumerate(corpus[v]):
+            assert ref.get(f"{tag}/{i}") == obj.tobytes()
+    assert ref.gc().freed_blocks == 0
+
+
+def test_corrupt_block_raises_integrity_error(tmp_path):
+    svc = DedupService.open(str(tmp_path), device="cpu",
+                            params=repro_torch.params_from_reference(P),
+                            min_bucket=1024, pipeline_impl="split")
+    data = np.random.default_rng(1).integers(0, 256, 3000, dtype=np.uint8)
+    svc.put("x", data)
+    assert svc.get("x") == data.tobytes()
+    path, _ = svc.store._find_block(svc.recipes.get("x").keys[0])
+    with open(path, "r+b") as f:
+        head = f.read(3)
+        f.seek(0)
+        f.write(bytes(b ^ 0xFF for b in head))
+    with pytest.raises(IntegrityError):
+        svc.get("x")
+
+
+def test_cuda_device_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the no-card refusal is not testable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        DedupService()
+    with pytest.raises(RuntimeError, match="cuda"):
+        DedupService(device="cuda:0")
+
+
+def _run(args, cwd, env_extra=None):
+    env = dict(os.environ)
+    env.update(env_extra or {})
+    return subprocess.run(args, cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=300)
+
+
+@pytest.mark.timeout(300)
+def test_port_imports_no_jax_and_no_repro():
+    code = (
+        "import sys, numpy as np\n"
+        "import repro_torch\n"
+        "from repro_torch.service import DedupService\n"
+        "from repro_torch.kernels import KERNELS\n"
+        "p = repro_torch.SeqCDCParams(avg_size=256, seq_length=3, "
+        "skip_trigger=6, skip_size=32, min_size=64, max_size=512)\n"
+        "svc = DedupService(params=p, device='cpu', min_bucket=1024, "
+        "cross_check_pipeline=True)\n"
+        "d = np.random.default_rng(0).integers(0, 256, 5000, dtype=np.uint8)\n"
+        "svc.put('a', d)\n"
+        "assert svc.get('a') == d.tobytes()\n"
+        "bad = [m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
+        "m.startswith('repro.')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    out = _run([sys.executable, "-c", code], ROOT,
+               {"PYTHONPATH": os.path.abspath(SRC)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("clean")
+
+
+@pytest.mark.timeout(300)
+def test_chip_smoke_refuses_without_card_or_checkout(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py would run for real")
+    script = os.path.abspath(os.path.join(ROOT, "chip_smoke.py"))
+    out = _run([sys.executable, script], ROOT)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+    lone = tmp_path / "lone"
+    lone.mkdir()
+    shutil.copy(script, lone / "chip_smoke.py")
+    out = _run([sys.executable, "chip_smoke.py"], str(lone))
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

@@ -4,17 +4,23 @@ A port of the JAX package ``repro`` to one NVIDIA Hopper card.  It imports
 torch, numpy and the standard library only, never jax and nothing of
 ``repro``: what it needs of the reference lives here as its own copy
 (``core.params``, ``core.oracle``, ``dedup.store``, ``obs``,
-``service.objects``), byte-for-byte where an on-disk format depends on it.
+``service.objects``, ``service.writer``, ``service.depot``,
+``service.transport``, ``_lazy``), byte-for-byte where an on-disk or wire
+format depends on it.
 
 Layout (mirrors ``repro``):
 
 * ``core`` — parameters, the numpy oracle, phase-1 masks and the W-block
-  boundary automaton in plain torch (``seqcdc.boundaries_batch``);
-* ``dedup`` — chunk fingerprints, the fingerprint index, the block store;
+  boundary automaton in plain torch (``seqcdc.boundaries_batch``, and
+  ``boundaries_packed_batch`` for rows of streams packed back to back);
+* ``dedup`` — chunk fingerprints, the fingerprint index, the block store,
+  the owner rule of the distributed index;
 * ``kernels`` — the CUDA kernels (``csrc/*.cu``, built with ``nvcc`` at
   first use) behind wrappers that take their plain torch version only for
   tensors on the CPU;
-* ``service`` — the bucketed ``ChunkScheduler`` and ``DedupService``.
+* ``service`` — the bucketed ``ChunkScheduler`` (with segment packing of
+  small objects), ``DedupService`` and ``ShardedDedupService`` with its
+  writers and shard transport.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

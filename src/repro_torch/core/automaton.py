@@ -14,6 +14,13 @@ W-block, so this module is the plain version (the tests' reference and
 the scheduler's cross-check replay).  The fused CUDA kernel
 (``kernels/csrc/fused_pipeline.cu``) runs the same step on the card.
 
+Packed rows (many streams back to back in one row) take
+:func:`select_boundaries_packed`, the port of ``_scan_wide_packed``: a
+fifth register ``se`` (the current segment's end) replaces the row end in
+``_resolve``, one block may host several events, and the post-emit scan
+position is clamped to the next pending cut.  Its kernel is
+``kernels/csrc/packed_pipeline.cu``.
+
 Only ``step_impl="wide"`` is ported; ``gather`` and ``event`` raise.
 """
 from __future__ import annotations
@@ -26,7 +33,7 @@ from .params import SeqCDCParams
 _BIG = 1 << 30
 
 #: the step implementations of the reference that this port does not have
-#: yet (ROADMAP.md, "Modules to port", item 2)
+#: yet (ROADMAP.md, "Modules to port", item 1)
 _UNPORTED_STEPS = ("gather", "event")
 
 
@@ -146,7 +153,7 @@ def select_boundaries(
     if step_impl in _UNPORTED_STEPS:
         raise NotImplementedError(
             f"step_impl={step_impl!r} is not ported yet (ROADMAP.md, "
-            f"'Modules to port', item 2: gather/event steps)"
+            f"'Modules to port', item 1: gather/event steps)"
         )
     if step_impl != "wide":
         raise ValueError(step_impl)
@@ -169,5 +176,124 @@ def select_boundaries(
     need = (last < n) & (n > 0)
     col = torch.where(need & (count < max_chunks), count, max_chunks)
     out.scatter_(1, col[:, None], torch.full_like(col[:, None], n))
+    count = count + need.to(count.dtype)
+    return out[:, :max_chunks].to(torch.int32), count.to(torch.int32)
+
+
+def _scan_wide_packed(candb: torch.Tensor, oppb: torch.Tensor,
+                      ends: torch.Tensor, n_row: torch.Tensor,
+                      p: SeqCDCParams, max_chunks: int):
+    """The ``wide`` step over packed rows: ``(B, nb, W)`` blocks whose rows
+    hold several streams back to back.
+
+    The reference's argument (``repro/core/automaton.py:_scan_wide_packed``)
+    carries over unchanged:
+
+    * ``se``, the end of the segment the scan walks, stands where the
+      unpacked scan has the row end, so a max-size or end cut consults its
+      own stream's end; an emit landing on ``se`` moves it to the next
+      *strictly greater* entry of ``ends`` (duplicate entries are empty
+      streams), and the registers the emit leaves behind are a fresh
+      stream's init state;
+    * a run of tiny segments puts several events in one block, so each
+      block re-resolves while any row's ``go`` holds (an emit that leaves
+      the scan position inside the block); rows whose ``go`` is false keep
+      their state, which is the reference's per-row ``while_loop``;
+    * after every emit the scan position is clamped to the next pending
+      cut, ``min(new_k, se - (L-1))``; for a segment shorter than ``L-1``
+      that makes it negative, hence signed int64 registers throughout.
+
+    ``ends``: ``(B, G)`` int64 nondecreasing segment ends padded with the
+    row's payload end ``n_row`` (``(B,)``).  Returns ``(out (B, mc+1)
+    int64, count (B,) int64)``: emitted bounds scattered by emit index with
+    the reference's ``mode="drop"`` past ``max_chunks`` (column ``mc`` is
+    the drop slot), and every emit counted.
+    """
+    B, nb, W = candb.shape
+    dev = candb.device
+    L = p.seq_length
+    T = p.skip_trigger
+    iota = torch.arange(W, dtype=torch.int64, device=dev)
+    big = torch.full((B, W), _BIG, dtype=torch.int64, device=dev)
+
+    def next_end(x):
+        return torch.where(ends > x[:, None], ends, _BIG).amin(dim=-1)
+
+    zero = torch.zeros((B,), dtype=torch.int64, device=dev)
+    se = next_end(zero)
+    # the same clamp at init: the first segment may be shorter than min_size
+    k = torch.clamp(se - (L - 1), max=p.sub_min_skip)
+    c, s, cnt = zero.clone(), zero.clone(), zero.clone()
+    out = torch.full((B, max_chunks + 1), _BIG, dtype=torch.int64,
+                     device=dev)
+    for j in range(nb):
+        bstart = j * W
+        bend = bstart + W
+        cb, ob = candb[:, j], oppb[:, j]
+        pos = iota + bstart
+        go = torch.ones((B,), dtype=torch.bool, device=dev)
+        while True:
+            in_block = (k < bend) & (s < n_row)
+            o = torch.clamp(k - bstart, min=0)
+            active = iota[None, :] >= o[:, None]
+            kc = torch.where(cb & active, pos, big).amin(dim=-1)
+            oa = ob & active
+            cum = c[:, None] + torch.cumsum(oa, dim=-1)
+            kt = torch.where(oa & (cum > T), pos, big).amin(dim=-1)
+            new_k, new_s, emit, bound, any_event = _resolve(
+                k, c, s, kc, kt, bend, in_block, se, p
+            )
+            new_c = torch.where(any_event, 0,
+                                torch.where(in_block, cum[:, -1], c))
+            new_se = torch.where(emit & (bound >= se), next_end(bound), se)
+            # clamp the post-emit position to the next pending cut: the
+            # min-size skip may overleap a run of tiny segments entirely
+            new_k = torch.where(emit, torch.minimum(new_k, new_se - (L - 1)),
+                                new_k)
+            emit = emit & go
+            col = torch.where(emit & (cnt < max_chunks), cnt, max_chunks)
+            out.scatter_(1, col[:, None], bound[:, None])
+            k = torch.where(go, new_k, k)
+            c = torch.where(go, new_c, c)
+            s = torch.where(go, new_s, s)
+            se = torch.where(go, new_se, se)
+            cnt = cnt + emit.to(torch.int64)
+            # a late segment-end cut resets the scan inside this block:
+            # go around again (non-emit events always clear the block)
+            go = emit & (k < bend) & (s < n_row)
+            if not bool(go.any()):
+                break
+    return out, cnt
+
+
+def select_boundaries_packed(
+    cand: torch.Tensor,
+    opp: torch.Tensor,
+    ends: torch.Tensor,
+    p: SeqCDCParams,
+    *,
+    max_chunks: int,
+):
+    """Resolve chunk boundaries for ``(B, S)`` packed rows.
+
+    ``cand``/``opp`` are row-wide bitmaps already clipped per segment
+    (``seqcdc.boundaries_packed_batch``); ``ends`` is the ``(B, G)``
+    segment-end table.  Returns ``(bounds (B, max_chunks) int32, count (B,)
+    int32)`` in row coordinates: ascending exclusive ends with every
+    segment end present once, so a host demux slices each stream back out
+    with two searchsorteds.
+    """
+    B, S = cand.shape
+    ends = ends.to(torch.int64)
+    n_row = ends.amax(dim=-1)  # the row's real payload end
+    candb, oppb = _padded_blocks(cand, opp, S, p)
+    out, count = _scan_wide_packed(candb, oppb, ends, n_row, p, max_chunks)
+    # fix-up: guarantee the final boundary n_row; an index past the table
+    # reads its last slot, as a jnp gather clamps
+    li = torch.clamp(count - 1, 0, max_chunks - 1)
+    last = torch.where(count > 0, out.gather(1, li[:, None])[:, 0], 0)
+    need = (last < n_row) & (n_row > 0)
+    col = torch.where(need & (count < max_chunks), count, max_chunks)
+    out.scatter_(1, col[:, None], n_row[:, None])
     count = count + need.to(count.dtype)
     return out[:, :max_chunks].to(torch.int32), count.to(torch.int32)

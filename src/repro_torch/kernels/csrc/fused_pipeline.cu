@@ -25,12 +25,11 @@
 // (plus the L-1 halo) in shared memory, every thread with its 17 loads in
 // flight at once, and turn the compares into 32-bit candidate/opposing
 // words with __ballot_sync.  Warp 0 then runs the automaton over the
-// tile's W-blocks (W <= 1024, so at most 32 words a block): lane i takes
-// word i, the first candidate is a warp min of __ffs, the skip trigger is
-// the m-th opposing bit found by a warp prefix sum of __popc, and every
-// lane applies _resolve on the same values; the scan state stays in its
-// registers and the scan position goes to shared memory for the next
-// tile's skip test.  A block the scan position has already passed is a
+// tile's W-blocks (wblock.cuh: lane i takes word i of a block, the first
+// candidate is a warp min of __ffs, the skip trigger the m-th opposing bit
+// found by a warp prefix sum of __popc), and every lane applies _resolve
+// on the same values; the scan state stays in its registers and the scan
+// position goes to shared memory for the next tile's skip test.  A block the scan position has already passed is a
 // no-op in the split path (its state is unchanged), so the loop jumps to
 // the block holding the scan position, and a tile with no such block is
 // not even staged.  Emitted bounds and lengths are written as they come;
@@ -43,19 +42,18 @@
 #include <cuda_runtime.h>
 
 #include "modp.cuh"
+#include "wblock.cuh"
 
 namespace {
 
 using modp::add_range;
 using modp::kFull;
 using modp::warp_sum_mod;
-
-constexpr int kTile = 4096;   // positions staged per tile, a multiple of W
-constexpr int kMaxHalo = 64;  // L - 1 <= 64 bytes read past a tile
-constexpr int kBig = 1 << 30;
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kStage = (kTile + kMaxHalo + kThreads - 1) / kThreads;
+using wblock::kBig;
+using wblock::kMaxHalo;
+using wblock::kThreads;
+using wblock::kTile;
+using wblock::kWarps;
 
 struct Params {
   long long n;       // row length S
@@ -102,18 +100,7 @@ fused_pipeline_kernel(const uint8_t* __restrict__ x,
     if (sh_s >= n) break;          // the row is done
     if (sh_k >= tend) continue;    // every block of this tile is a no-op
     // -- stage the tile's bytes (zero past the row), all loads in flight --
-    uint8_t v[kStage];
-#pragma unroll
-    for (int r = 0; r < kStage; ++r) {
-      const int i = tid + r * kThreads;
-      const long long pos = t0 + i;
-      v[r] = (i < kTile + P.L - 1 && pos < n) ? row[pos] : 0;
-    }
-#pragma unroll
-    for (int r = 0; r < kStage; ++r) {
-      const int i = tid + r * kThreads;
-      if (i < kTile + kMaxHalo) sx[i] = v[r];
-    }
+    wblock::stage_tile(sx, row, t0, n, P.L, tid);
     __syncthreads();
     // -- phase-1 mask words: bit q of word w is position t0 + 32w + q ------
     for (int w = warp; w < kTile / 32; w += kWarps) {
@@ -152,42 +139,9 @@ fused_pipeline_kernel(const uint8_t* __restrict__ x,
           continue;
         }
         const long long o = k > bstart ? k - bstart : 0;  // first active pos
-        const int rel = (int)(bstart - t0);
-        unsigned cw = 0, ow = 0;
-        if (lane < (W >= 32 ? W / 32 : 1)) {
-          const unsigned wmask = W >= 32 ? kFull : ((1u << W) - 1u);
-          const int sh = W >= 32 ? 0 : (rel & 31);
-          cw = (scand[(rel >> 5) + lane] >> sh) & wmask;
-          ow = (sopp[(rel >> 5) + lane] >> sh) & wmask;
-          const long long lo = 32LL * lane;
-          const unsigned act =
-              o <= lo ? kFull : (o >= lo + 32 ? 0u : kFull << (o - lo));
-          cw &= act;
-          ow &= act;
-        }
-        // first candidate at or after the scan position
-        int kc_rel = cw ? 32 * lane + __ffs(cw) - 1 : kBig;
-        kc_rel = __reduce_min_sync(kFull, kc_rel);
-        // trigger: the m-th active opposing pair, m = T - c + 1 (c <= T)
-        const int pc = __popc(ow);
-        int incl = pc;
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-          const int u = __shfl_up_sync(kFull, incl, d);
-          if (lane >= d) incl += u;
-        }
-        const int total = __shfl_sync(kFull, incl, 31);
-        const int excl = incl - pc;
-        const long long m = P.T - c + 1;
-        int kt_rel = kBig;
-        if (excl < m && m <= incl) {
-          unsigned u = ow;
-          for (long long r = 1; r < m - excl; ++r) u &= u - 1;
-          kt_rel = 32 * lane + __ffs(u) - 1;
-        }
-        kt_rel = __reduce_min_sync(kFull, kt_rel);
-        const long long kc = kc_rel < kBig ? bstart + kc_rel : kBig;
-        const long long kt = kt_rel < kBig ? bstart + kt_rel : kBig;
+        const wblock::BlockHit h = wblock::block_search(
+            scand, sopp, (int)(bstart - t0), W, o, bstart, c, P.T, lane);
+        const long long kc = h.kc, kt = h.kt;
         // _resolve (in_block holds here)
         const long long cut_b = s + P.max_size < n ? s + P.max_size : n;
         const long long cut_k = cut_b - (P.L - 1);
@@ -204,7 +158,7 @@ fused_pipeline_kernel(const uint8_t* __restrict__ x,
           k = kt + P.skip;
         else
           k = bend;
-        c = (fire_cut || fire_cand || fire_trig) ? 0 : c + total;
+        c = (fire_cut || fire_cand || fire_trig) ? 0 : c + h.total;
         if (emit) {
           if (cnt < P.mc) {  // the split path's mode="drop" scatter
             if (lane == 0) {

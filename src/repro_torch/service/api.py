@@ -35,7 +35,13 @@ from repro_torch.dedup.store import (
     BlockStore,
     DirBlockStore,
 )
-from repro_torch.obs import MetricsRegistry, PhaseClock, labeled, span
+from repro_torch.obs import (
+    MetricsRegistry,
+    PhaseClock,
+    labeled,
+    merge_snapshots,
+    span,
+)
 
 from .objects import ObjectRecipe, RecipeTable
 from .scheduler import ChunkResult, ChunkScheduler
@@ -236,9 +242,20 @@ class ServiceBase:
             active.clock.move(src, dst, seconds)
 
     def metrics(self) -> dict:
-        """Live telemetry snapshot of this service's registry."""
-        return {"service": self.obs.snapshot(), "shards": [],
-                "aggregate": None}
+        """Live telemetry snapshot: ``service`` is this process's registry;
+        ``shards`` holds one server-side snapshot per remote shard (``None``
+        for an unreachable server; empty for in-process stores) and
+        ``aggregate`` their merge."""
+        shards = self._shard_metric_snapshots()
+        return {
+            "service": self.obs.snapshot(),
+            "shards": shards,
+            "aggregate": merge_snapshots(shards) if shards else None,
+        }
+
+    def _shard_metric_snapshots(self) -> List[Optional[dict]]:
+        """Per-shard server-side snapshots; base services have none."""
+        return []
 
 
 class DedupService(ServiceBase):
@@ -262,6 +279,7 @@ class DedupService(ServiceBase):
         cross_check_masks: bool = False,
         cross_check_fps: bool = False,
         cross_check_pipeline: bool = False,
+        cross_check_packing: bool = False,
         codec: Optional[str] = None,
     ):
         self.params = params or derived_params(avg_chunk)
@@ -280,6 +298,7 @@ class DedupService(ServiceBase):
             cross_check_masks=cross_check_masks,
             cross_check_fps=cross_check_fps,
             cross_check_pipeline=cross_check_pipeline,
+            cross_check_packing=cross_check_packing,
         )
         self.device = self.scheduler.device
         # ingest-cumulative: tracks every chunk ever ingested (the estimator

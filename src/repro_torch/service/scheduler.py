@@ -24,8 +24,18 @@ the batch through the other implementation (``cross_check_masks`` /
 ``_fps`` / ``_pipeline``) and raises a divergence error on any bit.  On a
 CPU device every kernel wrapper takes its plain version.
 
-Segment packing of sub-``min_bucket`` streams (``packing_impl="segments"``
-in the reference) is not ported yet and raises.
+Segment packing (``packing_impl="segments"``; default ``"off"``, as in the
+reference): every stream shorter than ``min_bucket`` goes to a pack queue
+instead of padding a bucket row of its own.  Once the queue holds a device
+batch's worth of payload (or at ``drain``), the streams are shelf-packed
+back to back into shared ``min_bucket``-wide rows and dispatched once
+through the packed pipeline: the packed CUDA kernel
+(``kernels/packed_pipeline.py``) for ``pipeline_impl="fused"``, the packed
+split path otherwise.  Its automaton resets at every segment end, so each
+stream's chunks and fingerprints equal chunking it alone and the demuxed
+results skip the host tail redo.  The first packed dispatch is replayed
+stream by stream through the unpacked pipeline and compared bit for bit
+(``cross_check_packing`` / ``PackingDivergenceError``).
 """
 from __future__ import annotations
 
@@ -39,7 +49,12 @@ import torch
 from repro_torch.core import oracle
 from repro_torch.core.automaton import max_chunks_for
 from repro_torch.core.params import SeqCDCParams, derived_params
-from repro_torch.core.seqcdc import MASK_IMPLS, boundaries_batch
+from repro_torch.core.seqcdc import (
+    MASK_IMPLS,
+    boundaries_batch,
+    boundaries_packed_batch,
+    segment_end_positions,
+)
 from repro_torch.dedup.fingerprint import (
     FP_IMPLS,
     MAX_CHUNK,
@@ -47,6 +62,7 @@ from repro_torch.dedup.fingerprint import (
     fingerprints_numpy,
 )
 from repro_torch.kernels import fused_pipeline as kfused
+from repro_torch.kernels import packed_pipeline as kpacked
 from repro_torch.obs import MetricsRegistry, labeled, span
 
 PipelineImpl = Literal["split", "fused"]
@@ -89,6 +105,37 @@ def _device_chunk(x, *, p, mc, mask_impl, with_fp, fp_impl, pipeline_impl):
         return bounds, counts, None, None
     return kfused.fused_pipeline_plain(x, p, max_chunks=mc,
                                        mask_impl=mask_impl, fp_impl=fp_impl)
+
+
+def _run_packed_fused(x, ends, p, mc):
+    """The packed kernel launch (module-level so the divergence tests can
+    interpose a corrupted kernel, like ``_run_fused``)."""
+    return kpacked.packed_pipeline_batch(x, ends, p, max_chunks=mc)
+
+
+def _run_packed_split(x, ends, p, mc, mask_impl, fp_impl, with_fp):
+    """The composed packed pipeline: the segment-aware boundary scan, then
+    the fingerprint stage (fingerprints are translation invariant, so the
+    packed bounds feed ``chunk_fingerprints`` with no correction)."""
+    if not with_fp:
+        sep = segment_end_positions(ends, x.shape[-1])
+        bounds, counts = boundaries_packed_batch(
+            x, sep, ends, p, mask_impl=mask_impl, max_chunks=mc)
+        return bounds, counts, None, None
+    return kpacked.packed_pipeline_plain(x, ends, p, max_chunks=mc,
+                                         mask_impl=mask_impl,
+                                         fp_impl=fp_impl)
+
+
+def _device_chunk_packed(x, ends, *, p, mc, mask_impl, with_fp, fp_impl,
+                         pipeline_impl):
+    """(R, S) packed rows -> (bounds, counts[, fps, lens]) in row
+    coordinates; ``ends`` is the (R, G) segment-end table.  The packed twin
+    of ``_device_chunk``: the packed rows have only the ``wide`` automaton,
+    which the packed kernel mirrors block for block."""
+    if pipeline_impl == "fused" and with_fp:
+        return _run_packed_fused(x, ends, p, mc)
+    return _run_packed_split(x, ends, p, mc, mask_impl, fp_impl, with_fp)
 
 
 def _trim_exact(data: np.ndarray, padded: np.ndarray,
@@ -152,6 +199,17 @@ class PipelineDivergenceError(AssertionError):
         self.stage = stage
 
 
+class PackingDivergenceError(AssertionError):
+    """A packed dispatch disagreed with the per-stream unpacked replay.
+
+    Raised by the first-packed-dispatch guard: every stream of the packed
+    batch is rerun as its own unpacked device row, and the demuxed packed
+    results must match bit for bit.  A divergence means the segment-reset
+    bookkeeping (the ``se`` register, the mask clip, the post-emit clamp)
+    regressed.
+    """
+
+
 @dataclasses.dataclass
 class ChunkRequest:
     seq: int  # submission order (results are returned in this order)
@@ -183,6 +241,7 @@ class SchedulerStats:
     tail_bytes: int = 0  # bytes re-chunked host-side (exactness fixup)
     tail_s: float = 0.0  # wall seconds the host tail redo cost (inside drain)
     cross_check_s: float = 0.0  # wall seconds spent in cross-check replays
+    packed_streams: int = 0  # streams that rode a shared packed row
 
     @property
     def occupancy(self) -> float:
@@ -213,6 +272,7 @@ class ChunkScheduler:
         cross_check_masks: bool = False,
         cross_check_fps: bool = False,
         cross_check_pipeline: bool = False,
+        cross_check_packing: bool = False,
         registry: MetricsRegistry | None = None,
     ):
         self.params = params or derived_params(8192)
@@ -231,15 +291,15 @@ class ChunkScheduler:
             if value not in allowed:
                 raise ValueError(
                     f"{name} must be one of {allowed}, got {value!r}")
-        if packing_impl == "segments":
-            raise NotImplementedError(
-                "packing_impl='segments' (segment-packed rows and the "
-                "packed_pipeline_batch kernel) is the next slice of the "
-                "port (ROADMAP.md)"
-            )
         self.slots = slots
         self.max_batch_bytes = max_batch_bytes
         self.min_bucket = max(min_bucket, self.params.max_size)
+        if packing_impl == "segments" and self.min_bucket > MAX_CHUNK:
+            raise ValueError(
+                f"packing_impl='segments' requires min_bucket <= "
+                f"{MAX_CHUNK} (the packed row width bound), got "
+                f"{self.min_bucket}"
+            )
         self.mask_impl = mask_impl
         self.fp_impl = fp_impl
         self.pipeline_impl = pipeline_impl
@@ -255,13 +315,24 @@ class ChunkScheduler:
         self._fp_checked_buckets: set[int] = set()
         self.cross_check_pipeline = cross_check_pipeline
         self._pipeline_checked_buckets: set[int] = set()
+        # the packing guard: the first packed dispatch replays every stream
+        # as its own unpacked row (packed must equal not packed)
+        self.cross_check_packing = cross_check_packing
+        self._packing_checked = False
+        self._pack_queue: List[ChunkRequest] = []
+        self._pack_bytes = 0
+        # dispatch the pack queue once it can fill a whole device batch of
+        # packed rows (drain flushes whatever is left)
+        self._pack_capacity = (
+            self._slots_for(self.min_bucket) * self.min_bucket
+        )
         self.stats = SchedulerStats()
         self.obs = registry if registry is not None else MetricsRegistry()
         self._dispatch_hist = labeled(
             "sched.dispatch_s", pipeline=self.pipeline_impl,
             mask=self.mask_impl, fp=self.fp_impl,
         )
-        self._bucket_metric_names: Dict[int, tuple[str, str, str]] = {}
+        self._bucket_metric_names: Dict[tuple, tuple[str, str, str]] = {}
         self._pending: Dict[int, List[ChunkRequest]] = {}
         self._ready: List[tuple[int, ChunkResult]] = []
         self._next_seq = 0
@@ -287,6 +358,14 @@ class ChunkScheduler:
                                   np.zeros((0, 2), dtype=np.uint32), empty))
             )
             return seq
+        if self.packing_impl == "segments" and arr.size < self.min_bucket:
+            # sub-bucket streams share device rows instead of padding a
+            # bucket row each
+            self._pack_queue.append(ChunkRequest(seq, tag, arr))
+            self._pack_bytes += arr.size
+            if self._pack_bytes >= self._pack_capacity:
+                self._dispatch_packed()
+            return seq
         bucket = self._bucket_for(arr.size)
         q = self._pending.setdefault(bucket, [])
         q.append(ChunkRequest(seq, tag, arr))
@@ -296,6 +375,8 @@ class ChunkScheduler:
 
     def drain(self) -> List[ChunkResult]:
         """Flush every partial bucket and return all results, FIFO order."""
+        if self._pack_queue:
+            self._dispatch_packed()
         for bucket in sorted(self._pending):
             if self._pending[bucket]:
                 self._dispatch(bucket)
@@ -320,17 +401,22 @@ class ChunkScheduler:
         ``max_batch_bytes``."""
         return max(1, min(self.slots, self.max_batch_bytes // bucket))
 
-    def _bucket_names(self, bucket: int) -> tuple[str, str, str]:
+    def _bucket_names(self, bucket: int,
+                      packed: bool = False) -> tuple[str, str, str]:
         """(occupancy, pad_waste, batch_rows) gauge names for one bucket,
-        rendered once per bucket rather than once per dispatch."""
-        names = self._bucket_metric_names.get(bucket)
+        rendered once per bucket rather than once per dispatch.  Packed
+        dispatches get their own ``packed=1`` series."""
+        key = (bucket, packed)
+        names = self._bucket_metric_names.get(key)
         if names is None:
+            labels = {"bucket": bucket, "packed": 1} if packed else {
+                "bucket": bucket}
             names = (
-                labeled("sched.occupancy", bucket=bucket),
-                labeled("sched.pad_waste", bucket=bucket),
-                labeled("sched.batch_rows", bucket=bucket),
+                labeled("sched.occupancy", **labels),
+                labeled("sched.pad_waste", **labels),
+                labeled("sched.batch_rows", **labels),
             )
-            self._bucket_metric_names[bucket] = names
+            self._bucket_metric_names[key] = names
         return names
 
     def _dispatch(self, bucket: int):
@@ -393,6 +479,143 @@ class ChunkScheduler:
                 r, bounds[row, : counts[row]],
                 fps[row] if fps is not None else None,
             )))
+
+    def _dispatch_packed(self):
+        """Shelf-pack the sub-bucket queue into shared rows and dispatch."""
+        reqs = self._pack_queue
+        self._pack_queue = []
+        self._pack_bytes = 0
+        if not reqs:
+            return
+        S = self.min_bucket
+        # next-fit shelf packing in arrival order: a stream that no longer
+        # fits opens a new row, which keeps demux order equal to submission
+        # order and the packing O(n)
+        rows: List[List[ChunkRequest]] = [[]]
+        fill = 0
+        for r in reqs:
+            if fill + r.data.size > S:
+                rows.append([])
+                fill = 0
+            rows[-1].append(r)
+            fill += r.data.size
+        slots = self._slots_for(S)
+        for i in range(0, len(rows), slots):
+            self._dispatch_packed_rows(rows[i:i + slots], S)
+
+    def _dispatch_packed_rows(self, rows: List[List[ChunkRequest]], S: int):
+        """One packed device dispatch: R rows of back-to-back segments."""
+        R = len(rows)
+        G = 4  # segment-table width rounded up to a power of two, so the
+        while G < max(len(rr) for rr in rows):  # shapes stay logarithmic
+            G <<= 1
+        batch = np.zeros((R, S), dtype=np.uint8)
+        ends = np.zeros((R, G), dtype=np.int32)
+        layout: List[List[tuple[ChunkRequest, int, int]]] = []
+        payload = 0
+        for ri, rr in enumerate(rows):
+            off = 0
+            row_layout = []
+            for gi, r in enumerate(rr):
+                m = r.data.size
+                batch[ri, off:off + m] = r.data
+                ends[ri, gi] = off + m
+                row_layout.append((r, off, off + m))
+                off += m
+            # pad entries carry the payload end; the per-position segment
+            # ends (the padding's own being the payload end) follow from
+            # this table (core/seqcdc.segment_end_positions)
+            ends[ri, len(rr):] = off
+            layout.append(row_layout)
+            payload += off
+        # per-segment bound on chunks: the sum of per-stream max_chunks_for
+        mc = S // self.params.min_size + 2 * G + 2
+        with span("sched.dispatch", bucket=S, rows=R, packed=1,
+                  payload_bytes=payload, device_bytes=batch.size):
+            t0 = time.perf_counter()
+            x = torch.from_numpy(batch).to(self.device)
+            out = _device_chunk_packed(
+                x, torch.from_numpy(ends).to(self.device), p=self.params,
+                mc=mc, mask_impl=self.mask_impl,
+                with_fp=self.with_fingerprints, fp_impl=self.fp_impl,
+                pipeline_impl=self.pipeline_impl,
+            )
+            bounds, counts, fps, _ = (_to_numpy(t) for t in out)
+            dispatch_s = time.perf_counter() - t0
+        # demux: each stream's chunks are the row bounds in (off, end];
+        # exact results (the automaton consulted the true segment ends), so
+        # no host tail redo
+        results: List[tuple[ChunkRequest, ChunkResult]] = []
+        for ri, row_layout in enumerate(layout):
+            bs = bounds[ri, : counts[ri]]
+            for r, off, end in row_layout:
+                i0 = int(np.searchsorted(bs, off, side="right"))
+                i1 = int(np.searchsorted(bs, end, side="right"))
+                rb = bs[i0:i1].astype(np.int64) - off
+                lengths = np.diff(np.concatenate([[0], rb]))
+                rf = (fps[ri, i0:i1].copy() if fps is not None
+                      else np.zeros((0, 2), dtype=np.uint32))
+                results.append(
+                    (r, ChunkResult(r.tag, r.data, rb, rf, lengths))
+                )
+        t_check = time.perf_counter()
+        if self.cross_check_packing and not self._packing_checked:
+            self._packing_checked = True
+            self.obs.inc(labeled("sched.cross_checks", kind="packing"))
+            self._cross_check_packing(S, results)
+        self.stats.cross_check_s += time.perf_counter() - t_check
+        self.stats.dispatches += 1
+        self.stats.device_bytes += batch.size
+        self.stats.device_rows += R
+        self.stats.packed_streams += len(results)
+        self.obs.inc("sched.dispatches")
+        self.obs.inc("sched.device_bytes", batch.size)
+        self.obs.inc("sched.payload_bytes", payload)
+        self.obs.inc("sched.packed_streams", len(results))
+        self.obs.observe(self._dispatch_hist, dispatch_s)
+        occ_name, waste_name, rows_name = self._bucket_names(S, packed=True)
+        occ = payload / batch.size if batch.size else 0.0
+        self.obs.set_gauge(occ_name, occ)
+        self.obs.set_gauge(waste_name, 1.0 - occ)
+        self.obs.set_gauge(rows_name, R)
+        for r, res in results:
+            self._ready.append((r.seq, res))
+
+    def _cross_check_packing(self, S: int,
+                             results: List[tuple[ChunkRequest, ChunkResult]]):
+        """Replay every packed stream as its own unpacked device row and
+        compare the demuxed packed results bit for bit.  The replay goes
+        through ``_device_chunk`` and the host tail trim, the pipeline a
+        ``packing_impl="off"`` scheduler runs: packed must equal not
+        packed."""
+        reqs = [r for r, _ in results]
+        xb = np.zeros((len(reqs), S), dtype=np.uint8)
+        for i, r in enumerate(reqs):
+            xb[i, : r.data.size] = r.data
+        out = _device_chunk(
+            torch.from_numpy(xb).to(self.device), p=self.params,
+            mc=max_chunks_for(S, self.params), mask_impl=self.mask_impl,
+            with_fp=self.with_fingerprints, fp_impl=self.fp_impl,
+            pipeline_impl=self.pipeline_impl,
+        )
+        b2, c2, f2, _ = (_to_numpy(t) for t in out)
+        bad = []
+        for i, (r, res) in enumerate(results):
+            eb, ef, el, _ = _trim_exact(
+                r.data, b2[i, : c2[i]],
+                f2[i] if f2 is not None else None, self.params,
+            )
+            if not (np.array_equal(res.bounds, eb)
+                    and np.array_equal(res.fps, ef)
+                    and np.array_equal(res.lengths, el)):
+                bad.append(i)
+        if bad:
+            raise PackingDivergenceError(
+                f"packed dispatch diverged from the per-stream unpacked "
+                f"replay on streams {bad} (row width {S}): the packed "
+                f"pipeline no longer chunks each stream exactly as it "
+                f"would chunk alone"
+            )
 
     def _cross_check(self, bucket: int, x: torch.Tensor,
                      bounds: np.ndarray, counts: np.ndarray):

@@ -13,14 +13,16 @@ import numpy as np
 import pytest
 import torch
 
+import _packing_cases
 from repro_torch.core.automaton import max_chunks_for
 from repro_torch.core.oracle import boundaries_numpy
 from repro_torch.core.params import SeqCDCParams, paper_params
 from repro_torch.dedup.fingerprint import fingerprints_numpy
 from repro_torch.kernels import fingerprint as kfp
 from repro_torch.kernels import fused_pipeline as kfused
+from repro_torch.kernels import packed_pipeline as kpacked
 from repro_torch.kernels import seqcdc_masks as kmasks
-from repro_torch.service import DedupService
+from repro_torch.service import DedupService, ShardedDedupService
 
 pytestmark = pytest.mark.cuda
 
@@ -133,8 +135,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
 
 
 def test_service_on_the_card_counts_launches(dev):
-    from repro_torch.kernels import KERNELS
-
+    # the unpacked path's kernels (packing is off by default)
+    KERNELS = (kmasks.KERNEL, kfp.KERNEL, kfused.KERNEL)
     rng = np.random.default_rng(9)
     svc = DedupService(params=P, device=dev, slots=2, min_bucket=1024,
                        cross_check_masks=True, cross_check_fps=True,
@@ -153,3 +155,118 @@ def test_service_on_the_card_counts_launches(dev):
         r = svc.recipes.get(str(i))
         ob = boundaries_numpy(o, P)
         assert r.chunk_lens == np.diff(np.concatenate([[0], ob])).tolist()
+
+
+def _packed_cases(rng, p, S):
+    """Segment mixes: directed edges, constant and low-entropy segments
+    that end mid-skip, segments shorter than L, and random mixes."""
+    r = lambda n: rng.integers(0, 256, n, dtype=np.uint8)
+    z = lambda n: np.zeros(n, np.uint8)
+    low = lambda n: rng.integers(0, 3, n, dtype=np.uint8)
+    rows = [[r(1), z(0), r(p.min_size), r(300), r(1)],
+            [z(0), z(0), r(700)],
+            [r(1)] * 40,
+            [z(70), z(100), z(130), low(200), z(65)],
+            [z(64 + q) for q in range(0, 200, 5)],
+            [r(int(n)) for n in rng.integers(1, p.seq_length + 1, 60)],
+            [],
+            [r(S)]]
+    for mode in range(4):
+        row, fill = [], 0
+        while True:
+            n = int(rng.integers(0, max(2, S // 8)))
+            if fill + n > S:
+                break
+            seg = (r(n), z(n), low(n), r(n) if n % 2 else z(n))[mode]
+            row.append(seg)
+            fill += n
+        rows.append(row)
+    out = []
+    for row in rows:
+        fill, cut = 0, []
+        for seg in row:
+            if fill + seg.size > S:
+                break
+            cut.append(seg)
+            fill += seg.size
+        out.append(cut or [z(0)])
+    return out
+
+
+@pytest.mark.parametrize("name,S", [("P", 1024), ("P", 4096),
+                                    ("P5", 8192), ("dec", 2048),
+                                    ("skid", 16384), ("w16", 3000),
+                                    ("w4", 1500), ("paper8k", 16384),
+                                    ("paper16k-dec", 32768)])
+def test_packed_kernel(dev, name, S):
+    p = PARAMS[name]
+    rng = np.random.default_rng(S)
+    streams = _packed_cases(rng, p, S)
+    data, _, ends, _ = _packing_cases.pack(
+        [[seg.tobytes() for seg in row] for row in streams], S)
+    x = torch.from_numpy(data).to(dev)
+    e = torch.from_numpy(ends).to(dev)
+    mc = S // p.min_size + 2 * ends.shape[1] + 2
+    got = kpacked.packed_pipeline_batch(x, e, p, max_chunks=mc)
+    want = kpacked.packed_pipeline_plain(x, e, p, max_chunks=mc)
+    torch.cuda.synchronize()
+    _equal(got, want)
+    bounds, counts, fps = (t.cpu().numpy() for t in got[:3])
+    for bi, row in enumerate(streams):  # per stream, the numpy oracle
+        off, j = 0, 0
+        for seg in row:
+            ob = boundaries_numpy(seg, p) if seg.size else np.zeros(0, int)
+            k = len(ob)
+            assert bounds[bi, j:j + k].tolist() == (ob + off).tolist()
+            np.testing.assert_array_equal(fps[bi, j:j + k],
+                                          fingerprints_numpy(seg, ob))
+            off += seg.size
+            j += k
+        assert counts[bi] == j
+
+
+@pytest.mark.parametrize("name", _packing_cases.CASES)
+def test_packed_kernel_on_the_cpu_tests_cases(dev, name):
+    """The cases tests/test_torch_packing.py holds against the reference,
+    held here against the plain version."""
+    pname, S, rows = _packing_cases.case(name)
+    p = SeqCDCParams(**_packing_cases.PARAMS[pname])
+    data, _, ends, _ = _packing_cases.pack(rows, S)
+    x = torch.from_numpy(data).to(dev)
+    e = torch.from_numpy(ends).to(dev)
+    mc = S // p.min_size + 2 * ends.shape[1] + 2
+    got = kpacked.packed_pipeline_batch(x, e, p, max_chunks=mc)
+    torch.cuda.synchronize()
+    _equal(got, kpacked.packed_pipeline_plain(x, e, p, max_chunks=mc))
+
+
+def test_packed_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    x = torch.zeros((2, 1024), dtype=torch.uint8, device=dev)
+    e = torch.full((2, 4), 1024, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        kpacked.packed_pipeline_batch(x, e.to(torch.int64), P, max_chunks=40)
+    with pytest.raises(ValueError, match="narrower"):
+        kpacked.packed_pipeline_batch(
+            torch.zeros((1, 1 << 17), dtype=torch.uint8, device=dev),
+            e[:1], P, max_chunks=8)
+
+
+def test_sharded_packed_service_on_the_card_counts_launches(dev):
+    from repro_torch.kernels import KERNELS
+
+    rng = np.random.default_rng(11)
+    with ShardedDedupService(
+            2, params=P, device=dev, slots=2, min_bucket=1024,
+            packing_impl="segments", cross_check_packing=True,
+            cross_check_pipeline=True) as svc:
+        for k in KERNELS:
+            k.launches = 0
+        objs = [rng.integers(0, 256, int(m), dtype=np.uint8)
+                for m in rng.integers(0, 3000, 30)]
+        for i, o in enumerate(objs):
+            svc.submit(str(i), o)
+        svc.flush()
+        assert kpacked.KERNEL.launches > 0
+        assert svc.scheduler.stats.packed_streams > 0
+        for i, o in enumerate(objs):
+            assert svc.get(str(i)) == o.tobytes()

@@ -157,11 +157,12 @@ def test_scheduler_fused_matches_split(rng):
 
 def test_scheduler_rejects_unknown_and_unported_impls():
     for kw in (dict(pipeline_impl="bogus"), dict(mask_impl="pallas"),
-               dict(fp_impl="reference")):
+               dict(fp_impl="reference"), dict(packing_impl="zip")):
         with pytest.raises(ValueError):
             ChunkScheduler(tp(P), device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ChunkScheduler(tp(P), device="cpu", packing_impl="segments")
+    # segment packing is ported (tests/test_torch_packing.py holds it)
+    assert ChunkScheduler(tp(P), device="cpu",
+                          packing_impl="segments").packing_impl == "segments"
 
 
 def _guarded(**kw):

@@ -5,8 +5,8 @@ The same submit sequence goes to ``repro_torch.service.DedupService
 lengths, packed fingerprints, digests), store accounting (stored, unique,
 compressed bytes) and restored bytes must be equal.  Depots interchange
 both ways, on disk.  A subprocess shows the port imports neither jax nor
-any ``repro`` module, and ``chip_smoke.py`` refuses to run without a card
-or outside a checkout.
+any ``repro`` module (single-store, packed and 2-shard ingests), and
+``chip_smoke.py`` refuses to run without a card or outside a checkout.
 """
 import dataclasses
 import os
@@ -204,6 +204,18 @@ def test_port_imports_no_jax_and_no_repro():
         "d = np.random.default_rng(0).integers(0, 256, 5000, dtype=np.uint8)\n"
         "svc.put('a', d)\n"
         "assert svc.get('a') == d.tobytes()\n"
+        "from repro_torch.service import ShardedDedupService\n"
+        "svc = DedupService(params=p, device='cpu', min_bucket=1024, "
+        "packing_impl='segments', cross_check_packing=True)\n"
+        "svc.put('t', d[:300])\n"
+        "assert svc.get('t') == d[:300].tobytes()\n"
+        "assert svc.scheduler.stats.packed_streams == 1\n"
+        "with ShardedDedupService(2, params=p, device='cpu', "
+        "min_bucket=1024, packing_impl='segments') as sh:\n"
+        "    sh.submit('a', d)\n"
+        "    sh.submit('t', d[:300])\n"
+        "    sh.flush()\n"
+        "    assert sh.get('a') == d.tobytes()\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
         "m.startswith('repro.')]\n"

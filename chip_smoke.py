@@ -5,33 +5,49 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It drives only
 ``src/repro_torch`` (never jax, never the JAX package ``repro``):
 
 1. the card: name and power limit from ``nvidia-smi``;
-2. the build: every CUDA kernel of the service's paths is compiled from
+2. the build: every CUDA kernel of the port's paths is compiled from
    ``src/repro_torch/kernels/csrc/*.cu`` (one ``nvcc`` per source, all in
    parallel) into ``build/kernels/``;
 3. each kernel against its plain torch version, on the card, at the
-   service's shapes (paper 8 KiB parameters): the unpacked kernels at a
-   1 MiB x 8 and a 48 KiB x 8 bucket, the packed kernel at 8 packed rows of
-   16 KiB under three segment mixes (all-tiny 100-1000 B, 512-2048 B, and
-   the heavy-tail sizes below 16 KiB); every output bit-equal, rows
-   spot-checked against the numpy oracle, kernel and plain times, and the
-   least time the card could take (its bound);
+   shapes its path gives it: the service's kernels at paper 8 KiB
+   parameters (masks, fused, fingerprint and select at a 1 MiB x 8 and a
+   48 KiB x 8 bucket, the packed kernel at 8 packed rows of 16 KiB under
+   three segment mixes: all-tiny 100-1000 B, 512-2048 B, and the
+   heavy-tail sizes below 16 KiB); the registry's kernels at calibrated
+   8 KiB knobs (gear and block max over a 64 MiB stream, select over one
+   1 MiB gear selector row, the native scan over 64 KiB for each of its
+   seven algorithms); every output bit-equal, rows spot-checked against
+   the numpy oracle, kernel, plain and (block max) library times, and the
+   least time the card could take (its bound); the plain gather and event
+   automaton steps, once each on a 4 MiB SeqCDC stream, bit-equal to the
+   select kernel; then the block-max op once, its only path;
 4. the single-store service: ``DedupService.open`` on a temporary
-   directory with the mask, fingerprint and pipeline cross-checks on, a
-   seeded versioned corpus (6 versions of 48 objects, log-uniform 16 KiB-
-   2 MiB, about 1% of bytes edited per version), every object submitted,
-   flushed, restored SHA-verified, and a sample of recipes held against the
-   numpy oracle;
+   directory with the mask, fingerprint and pipeline cross-checks on (their
+   replays run the split path: the masks, select and fingerprint kernels),
+   a seeded versioned corpus (6 versions of 48 objects, log-uniform
+   16 KiB-2 MiB, about 1% of bytes edited per version), every object
+   submitted, flushed, restored SHA-verified, and a sample of recipes held
+   against the numpy oracle;
 5. the sharded service with segment packing: ``ShardedDedupService.open``
    with 4 local shards, the fused pipeline and the packing cross-check, a
    seeded file tree (3 versions of 4,096 files, heavy-tail sizes; per
    version 2% of files edited, 1% new, 1% deleted), every version ingested,
    the last restored SHA-verified, a sample of recipes held against the
    oracle;
-6. the ``kernels`` JSON line, then the result line.
+6. the chunker registry: ``benchmarks/bench_chunking.py``'s native and
+   vectorized lists through ``make_chunker`` on the card at avg 8 KiB with
+   the calibrated knobs, at that benchmark's "full" sizes (64 MiB for the
+   vectorized chunkers, 16 MiB for rabin/crc/gear/fastcdc/tttd and every
+   ``_seq`` form), crc/rabin also with ``backend="torch"``: one warm-up
+   and two timed calls each, GB/s and mean chunk size, and every
+   (vectorized, native) pair of ``tests/test_baselines.py`` bit-equal on
+   one stream;
+7. the ``kernels`` JSON line, then the result line.
 
-The launch counts are set to 0 before phase 4 and before phase 5 and read
-after each; every kernel must launch in one of them, and each phase must
-launch the kernels of its own path.
+The launch counts are set to 0 before the block-max op in phase 3 and
+before phases 4, 5 and 6, and read after each; every kernel must launch in
+one of them, and each phase must launch the kernels of its own path.  The
+``kernels`` line sums them.
 
 It exits non-zero, with no result line, without a CUDA card, outside a
 checkout of the repo, or when any phase fails.
@@ -64,6 +80,12 @@ OBJECTS = 48
 TREE_VERSIONS = 3
 TREE_FILES = 4096
 SHARDS = 4
+
+#: phase 3's stream for the gear and block-max kernels (64 MiB, the
+#: vectorized chunkers' "full" size) and the native scans' (64 KiB: their
+#: plain versions are Python loops)
+BIG_STREAM = 64 << 20
+SCAN_BYTES = 64 << 10
 
 
 def log(*parts):
@@ -136,6 +158,15 @@ def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def timed(r: dict) -> dict:
+    """Set ``ms``: the kernel's own time on the card where the profiler's
+    trace has it, else the per-call time (host launch overhead included)."""
+    r["ms"] = r["device_ms"] if r["device_ms"] is not None else r["call_ms"]
+    r["ms_source"] = ("profiler device time" if r["device_ms"] is not None
+                      else "CUDA events per call")
+    return r
+
+
 # -- phase 3: each kernel against its plain version ---------------------------
 
 def kernel_phase(p, B: int, S: int, seed: int) -> dict:
@@ -147,6 +178,7 @@ def kernel_phase(p, B: int, S: int, seed: int) -> dict:
     from repro_torch.dedup.fingerprint import fingerprints_numpy
     from repro_torch.kernels import fingerprint as kfp
     from repro_torch.kernels import fused_pipeline as kfused
+    from repro_torch.kernels import select_boundaries as kselect
     from repro_torch.kernels import seqcdc_masks as kmasks
 
     rng = np.random.default_rng(seed)
@@ -221,21 +253,29 @@ def kernel_phase(p, B: int, S: int, seed: int) -> dict:
             x, b_t, c_t, max_chunks=mc), plain_reps),
     )
     for r in out.values():
-        # the kernel's own time on the card where the trace has it, else
-        # the per-call time (which includes the host's launch overhead)
-        r["ms"] = r["device_ms"] if r["device_ms"] is not None else r[
-            "call_ms"]
-        r["ms_source"] = ("profiler device time" if r["device_ms"] is not None
-                          else "CUDA events per call")
+        timed(r)
 
-    # the split path's boundary stage alone: the W-block automaton, a
-    # Python loop of torch ops on the card (cross-check replays only)
+    # the split path's boundary stage alone: the select kernel against the
+    # plain W-block automaton, a Python loop of torch ops on the card
     cand, opp = kmasks.seqcdc_masks(x, L, mode)
-    automaton_ms = cuda_ms(
-        lambda: select_boundaries(cand, opp, S, p, max_chunks=mc),
-        plain_reps)
+    got = kselect.select_boundaries(cand, opp, S, p, max_chunks=mc)
+    want = select_boundaries(cand, opp, S, p, max_chunks=mc)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if err:
+        raise AssertionError(f"select_boundaries differs from its plain "
+                             f"version at {B}x{S}")
+    bms, by = bound_ms(2 * B * S + 4 * B * mc + 4 * B, 4 * B * S)
+    out["select_boundaries"] = timed(dict(
+        max_abs_err=err, bound_ms=bms, bound_by=by,
+        **kernel_times(lambda: kselect.select_boundaries(
+            cand, opp, S, p, max_chunks=mc), 10, "select_boundaries_kernel"),
+        plain_ms=cuda_ms(
+            lambda: select_boundaries(cand, opp, S, p, max_chunks=mc),
+            plain_reps),
+    ))
     blocks = (S + p.skip_size + 2 * p.block_width - 1) // p.block_width
-    return out, dict(ms=automaton_ms, blocks=blocks)
+    return out, dict(ms=out["select_boundaries"]["plain_ms"], blocks=blocks)
 
 
 def heavy_tail(rng) -> int:
@@ -334,7 +374,7 @@ def packed_phase(p, B: int, S: int, seed: int) -> dict:
                 raise AssertionError(f"packed count row {bi} ({mix})")
         bms, by = bound_ms(B * S + 4 * B * G + 16 * B * mc + 4 * B,
                            (p.seq_length + 4) * B * S)
-        r = dict(
+        out[mix] = timed(dict(
             max_abs_err=err, bound_ms=bms, bound_by=by, G=G, mc=mc,
             streams=sum(len(row) for row in rows),
             payload_bytes=int(ends[:, -1].sum()),
@@ -342,13 +382,163 @@ def packed_phase(p, B: int, S: int, seed: int) -> dict:
                 x, e, p, max_chunks=mc), 20, "packed_pipeline_kernel"),
             plain_ms=cuda_ms(lambda: kpacked.packed_pipeline_plain(
                 x, e, p, max_chunks=mc), 3),
-        )
-        r["ms"] = r["device_ms"] if r["device_ms"] is not None else r[
-            "call_ms"]
-        r["ms_source"] = ("profiler device time" if r["device_ms"] is not None
-                          else "CUDA events per call")
-        out[mix] = r
+        ))
     return out
+
+
+# -- phase 3, the chunker registry's kernels -----------------------------
+
+#: the native scans' algorithms, each as the port's ``<algo>_seq`` chunker
+#: runs it (calibrated 8 KiB knobs)
+SCAN_ALGOS = ("gear", "crc", "rabin", "fastcdc", "ae", "ram", "seqcdc")
+
+
+def chunk_kernel_phase(seed: int, n_big: int, n_select: int,
+                       n_scan: int) -> dict:
+    """The gear, block-max, select (gear selector row) and native-scan
+    kernels against their plain versions at the registry's shapes, and the
+    plain ``gather``/``event`` steps against the select kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import automaton, make_chunker
+    from repro_torch.core.baselines.selectors import SelectorParams
+    from repro_torch.core.calibrate import calibrated_kwargs
+    from repro_torch.kernels import extremum as kext
+    from repro_torch.kernels import gear_hash as kgear
+    from repro_torch.kernels import native_scan as kscan
+    from repro_torch.kernels import seqcdc_masks as kmasks
+    from repro_torch.kernels import select_boundaries as kselect
+
+    rng = np.random.default_rng(seed + 3)
+    x = torch.from_numpy(rng.integers(0, 256, n_big, dtype=np.uint8)).cuda()
+    out = {}
+
+    # gear hash over the whole stream
+    got = kgear.gear_hash(x)
+    want = kgear.gear_hash_parallel(x)
+    torch.cuda.synchronize()
+    err = max_abs_err([got.view(torch.int32)], [want.view(torch.int32)])
+    if err:
+        raise AssertionError("gear_hash differs from its plain version")
+    bms, by = bound_ms(5 * n_big, 3 * n_big)
+    out["gear_hash"] = timed(dict(
+        max_abs_err=err, bound_ms=bms, bound_by=by, shape=f"{n_big} B",
+        **kernel_times(lambda: kgear.gear_hash(x), 20, "gear_hash_kernel"),
+        plain_ms=cuda_ms(lambda: kgear.gear_hash_parallel(x), 3),
+    ))
+
+    # per-block maxima, and the one PyTorch call that computes them
+    block = kext.DEFAULT_BLOCK
+    got = kext.block_max(x, block)
+    want = kext.block_max_plain(x, block)
+    torch.cuda.synchronize()
+    err = max_abs_err([got], [want])
+    if err:
+        raise AssertionError("block_max differs from its plain version")
+    nb = -(-n_big // block)
+    bms, by = bound_ms(n_big + nb, n_big)
+    out["block_max"] = timed(dict(
+        max_abs_err=err, bound_ms=bms, bound_by=by,
+        shape=f"{n_big} B, block {block}",
+        **kernel_times(lambda: kext.block_max(x, block), 20,
+                       "block_max_kernel"),
+        plain_ms=cuda_ms(lambda: kext.block_max_plain(x, block), 5),
+        library_ms=cuda_ms(lambda: torch.amax(x.view(-1, block), dim=1), 20),
+    ))
+
+    # the select kernel on one gear selector row (calibrated 8 KiB gear)
+    gear = make_chunker("gear", 8192, device="cuda",
+                        **calibrated_kwargs("gear", 8192))
+    h = kgear.gear_hash(x[:n_select]).to(torch.int64)
+    bits = ((h & int(gear.mask)) == 0)[None]
+    opp = torch.zeros_like(bits)
+    sp = SelectorParams(min_size=gear.min_size, max_size=gear.max_size)
+    mc = automaton.max_chunks_for(n_select, sp)
+    got = kselect.select_boundaries(bits, opp, n_select, sp)
+    want = automaton.select_boundaries(bits, opp, n_select, sp)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if err:
+        raise AssertionError("select_boundaries differs from its plain "
+                             "version on a gear selector row")
+    bms, by = bound_ms(2 * n_select + 4 * mc + 4, n_select)
+    out["select_boundaries gear row"] = timed(dict(
+        max_abs_err=err, bound_ms=bms, bound_by=by,
+        shape=f"1x{n_select} gear selector", chunks=int(got[1][0]),
+        **kernel_times(lambda: kselect.select_boundaries(
+            bits, opp, n_select, sp), 10, "select_boundaries_kernel"),
+        plain_ms=cuda_ms(lambda: automaton.select_boundaries(
+            bits, opp, n_select, sp), 1),
+    ))
+
+    # the plain gather and event steps on a SeqCDC stream, once each
+    seqcdc = make_chunker("seqcdc", 8192, device="cuda",
+                          **calibrated_kwargs("seqcdc", 8192))
+    p = seqcdc.params
+    cand, opp = kmasks.seqcdc_masks(x[None, :n_big // 16], p.seq_length,
+                                    p.mode)
+    n4 = cand.shape[1]
+    want = kselect.select_boundaries(cand, opp, n4, p)
+    steps = {}
+    for step in ("gather", "event"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = automaton.select_boundaries(cand, opp, n4, p, step_impl=step)
+        torch.cuda.synchronize()
+        steps[step] = (time.perf_counter() - t0) * 1e3
+        if max_abs_err(got, want):
+            raise AssertionError(f"the plain {step} step differs from the "
+                                 f"select kernel")
+    out["steps"] = dict(n=n4, select_kernel_ms=cuda_ms(
+        lambda: kselect.select_boundaries(cand, opp, n4, p), 5),
+        **{f"{k}_ms": v for k, v in steps.items()})
+
+    # each native scan on one stream, as its _seq chunker calls it
+    scans = {}
+    xs = x[None, :n_scan]
+    for algo in SCAN_ALGOS:
+        c = make_chunker(f"{algo}_seq", 8192, device="cuda",
+                         **calibrated_kwargs(algo, 8192))
+        kw = (dict(params=c.params) if algo == "seqcdc" else
+              dict(min_size=c.min_size, max_size=c.max_size,
+                   **c.scan_args()))
+        got = kscan.native_scan(xs, algo, **kw)
+        want = kscan.native_scan_plain(xs, algo, **kw)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if err:
+            raise AssertionError(f"native_scan ({algo}) differs from its "
+                                 f"plain version")
+        mc = got[0].shape[1]
+        bms, by = bound_ms(n_scan + 4 * mc, n_scan)
+        scans[algo] = timed(dict(
+            max_abs_err=err, bound_ms=bms, bound_by=by,
+            shape=f"1x{n_scan} {algo}", chunks=int(got[1][0]),
+            **kernel_times(lambda: kscan.native_scan(xs, algo, **kw), 5,
+                           "native_scan_kernel"),
+            plain_ms=cuda_ms(lambda: kscan.native_scan_plain(xs, algo, **kw),
+                             1, 0),
+        ))
+    out["native_scan"] = scans
+    return out
+
+
+def block_max_path(seed: int, n: int, kernels) -> dict:
+    """The block-max kernel's one path: the public op over a stream, with
+    the launch counts set to 0 just before and read just after."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import extremum as kext
+
+    x = torch.from_numpy(np.random.default_rng(seed + 4).integers(
+        0, 256, n, dtype=np.uint8)).cuda()
+    for k in kernels:
+        k.launches = 0
+    kext.block_max(x)
+    torch.cuda.synchronize()
+    return {k.name: k.launches for k in kernels}
 
 
 # -- phase 4: the service ------------------------------------------------------
@@ -634,6 +824,82 @@ def sharded_phase(p, seed: int, kernels) -> dict:
             svc.close()
 
 
+# -- phase 6: the chunker registry --------------------------------------
+
+#: benchmarks/bench_chunking.py's two lists (copied: the benchmarks import
+#: the JAX package), the paper's Figs. 1/7 (native) and 8/9 (vectorized)
+NATIVE = ["rabin_seq", "crc_seq", "gear_seq", "fastcdc_seq", "ae_seq",
+          "ram_seq", "seqcdc_seq"]
+VECTOR = ["rabin", "crc", "gear", "fastcdc", "tttd", "ae", "ram", "seqcdc",
+          "seqcdc_numpy"]
+#: tests/test_baselines.py's (vectorized, native) pairs
+PAIRS = [("seqcdc", "seqcdc_seq"), ("seqcdc", "seqcdc_numpy"),
+         ("gear", "gear_seq"), ("crc", "crc_seq"), ("rabin", "rabin_seq"),
+         ("fastcdc", "fastcdc_seq"), ("ae", "ae_seq"), ("ram", "ram_seq")]
+_SLOW = {"rabin", "crc", "gear", "fastcdc", "tttd"}
+
+
+def mib_for(name: str) -> int:
+    """bench_chunking.py's "full" budget (``_mb_for(name, "full")``)."""
+    if name in _SLOW or name.endswith("_seq"):
+        return 16
+    return 64
+
+
+def registry_phase(seed: int, avg: int, kernels) -> dict:
+    """Every chunker of the two lists through ``make_chunker`` on the card
+    at ``avg`` with the calibrated knobs (and crc/rabin once more with
+    ``backend="torch"``): one warm-up and two timed calls each on a prefix
+    of one seeded random stream, then every pair bit-equal on one stream."""
+    import numpy as np
+
+    from repro_torch.core import make_chunker
+    from repro_torch.core.calibrate import calibrated_kwargs
+
+    data = np.random.default_rng(seed + 5).integers(0, 256, 64 << 20,
+                                                    dtype=np.uint8)
+    runs = [(name, {}) for name in NATIVE + VECTOR]
+    runs += [(name, {"backend": "torch"}) for name in ("crc", "rabin")]
+    for k in kernels:
+        k.launches = 0  # the main path's count starts here
+    out, bounds = {}, {}
+    for name, extra in runs:
+        d = data[: mib_for(name) << 20]
+        c = make_chunker(name, avg, device="cuda",
+                         **calibrated_kwargs(name, avg), **extra)
+        b = c.chunk(d)  # warm-up
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            b2 = c.chunk(d)  # host bounds: the call has waited for the card
+            times.append(time.perf_counter() - t0)
+            if not np.array_equal(b, b2):
+                raise AssertionError(f"{name}: two runs differ")
+        if b[-1] != d.size or (np.diff(b) <= 0).any():
+            raise AssertionError(f"{name}: bounds are not a chunking")
+        label = name + ("[torch]" if extra else "")
+        bounds[label] = b
+        s = sum(times) / len(times)
+        out[label] = dict(bytes=d.size, s=times, gb_s=d.size / s / 1e9,
+                          chunks=int(b.size), mean_chunk=d.size / b.size)
+    launches = {k.name: k.launches for k in kernels}
+    for name in ("crc", "rabin"):
+        if not np.array_equal(bounds[name], bounds[f"{name}[torch]"]):
+            raise AssertionError(f"{name}: backend='torch' != 'numpy'")
+    pairs = {}
+    for vec, seq in PAIRS:
+        n = min(bounds[vec][-1], bounds[seq][-1])
+        b_vec = bounds[vec]
+        if b_vec[-1] != n:  # the vectorized form on the native's stream
+            b_vec = make_chunker(vec, avg, device="cuda",
+                                 **calibrated_kwargs(vec, avg)).chunk(
+                data[:n])
+        if not np.array_equal(b_vec, bounds[seq]):
+            raise AssertionError(f"{vec} != {seq} on {n} bytes")
+        pairs[f"{vec}=={seq}"] = int(n)
+    return dict(chunkers=out, pairs=pairs, launches=launches)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -684,9 +950,8 @@ def main(argv=None) -> int:
     for label, (B, S) in shapes.items():
         res, automaton = kernel_phase(p, B, S, args.seed)
         measured[label] = res
-        measured[f"{label} split automaton"] = automaton
-        log(f"split-path automaton {label}: {automaton['ms']:.1f} ms for "
-            f"{automaton['blocks']} W-blocks "
+        log(f"split-path automaton {label}: plain {automaton['ms']:.1f} ms "
+            f"for {automaton['blocks']} W-blocks "
             f"({automaton['ms'] / automaton['blocks']:.3f} ms per block: a "
             f"Python loop of torch ops)")
         for name, r in res.items():
@@ -706,6 +971,40 @@ def main(argv=None) -> int:
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
             f"({r['bound_by']})")
 
+    reg = chunk_kernel_phase(args.seed, BIG_STREAM, 1 << 20, SCAN_BYTES)
+    measured["registry"] = reg
+    rows3 = [(k, r) for k, r in reg.items() if k not in ("steps",
+                                                          "native_scan")]
+    rows3 += [(f"native_scan {a}", r) for a, r in reg["native_scan"].items()]
+    for name, r in rows3:
+        lib = (f", library {r['library_ms']:.4f} ms"
+               if "library_ms" in r else "")
+        log(f"kernel {name} ({r['shape']}): bit-equal to plain "
+            f"(max_abs_err {r['max_abs_err']}), {r['ms']:.4f} ms "
+            f"({r['ms_source']}; {r['call_ms']:.4f} ms per call), plain "
+            f"{r['plain_ms']:.4f} ms{lib}, bound {r['bound_ms']:.6f} ms "
+            f"({r['bound_by']})")
+    st = reg["steps"]
+    log(f"automaton steps on one {st['n']} B SeqCDC stream, bit-equal to "
+        f"the select kernel ({st['select_kernel_ms']:.4f} ms): plain gather "
+        f"{st['gather_ms']:.1f} ms, plain event {st['event_ms']:.1f} ms")
+    from repro_torch.kernels import (
+        extremum,
+        fingerprint,
+        fused_pipeline,
+        gear_hash,
+        native_scan,
+        packed_pipeline,
+        select_boundaries,
+        seqcdc_masks,
+    )
+
+    # block_max is on no chunker's path (nor the reference's): its path is
+    # the public op
+    path3 = block_max_path(args.seed, BIG_STREAM, KERNELS)
+    if path3[extremum.KERNEL.name] == 0:
+        raise AssertionError("the block_max op never launched its kernel")
+
     # 4. the single-store service
     svc = service_phase(p, VERSIONS, OBJECTS, args.seed, KERNELS)
     log(f"service: ingest {svc['ingest_mb_s']:.2f} MB/s "
@@ -721,15 +1020,10 @@ def main(argv=None) -> int:
         f"{svc['submit_s']:.3f}; by flush/get request phase: " + ", ".join(
         f"{k} {v:.3f}" for k, v in sorted(svc["phase_s"].items())))
     log(f"service: device dispatches (copy in, kernel, copy out) "
-        f"{svc['dispatch_s']:.3f} s")
-    from repro_torch.kernels import (
-        fingerprint,
-        fused_pipeline,
-        packed_pipeline,
-        seqcdc_masks,
-    )
-
-    path4 = (seqcdc_masks.KERNEL, fingerprint.KERNEL, fused_pipeline.KERNEL)
+        f"{svc['dispatch_s']:.3f} s; launches {svc['launches']}")
+    # the cross-check replays run the split path: masks, select, fingerprints
+    path4 = (seqcdc_masks.KERNEL, fingerprint.KERNEL, fused_pipeline.KERNEL,
+             select_boundaries.KERNEL)
     missing = [k.name for k in path4 if svc["launches"][k.name] == 0]
     if missing:
         raise AssertionError(f"kernels never launched by the single-store "
@@ -757,22 +1051,53 @@ def main(argv=None) -> int:
     if missing:
         raise AssertionError(f"kernels never launched by the sharded "
                              f"service: {missing}")
+
+    # 6. the chunker registry
+    rg = registry_phase(args.seed, 8192, KERNELS)
+    for name, r in rg["chunkers"].items():
+        runs = ", ".join(f"{t:.4f}" for t in r["s"])
+        log(f"chunker {name} ({r['bytes'] >> 20} MiB, avg 8192 calibrated): "
+            f"{r['gb_s']:.4f} GB/s (runs {runs} s), {r['chunks']} chunks, "
+            f"mean {r['mean_chunk']:.1f} B")
+    log("registry pairs bit-equal: " + ", ".join(
+        f"{k} ({v} B)" for k, v in rg["pairs"].items()))
+    log(f"registry: launches {rg['launches']}")
+    path6 = (gear_hash.KERNEL, select_boundaries.KERNEL, native_scan.KERNEL,
+             seqcdc_masks.KERNEL)
+    missing = [k.name for k in path6 if rg["launches"][k.name] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched by the chunker "
+                             f"registry: {missing}")
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith(("jax.", "repro."))
               or m == "repro"]
     if leaked:
         raise AssertionError(f"the port imported {leaked[:5]}")
 
-    # 6. the kernels line and the result
+    # 7. the kernels line and the result
+    row_of = {
+        packed_pipeline.KERNEL: ("16KiBx8 packed all-tiny",
+                                 packed["all-tiny"]),
+        gear_hash.KERNEL: (reg["gear_hash"]["shape"], reg["gear_hash"]),
+        extremum.KERNEL: (reg["block_max"]["shape"], reg["block_max"]),
+        native_scan.KERNEL: (reg["native_scan"]["seqcdc"]["shape"],
+                             reg["native_scan"]["seqcdc"]),
+    }
+    errs = {
+        packed_pipeline.KERNEL: [m["max_abs_err"] for m in packed.values()],
+        select_boundaries.KERNEL: [
+            reg["select_boundaries gear row"]["max_abs_err"]],
+        native_scan.KERNEL: [m["max_abs_err"]
+                             for m in reg["native_scan"].values()],
+    }
     rows = []
     for k in KERNELS:
-        if k is packed_pipeline.KERNEL:
-            shape, r = "16KiBx8 packed all-tiny", packed["all-tiny"]
-            err = max(m["max_abs_err"] for m in packed.values())
-        else:
-            shape, r = "1MiBx8", measured["1MiBx8"][k.name]
-            err = max(measured[s][k.name]["max_abs_err"] for s in shapes)
-        launches = svc["launches"][k.name] + sh["launches"][k.name]
+        shape, r = row_of.get(k, ("1MiBx8", measured["1MiBx8"].get(k.name)))
+        err = max(errs.get(k, []) + [r["max_abs_err"]] + [
+            measured[s][k.name]["max_abs_err"] for s in shapes
+            if k.name in measured[s]])
+        launches = (path3[k.name] + svc["launches"][k.name]
+                    + sh["launches"][k.name] + rg["launches"][k.name])
         if launches == 0:
             raise AssertionError(f"kernel {k.name} never launched")
         rows.append(dict(
@@ -780,15 +1105,16 @@ def main(argv=None) -> int:
             source=os.path.relpath(k.source, ROOT),
             replaces=k.replaces, launches=launches, max_abs_err=err,
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=None, shape=shape,
-            ms_source=r["ms_source"], call_ms=r["call_ms"],
+            bound_by=r["bound_by"], library_ms=r.get("library_ms"),
+            shape=shape, ms_source=r["ms_source"], call_ms=r["call_ms"],
         ))
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
         with open(args.json, "w") as f:
             json.dump(dict(card=card, build_s=build_s, kernels=measured,
-                           service=svc, sharded=sh), f, indent=1)
+                           service=svc, sharded=sh, registry=rg), f,
+                      indent=1, default=float)
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

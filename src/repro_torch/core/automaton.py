@@ -21,7 +21,11 @@ fifth register ``se`` (the current segment's end) replaces the row end in
 position is clamped to the next pending cut.  Its kernel is
 ``kernels/csrc/packed_pipeline.cu``.
 
-Only ``step_impl="wide"`` is ported; ``gather`` and ``event`` raise.
+The reference's two other steps are here too, as the torch ops they are
+on either device: ``gather`` (O(1) gathers per block against tables built
+in parallel over all blocks, the block loop kept) and ``event`` (a loop
+over events, jumping between them by ``searchsorted`` over prefix sums).
+Only ``wide`` has a kernel of its own (``kernels/select_boundaries.py``).
 """
 from __future__ import annotations
 
@@ -32,9 +36,8 @@ from .params import SeqCDCParams
 #: bounds sentinel past ``count`` (and "no event" in the block minima)
 _BIG = 1 << 30
 
-#: the step implementations of the reference that this port does not have
-#: yet (ROADMAP.md, "Modules to port", item 1)
-_UNPORTED_STEPS = ("gather", "event")
+#: the automaton's step implementations, as the reference names them
+STEP_IMPLS = ("wide", "gather", "event")
 
 
 def max_chunks_for(n: int, p: SeqCDCParams) -> int:
@@ -135,6 +138,141 @@ def _scan_wide(candb: torch.Tensor, oppb: torch.Tensor, n: int,
     return torch.stack(emits, dim=-1), torch.stack(bounds, dim=-1)
 
 
+def _scan_gather(candb: torch.Tensor, oppb: torch.Tensor, n: int,
+                 p: SeqCDCParams):
+    """The ``gather`` step over ``(B, nb, W)`` blocks: O(1) gathers per
+    block against tables built in parallel over all blocks.
+
+    * ``opp_pref`` ``(B, nb, W)``: inclusive prefix sums of the opposing
+      bitmap;
+    * ``next_cand`` ``(B, nb, W)``: the first candidate index ``>= j``
+      (a reverse cumulative min, ``flip`` + ``cummin``);
+    * ``mth_opp`` ``(B, nb, W)``: the index of the m-th (0-indexed)
+      opposing pair (``scatter_reduce(amin)``; every index is in range,
+      the reference's ``mode="drop"`` never drops).
+
+    Returns ``(emits, bounds)`` like :func:`_scan_wide`.
+    """
+    B, nb, W = candb.shape
+    dev = candb.device
+    iota = torch.arange(W, dtype=torch.int64, device=dev)
+    T = p.skip_trigger
+    opp_pref = torch.cumsum(oppb.to(torch.int64), dim=-1)
+    opp_total = opp_pref[..., -1]
+    masked = torch.where(candb, iota, _BIG)
+    next_cand = torch.flip(
+        torch.cummin(torch.flip(masked, dims=[-1]), dim=-1).values, dims=[-1])
+    ranks = torch.where(oppb, opp_pref - 1, _BIG).clamp(0, W - 1)
+    mth_opp = torch.full((B, nb, W), _BIG, dtype=torch.int64, device=dev)
+    mth_opp.scatter_reduce_(-1, ranks, torch.where(oppb, iota, _BIG),
+                            reduce="amin")
+    k = torch.full((B,), p.sub_min_skip, dtype=torch.int64, device=dev)
+    c = torch.zeros((B,), dtype=torch.int64, device=dev)
+    s = torch.zeros((B,), dtype=torch.int64, device=dev)
+    emits, bounds = [], []
+    for j in range(nb):
+        bstart = j * W
+        bend = bstart + W
+        in_block = (k < bend) & (s < n)
+        o = torch.clamp(k - bstart, 0, W - 1)
+        kc_rel = next_cand[:, j].gather(1, o[:, None])[:, 0]
+        kc = torch.where(kc_rel < _BIG, bstart + kc_rel, _BIG)
+        # trigger: the first pair with carry + (pref[j] - pref_before_o) > T
+        pref_b = opp_pref[:, j]
+        pref_before = torch.where(
+            o > 0, pref_b.gather(1, (o - 1).clamp(min=0)[:, None])[:, 0], 0)
+        m = (T - c) + pref_before  # 0-indexed rank of the exceeding pair
+        kt_rel = torch.where(
+            m < W, mth_opp[:, j].gather(1, m.clamp(0, W - 1)[:, None])[:, 0],
+            _BIG)
+        kt = torch.where((kt_rel < _BIG) & (kt_rel >= o), bstart + kt_rel,
+                         _BIG)
+        new_k, new_s, emit, bound, any_event = _resolve(
+            k, c, s, kc, kt, bend, in_block, n, p
+        )
+        c_pass = c + opp_total[:, j] - pref_before
+        c = torch.where(any_event, 0, torch.where(in_block, c_pass, c))
+        k, s = new_k, new_s
+        emits.append(emit)
+        bounds.append(bound)
+    return torch.stack(emits, dim=-1), torch.stack(bounds, dim=-1)
+
+
+def _scan_event(cand: torch.Tensor, opp: torch.Tensor, n: int,
+                p: SeqCDCParams, max_chunks: int):
+    """The ``event`` step over ``(B, n)`` bitmaps: one loop iteration per
+    event (emit or skip), not per block.
+
+    The next candidate at or after ``k`` and the skip trigger come from
+    ``searchsorted`` over the exclusive prefix sums of the two bitmaps.
+    The loop runs while any row has ``s < n`` and ``cnt < max_chunks``
+    (the reference's per-row ``while_loop`` condition); a row whose
+    condition fails keeps its state.  Returns ``(out (B, mc+1) int64,
+    count (B,) int64)``, column ``mc`` the drop slot.
+    """
+    B = cand.shape[0]
+    dev = cand.device
+    L = p.seq_length
+    T = p.skip_trigger
+    zero = torch.zeros((B, 1), dtype=torch.int64, device=dev)
+    cand_pref = torch.cat([zero, torch.cumsum(cand.to(torch.int64), -1)], -1)
+    opp_pref = torch.cat([zero, torch.cumsum(opp.to(torch.int64), -1)], -1)
+    total_cand = cand_pref[:, -1]
+    total_opp = opp_pref[:, -1]
+    k = torch.full((B,), p.sub_min_skip, dtype=torch.int64, device=dev)
+    c = torch.zeros((B,), dtype=torch.int64, device=dev)
+    s = torch.zeros((B,), dtype=torch.int64, device=dev)
+    cnt = torch.zeros((B,), dtype=torch.int64, device=dev)
+    out = torch.full((B, max_chunks + 1), _BIG, dtype=torch.int64,
+                     device=dev)
+    while True:
+        live = (s < n) & (cnt < max_chunks)
+        if not bool(live.any()):
+            break
+        kk = torch.clamp(k, 0, n)[:, None]
+        cut_b = torch.clamp(s + p.max_size, max=n)
+        cut_k = cut_b - (L - 1)
+        # the first candidate at a position >= k
+        rank_c = cand_pref.gather(1, kk)
+        kc = torch.where(
+            rank_c[:, 0] < total_cand,
+            torch.searchsorted(cand_pref, rank_c + 1)[:, 0] - 1, _BIG)
+        # the first opposing pair (at >= k) whose running count exceeds T
+        want = opp_pref.gather(1, kk) + (T - c)[:, None] + 1
+        kt = torch.where(
+            want[:, 0] <= total_opp,
+            torch.searchsorted(opp_pref, want)[:, 0] - 1, _BIG)
+        e_cut = torch.maximum(cut_k, k)
+        fire_cut = e_cut <= torch.minimum(kc, kt)
+        fire_cand = ~fire_cut & (kc < kt)
+        bound = torch.where(fire_cut, cut_b, kc + L)
+        emit = (fire_cut | fire_cand) & live
+        col = torch.where(emit, cnt, max_chunks)
+        out.scatter_(1, col[:, None], bound[:, None])
+        cnt = cnt + emit.to(torch.int64)
+        s = torch.where(emit, bound, s)
+        k = torch.where(live, torch.where(emit, bound + p.sub_min_skip,
+                                          kt + p.skip_size), k)
+        c = torch.where(live, 0, c)  # every event resets the counter
+    return out, cnt
+
+
+def _final_cut(out: torch.Tensor, count: torch.Tensor, n, max_chunks: int):
+    """``select_boundaries``' fix-up: guarantee the final boundary ``n``
+    (a no-op when already emitted).  ``out`` is ``(B, mc+1)`` with the
+    drop slot last; an index past the table reads its last slot, as a jnp
+    gather clamps.  ``n`` is an int or a ``(B,)`` tensor."""
+    li = torch.clamp(count - 1, 0, max_chunks - 1)
+    last = torch.where(count > 0, out.gather(1, li[:, None])[:, 0], 0)
+    n_t = torch.as_tensor(n, dtype=torch.int64, device=out.device)
+    n_t = n_t.expand(count.shape)
+    need = (last < n_t) & (n_t > 0)
+    col = torch.where(need & (count < max_chunks), count, max_chunks)
+    out.scatter_(1, col[:, None], n_t[:, None])
+    count = count + need.to(count.dtype)
+    return out[:, :max_chunks].to(torch.int32), count.to(torch.int32)
+
+
 def select_boundaries(
     cand: torch.Tensor,
     opp: torch.Tensor,
@@ -150,34 +288,26 @@ def select_boundaries(
     exclusive end offsets (sentinel ``1<<30`` past ``count``), sorted
     ascending, last real entry == n; ``count`` is ``(B,)`` int32.
     """
-    if step_impl in _UNPORTED_STEPS:
-        raise NotImplementedError(
-            f"step_impl={step_impl!r} is not ported yet (ROADMAP.md, "
-            f"'Modules to port', item 1: gather/event steps)"
-        )
-    if step_impl != "wide":
-        raise ValueError(step_impl)
+    if step_impl not in STEP_IMPLS:
+        raise ValueError(
+            f"step_impl must be one of {STEP_IMPLS}, got {step_impl!r}")
     if max_chunks is None:
         max_chunks = max_chunks_for(n, p)
+    if step_impl == "event":
+        out, count = _scan_event(cand, opp, n, p, max_chunks)
+        return _final_cut(out, count, n, max_chunks)
     B = cand.shape[0]
-    dev = cand.device
     candb, oppb = _padded_blocks(cand, opp, n, p)
-    emits, blk_bounds = _scan_wide(candb, oppb, n, p)
+    scan = _scan_wide if step_impl == "wide" else _scan_gather
+    emits, blk_bounds = scan(candb, oppb, n, p)
     count = emits.sum(dim=-1)
     idx = torch.cumsum(emits, dim=-1) - 1
     # the reference's mode="drop" scatter: emits past max_chunks vanish
     keep = emits & (idx < max_chunks)
-    out = torch.full((B, max_chunks + 1), _BIG, dtype=torch.int64, device=dev)
+    out = torch.full((B, max_chunks + 1), _BIG, dtype=torch.int64,
+                     device=cand.device)
     out.scatter_(1, torch.where(keep, idx, max_chunks), blk_bounds)
-    # fix-up: guarantee the final boundary n (no-op when already emitted);
-    # an index past the table reads its last slot, as a jnp gather clamps
-    li = torch.clamp(count - 1, 0, max_chunks - 1)
-    last = torch.where(count > 0, out.gather(1, li[:, None])[:, 0], 0)
-    need = (last < n) & (n > 0)
-    col = torch.where(need & (count < max_chunks), count, max_chunks)
-    out.scatter_(1, col[:, None], torch.full_like(col[:, None], n))
-    count = count + need.to(count.dtype)
-    return out[:, :max_chunks].to(torch.int32), count.to(torch.int32)
+    return _final_cut(out, count, n, max_chunks)
 
 
 def _scan_wide_packed(candb: torch.Tensor, oppb: torch.Tensor,
@@ -288,12 +418,4 @@ def select_boundaries_packed(
     n_row = ends.amax(dim=-1)  # the row's real payload end
     candb, oppb = _padded_blocks(cand, opp, S, p)
     out, count = _scan_wide_packed(candb, oppb, ends, n_row, p, max_chunks)
-    # fix-up: guarantee the final boundary n_row; an index past the table
-    # reads its last slot, as a jnp gather clamps
-    li = torch.clamp(count - 1, 0, max_chunks - 1)
-    last = torch.where(count > 0, out.gather(1, li[:, None])[:, 0], 0)
-    need = (last < n_row) & (n_row > 0)
-    col = torch.where(need & (count < max_chunks), count, max_chunks)
-    out.scatter_(1, col[:, None], n_row[:, None])
-    count = count + need.to(count.dtype)
-    return out[:, :max_chunks].to(torch.int32), count.to(torch.int32)
+    return _final_cut(out, count, n_row, max_chunks)

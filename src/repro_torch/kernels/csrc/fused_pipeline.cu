@@ -55,19 +55,14 @@ using wblock::kThreads;
 using wblock::kTile;
 using wblock::kWarps;
 
-struct Params {
-  long long n;       // row length S
-  long long cover;   // nb_split * W: the split path's padded block range
-  int mc, L, inc, W, T, skip, sub_min, max_size;
-};
-
 __global__ void __launch_bounds__(kThreads)
 fused_pipeline_kernel(const uint8_t* __restrict__ x,
                       const int32_t* __restrict__ pw,
                       int32_t* __restrict__ bounds,
                       int32_t* __restrict__ counts,
                       uint32_t* __restrict__ fps,
-                      int32_t* __restrict__ lens, Params P) {
+                      int32_t* __restrict__ lens, wblock::ScanParams P,
+                      int inc) {
   __shared__ uint8_t sx[kTile + kMaxHalo];
   __shared__ uint32_t scand[kTile / 32];
   __shared__ uint32_t sopp[kTile / 32];
@@ -76,7 +71,6 @@ fused_pipeline_kernel(const uint8_t* __restrict__ x,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long b = blockIdx.x;
   const long long n = P.n;
-  const int W = P.W;
   const uint8_t* row = x + b * n;
   int32_t* bnd = bounds + b * P.mc;
   int32_t* ln = lens + b * P.mc;
@@ -94,11 +88,10 @@ fused_pipeline_kernel(const uint8_t* __restrict__ x,
   __syncthreads();
 
   // the scan registers; only warp 0's copy is live
-  long long k = P.sub_min, c = 0, s = 0, cnt = 0, last_kept = 0;
+  wblock::ScanState st{P.sub_min, 0, 0, 0, 0};
   for (long long t0 = 0; t0 < P.cover; t0 += kTile) {
-    const long long tend = t0 + kTile;
-    if (sh_s >= n) break;          // the row is done
-    if (sh_k >= tend) continue;    // every block of this tile is a no-op
+    if (sh_s >= n) break;             // the row is done
+    if (sh_k >= t0 + kTile) continue;  // every block of this tile is a no-op
     // -- stage the tile's bytes (zero past the row), all loads in flight --
     wblock::stage_tile(sx, row, t0, n, P.L, tid);
     __syncthreads();
@@ -109,13 +102,13 @@ fused_pipeline_kernel(const uint8_t* __restrict__ x,
       bool cd = false, op = false;
       if (pos < n - 1) {
         const uint8_t a = sx[i], nx = sx[i + 1];
-        op = P.inc ? (nx < a) : (nx > a);
+        op = inc ? (nx < a) : (nx > a);
       }
       if (pos <= n - P.L) {
         cd = true;
         for (int j = 0; j < P.L - 1; ++j) {
           const uint8_t a = sx[i + j], nx = sx[i + j + 1];
-          cd = cd && (P.inc ? (nx > a) : (nx < a));
+          cd = cd && (inc ? (nx > a) : (nx < a));
         }
       }
       const unsigned cw = __ballot_sync(kFull, cd);
@@ -128,74 +121,25 @@ fused_pipeline_kernel(const uint8_t* __restrict__ x,
     __syncthreads();
     // -- warp 0: the W-block automaton over this tile -----------------------
     if (warp == 0) {
-      const long long blk_end = tend < P.cover ? tend : P.cover;
-      long long bstart = (k / W) * W;
-      if (bstart < t0) bstart = t0;
-      while (bstart < blk_end && s < n) {
-        const long long bend = bstart + W;
-        if (k >= bend) {  // not in_block: state unchanged, jump to k's block
-          const long long to = (k / W) * W;
-          bstart = to > bend ? to : bend;
-          continue;
-        }
-        const long long o = k > bstart ? k - bstart : 0;  // first active pos
-        const wblock::BlockHit h = wblock::block_search(
-            scand, sopp, (int)(bstart - t0), W, o, bstart, c, P.T, lane);
-        const long long kc = h.kc, kt = h.kt;
-        // _resolve (in_block holds here)
-        const long long cut_b = s + P.max_size < n ? s + P.max_size : n;
-        const long long cut_k = cut_b - (P.L - 1);
-        const long long e_cut = cut_k > k ? cut_k : k;
-        const bool fire_cut = e_cut < bend && e_cut <= (kc < kt ? kc : kt);
-        const bool fire_cand = !fire_cut && kc < kt;
-        const bool fire_trig = !fire_cut && !fire_cand && kt < kBig;
-        const bool emit_cut = fire_cut || (fire_trig && kt + P.skip >= cut_k);
-        const bool emit = emit_cut || fire_cand;
-        const long long bound = emit_cut ? cut_b : kc + P.L;
-        if (emit)
-          k = bound + P.sub_min;
-        else if (fire_trig)
-          k = kt + P.skip;
-        else
-          k = bend;
-        c = (fire_cut || fire_cand || fire_trig) ? 0 : c + h.total;
-        if (emit) {
-          if (cnt < P.mc) {  // the split path's mode="drop" scatter
-            if (lane == 0) {
-              bnd[cnt] = (int32_t)bound;
-              ln[cnt] = (int32_t)(bound - s);
-            }
-            last_kept = bound;
-          }
-          ++cnt;
-          s = bound;
-        }
-        bstart = bend;
-      }
+      wblock::scan_tile(st, scand, sopp, t0, P, bnd, ln, lane);
       if (lane == 0) {
-        sh_k = k;
-        sh_s = s;
+        sh_k = st.k;
+        sh_s = st.s;
       }
     }
     __syncthreads();
   }
   // -- select_boundaries' fixup (the final boundary n), then the hashes ----
   if (tid == 0) {
-    if ((cnt > 0 ? last_kept : 0) < n) {
-      if (cnt < P.mc) {
-        bnd[cnt] = (int32_t)n;
-        ln[cnt] = (int32_t)(n - s);
-      }
-      ++cnt;
-    }
+    const long long cnt = wblock::final_cut(st, P, bnd, ln);
     counts[b] = (int32_t)cnt;
     sh_kept = (int)(cnt < P.mc ? cnt : P.mc);
   }
   __syncthreads();
   for (int j = warp; j < sh_kept; j += kWarps) {
-    const long long e = bnd[j], st = j > 0 ? bnd[j - 1] : 0;
+    const long long e = bnd[j], st0 = j > 0 ? bnd[j - 1] : 0;
     unsigned long long a1 = 0, a2 = 0;
-    add_range<4>(row, st, e, e, pw, lane, a1, a2);
+    add_range<4>(row, st0, e, e, pw, lane, a1, a2);
     a1 = warp_sum_mod(a1);
     a2 = warp_sum_mod(a2);
     if (lane == 0) {
@@ -216,12 +160,12 @@ extern "C" int fused_pipeline_launch(const void* x, const void* pw,
   if (W < 1 || W > 1024 || (W & (W - 1)) != 0 || kTile % W != 0 ||
       L < 2 || L - 1 > kMaxHalo)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Params P{n, cover, mc, L, inc, W, T, skip, sub_min, max_size};
+  const wblock::ScanParams P{n, cover, mc, L, W, T, skip, sub_min, max_size};
   if (B > 0) {
     fused_pipeline_kernel<<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(x), static_cast<const int32_t*>(pw),
         static_cast<int32_t*>(bounds), static_cast<int32_t*>(counts),
-        static_cast<uint32_t*>(fps), static_cast<int32_t*>(lens), P);
+        static_cast<uint32_t*>(fps), static_cast<int32_t*>(lens), P, inc);
   }
   return static_cast<int>(cudaGetLastError());
 }

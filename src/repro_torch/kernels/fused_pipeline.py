@@ -43,12 +43,16 @@ KERNEL = Kernel(
 
 def fused_pipeline_plain(data: torch.Tensor, p: SeqCDCParams, *,
                          max_chunks: int, mask_impl: str = "torch",
+                         step_impl: str = "wide", select_impl: str = "torch",
                          fp_impl: str = "torch"):
     """The composed split path over a ``(B, S)`` batch: the normative
     pipeline the fused kernel collapses into one launch.  With the default
     ``"torch"`` stages it is the kernel's plain version; the scheduler's
-    split pipeline runs it with its own ``mask_impl``/``fp_impl``."""
+    split pipeline runs it with its own stages (the select kernel among
+    them)."""
     bounds, counts = boundaries_batch(data, p, mask_impl=mask_impl,
+                                      step_impl=step_impl,
+                                      select_impl=select_impl,
                                       max_chunks=max_chunks)
     fps, lens = chunk_fingerprints(data, bounds, counts,
                                    max_chunks=max_chunks, fp_impl=fp_impl)

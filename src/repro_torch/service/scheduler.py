@@ -17,8 +17,10 @@ results are bit-identical to chunking each stream alone.
 Device pipelines (``pipeline_impl``): ``"fused"`` runs masks, boundary scan
 and fingerprints as one CUDA kernel launch per batch
 (``kernels/fused_pipeline.py``); ``"split"`` runs the stages apart, with
-``mask_impl`` (``"cuda"`` kernel or ``"torch"``) for the phase-1 bitmaps
-and ``fp_impl`` (``"cuda"`` or ``"torch"``) for the fingerprints.  Each
+``mask_impl`` (``"cuda"`` kernel or ``"torch"``) for the phase-1 bitmaps,
+the reference's ``step_impl`` for the W-block automaton (``"wide"``, the
+default, runs as the select kernel; ``"gather"`` and ``"event"`` as plain
+torch) and ``fp_impl`` (``"cuda"`` or ``"torch"``) for the fingerprints.  Each
 knob has a first-dispatch-per-bucket bit-identity cross-check that replays
 the batch through the other implementation (``cross_check_masks`` /
 ``_fps`` / ``_pipeline``) and raises a divergence error on any bit.  On a
@@ -47,13 +49,14 @@ import numpy as np
 import torch
 
 from repro_torch.core import oracle
-from repro_torch.core.automaton import max_chunks_for
+from repro_torch.core.automaton import STEP_IMPLS, max_chunks_for
 from repro_torch.core.params import SeqCDCParams, derived_params
 from repro_torch.core.seqcdc import (
     MASK_IMPLS,
     boundaries_batch,
     boundaries_packed_batch,
     segment_end_positions,
+    select_impl_for,
 )
 from repro_torch.dedup.fingerprint import (
     FP_IMPLS,
@@ -90,21 +93,25 @@ def _run_fused(x, p, mc):
     return kfused.fused_pipeline_batch(x, p, max_chunks=mc)
 
 
-def _device_chunk(x, *, p, mc, mask_impl, with_fp, fp_impl, pipeline_impl):
+def _device_chunk(x, *, p, mc, mask_impl, step_impl, with_fp, fp_impl,
+                  pipeline_impl):
     """(B, S) uint8 tensor -> (bounds, counts[, fps, lens]).
 
     ``pipeline_impl="fused"`` runs the whole thing as one kernel launch
-    (``mask_impl``/``fp_impl`` then select only the cross-check replays);
-    a fingerprint-less batch has nothing to fuse and takes the split path.
+    (``mask_impl``/``step_impl``/``fp_impl`` then select only the
+    cross-check replays); a fingerprint-less batch has nothing to fuse and
+    takes the split path.
     """
     if pipeline_impl == "fused" and with_fp:
         return _run_fused(x, p, mc)
     if not with_fp:
-        bounds, counts = boundaries_batch(x, p, mask_impl=mask_impl,
-                                          max_chunks=mc)
+        bounds, counts = boundaries_batch(
+            x, p, mask_impl=mask_impl, step_impl=step_impl,
+            select_impl=select_impl_for(step_impl), max_chunks=mc)
         return bounds, counts, None, None
-    return kfused.fused_pipeline_plain(x, p, max_chunks=mc,
-                                       mask_impl=mask_impl, fp_impl=fp_impl)
+    return kfused.fused_pipeline_plain(
+        x, p, max_chunks=mc, mask_impl=mask_impl, step_impl=step_impl,
+        select_impl=select_impl_for(step_impl), fp_impl=fp_impl)
 
 
 def _run_packed_fused(x, ends, p, mc):
@@ -265,6 +272,7 @@ class ChunkScheduler:
         min_bucket: int = 1 << 14,
         max_batch_bytes: int = 8 << 20,
         mask_impl: str = "cuda",
+        step_impl: str = "wide",
         fp_impl: str = "cuda",
         pipeline_impl: str = "fused",
         packing_impl: str = "off",
@@ -284,6 +292,7 @@ class ChunkScheduler:
             )
         for name, value, allowed in (
             ("mask_impl", mask_impl, MASK_IMPLS),
+            ("step_impl", step_impl, STEP_IMPLS),
             ("fp_impl", fp_impl, FP_IMPLS),
             ("pipeline_impl", pipeline_impl, PIPELINE_IMPLS),
             ("packing_impl", packing_impl, PACKING_IMPLS),
@@ -301,6 +310,7 @@ class ChunkScheduler:
                 f"{self.min_bucket}"
             )
         self.mask_impl = mask_impl
+        self.step_impl = step_impl
         self.fp_impl = fp_impl
         self.pipeline_impl = pipeline_impl
         self.packing_impl = packing_impl
@@ -436,8 +446,8 @@ class ChunkScheduler:
             x = torch.from_numpy(batch).to(self.device)
             out = _device_chunk(
                 x, p=self.params, mc=mc, mask_impl=self.mask_impl,
-                with_fp=self.with_fingerprints, fp_impl=self.fp_impl,
-                pipeline_impl=self.pipeline_impl,
+                step_impl=self.step_impl, with_fp=self.with_fingerprints,
+                fp_impl=self.fp_impl, pipeline_impl=self.pipeline_impl,
             )
             # the copies back wait for the device, so the elapsed time is
             # the real dispatch latency, not the enqueue cost
@@ -595,8 +605,8 @@ class ChunkScheduler:
         out = _device_chunk(
             torch.from_numpy(xb).to(self.device), p=self.params,
             mc=max_chunks_for(S, self.params), mask_impl=self.mask_impl,
-            with_fp=self.with_fingerprints, fp_impl=self.fp_impl,
-            pipeline_impl=self.pipeline_impl,
+            step_impl=self.step_impl, with_fp=self.with_fingerprints,
+            fp_impl=self.fp_impl, pipeline_impl=self.pipeline_impl,
         )
         b2, c2, f2, _ = (_to_numpy(t) for t in out)
         bad = []
@@ -622,7 +632,8 @@ class ChunkScheduler:
         """Replay one batch through the other mask path; raise on any bit."""
         other = "torch" if self.mask_impl == "cuda" else "cuda"
         b2, c2 = boundaries_batch(
-            x, self.params, mask_impl=other,
+            x, self.params, mask_impl=other, step_impl=self.step_impl,
+            select_impl=select_impl_for(self.step_impl),
             max_chunks=max_chunks_for(bucket, self.params),
         )
         b2, c2 = _to_numpy(b2), _to_numpy(c2)
@@ -670,6 +681,8 @@ class ChunkScheduler:
             other = "split"
             out = kfused.fused_pipeline_plain(
                 x, self.params, max_chunks=mc, mask_impl=self.mask_impl,
+                step_impl=self.step_impl,
+                select_impl=select_impl_for(self.step_impl),
                 fp_impl=self.fp_impl)
         else:
             other = "fused"

@@ -108,6 +108,7 @@ class ShardedDedupService(ServiceBase):
         min_bucket: int = 1 << 14,
         recipes: Optional[RecipeTable] = None,
         mask_impl: str = "cuda",
+        step_impl: str = "wide",
         fp_impl: str = "cuda",
         pipeline_impl: str = "fused",
         packing_impl: str = "off",
@@ -172,8 +173,9 @@ class ShardedDedupService(ServiceBase):
         # fingerprints are mandatory: they are the routing key
         self.scheduler = ChunkScheduler(
             self.params, device=device, registry=self.obs, slots=slots,
-            min_bucket=min_bucket, mask_impl=mask_impl, fp_impl=fp_impl,
-            pipeline_impl=pipeline_impl, packing_impl=packing_impl,
+            min_bucket=min_bucket, mask_impl=mask_impl, step_impl=step_impl,
+            fp_impl=fp_impl, pipeline_impl=pipeline_impl,
+            packing_impl=packing_impl,
             with_fingerprints=True, cross_check_masks=cross_check_masks,
             cross_check_fps=cross_check_fps,
             cross_check_pipeline=cross_check_pipeline,

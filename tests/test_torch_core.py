@@ -2,10 +2,11 @@
 
 Parameters, the numpy oracle, the phase-1 masks (plain torch and the CUDA
 kernel's wrapper, which takes the plain version for CPU tensors) and the
-two-phase ``boundaries_batch`` (``wide`` automaton) are fed the same
-seeded numpy inputs as ``repro``'s functions; every output is an integer
-or a bit, so the tolerance is 0.  The JAX mask kernel runs as its own
-tests run it, in Pallas interpret mode.
+two-phase ``boundaries_batch`` (the ``wide``, ``gather`` and ``event``
+automaton steps) are fed the same seeded numpy inputs as ``repro``'s
+functions; every output is an integer or a bit, so the tolerance is 0.
+The JAX mask kernel runs as its own tests run it, in Pallas interpret
+mode.
 """
 import dataclasses
 
@@ -13,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repro.core import masks as jmasks
@@ -50,6 +52,17 @@ P_W4 = JParams(avg_size=128, seq_length=3, skip_trigger=1, skip_size=4,
 
 ALL_PARAMS = {"P": P, "P5": P5, "dec": P_DEC, "skid": P_SKID,
               "w16": P_W16, "w4": P_W4}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _leave_no_jax_trace():
+    """Clear JAX's caches once this file's tests are done.  The reference's
+    module-level jits (its scheduler's ``_device_chunk_packed`` among them)
+    would keep this file's traces, and a reference test that runs later in
+    the same process and monkeypatches what such a jit calls would hit the
+    cached trace and never see its patch."""
+    yield
+    jax.clear_caches()
 
 
 def tp(p):
@@ -192,13 +205,25 @@ def test_undersized_max_chunks_drops_like_reference(rng):
     _assert_batch_parity(adversarial_rows(rng, 3000), P, mc=5)
 
 
-def test_unported_steps_raise(rng):
-    d = torch.from_numpy(rng.integers(0, 256, (1, 100), dtype=np.uint8))
-    for step in ("gather", "event"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tseqcdc.boundaries_batch(d, tp(P), step_impl=step)
+@pytest.mark.parametrize("step", ["gather", "event"])
+@pytest.mark.parametrize("name", sorted(ALL_PARAMS))
+def test_gather_and_event_steps_match_reference(name, step, rng):
+    """The reference's two other automaton steps, on the adversarial rows,
+    with a true and an undersized max_chunks."""
+    p = ALL_PARAMS[name]
+    d = adversarial_rows(rng, 20000 if name == "skid" else 3000)
+    for mc in (None, 5):
+        want_b, want_c = jseqcdc.boundaries_batch(
+            jnp.asarray(d), p, step_impl=step, max_chunks=mc)
+        got_b, got_c = tseqcdc.boundaries_batch(
+            torch.from_numpy(d), tp(p), step_impl=step, max_chunks=mc)
+        np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
+        np.testing.assert_array_equal(got_b.numpy(), np.asarray(want_b))
+    x = torch.from_numpy(d[:1])
     with pytest.raises(ValueError):
-        tseqcdc.boundaries_batch(d, tp(P), mask_impl="pallas")
+        tseqcdc.boundaries_batch(x, tp(p), mask_impl="pallas")
+    with pytest.raises(ValueError, match="wide"):  # the kernel's one step
+        tseqcdc.boundaries_batch(x, tp(p), step_impl=step, select_impl="cuda")
 
 
 def test_bounds_to_numpy_shapes():

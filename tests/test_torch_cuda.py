@@ -14,13 +14,22 @@ import pytest
 import torch
 
 import _packing_cases
+from repro_torch.core import available, make_chunker
 from repro_torch.core.automaton import max_chunks_for
+from repro_torch.core.automaton import select_boundaries as select_plain
+from repro_torch.core.baselines.selectors import SelectorParams
+from repro_torch.core.calibrate import calibrated_kwargs
 from repro_torch.core.oracle import boundaries_numpy
 from repro_torch.core.params import SeqCDCParams, paper_params
+from repro_torch.core.seqcdc import boundaries_sequential
 from repro_torch.dedup.fingerprint import fingerprints_numpy
+from repro_torch.kernels import extremum as kext
 from repro_torch.kernels import fingerprint as kfp
 from repro_torch.kernels import fused_pipeline as kfused
+from repro_torch.kernels import gear_hash as kgear
+from repro_torch.kernels import native_scan as kscan
 from repro_torch.kernels import packed_pipeline as kpacked
+from repro_torch.kernels import select_boundaries as kselect
 from repro_torch.kernels import seqcdc_masks as kmasks
 from repro_torch.service import DedupService, ShardedDedupService
 
@@ -270,3 +279,153 @@ def test_sharded_packed_service_on_the_card_counts_launches(dev):
         assert svc.scheduler.stats.packed_streams > 0
         for i, o in enumerate(objs):
             assert svc.get(str(i)) == o.tobytes()
+
+
+# -- the chunker registry's kernels ---------------------------------------
+
+#: tests/test_kernels.py's lengths, and two past a kernel tile
+LENGTHS = [1, 2, 31, 32, 100, 1023, 1024, 1025, 4096, 70000, (1 << 20) + 7]
+
+
+@pytest.mark.parametrize("n", LENGTHS)
+def test_gear_kernel(dev, n):
+    host = np.random.default_rng(n).integers(0, 256, n + 3, dtype=np.uint8)
+    x = torch.from_numpy(host).to(dev)
+    for view in (x[:n], x[3:]):  # an aligned and an offset stream
+        got = kgear.gear_hash(view)
+        torch.cuda.synchronize()
+        _equal([got], [kgear.gear_hash_parallel(view)])
+    if n <= 4096:
+        _equal([kgear.gear_hash(x[:n])], [kgear.gear_hash_sequential(x[:n])])
+
+
+@pytest.mark.parametrize("n", [1, 128, 1000, 65536, 70001])
+@pytest.mark.parametrize("block", [64, 100, 128])
+def test_block_max_kernel(dev, n, block):
+    host = np.random.default_rng(n).integers(0, 256, n + 1, dtype=np.uint8)
+    x = torch.from_numpy(host).to(dev)
+    for view in (x[:n], x[1:]):  # 16-byte aligned and not
+        got = kext.block_max(view, block)
+        torch.cuda.synchronize()
+        _equal([got], [kext.block_max_plain(view, block)])
+
+
+@pytest.mark.parametrize("name", sorted(PARAMS))
+@pytest.mark.parametrize("n", [1, 64, 5000, 40000])
+def test_select_kernel_on_seqcdc_bitmaps(dev, name, n):
+    p = PARAMS[name]
+    x = torch.from_numpy(_rows(np.random.default_rng(n), n)).to(dev)
+    cand, opp = kmasks.seqcdc_masks(x, p.seq_length, p.mode)
+    for mc in (max_chunks_for(n, p), 3):  # a true and an undersized bound
+        got = kselect.select_boundaries(cand, opp, n, p, max_chunks=mc)
+        torch.cuda.synchronize()
+        _equal(got, select_plain(cand, opp, n, p, max_chunks=mc))
+
+
+@pytest.mark.parametrize("density", [0.0, 1 / 4096, 1 / 64, 1.0])
+def test_select_kernel_on_selector_bitmaps(dev, density):
+    """The hash chunkers' selector: a match bitmap, no opposing pairs,
+    L = 1, T = 2^30 and 2^20 bytes of padding the kernel never reads."""
+    rng = np.random.default_rng(7)
+    n = 300_000
+    bits = torch.from_numpy(rng.random((2, n)) < density).to(dev)
+    for mn, mx in ((1024, 4096), (4096, 16384)):
+        p = SelectorParams(min_size=mn, max_size=mx)
+        got = kselect.select_boundaries(bits, torch.zeros_like(bits), n, p)
+        torch.cuda.synchronize()
+        _equal(got, select_plain(bits, torch.zeros_like(bits), n, p))
+
+
+def _scan_cases():
+    gear = kgear.gear_table()
+    return {
+        "gear": dict(tables=gear, mask=0xFFF00000),
+        "crc": dict(tables=np.stack([gear, gear[::-1], gear ^ 0x5A5A]),
+                    mask=0x7FF, window=32),
+        "rabin": dict(tables=np.stack([gear, gear[::-1], gear ^ 0x5A5A]),
+                      mask=0x7FF, window=48),
+        "fastcdc": dict(tables=gear, mask=0x0F0F0000, mask_l=0x00030000,
+                        avg_size=3000),
+        "ae": dict(window=1500),
+        "ram": dict(window=1800),
+    }
+
+
+@pytest.mark.parametrize("algo", ["gear", "crc", "rabin", "fastcdc", "ae",
+                                  "ram"])
+def test_native_scan_kernel(dev, algo):
+    n = 1 << 16
+    x = torch.from_numpy(_rows(np.random.default_rng(3), n)).to(dev)
+    kw = dict(_scan_cases()[algo], min_size=1024, max_size=6000)
+    for mc in (None, 4):
+        got = kscan.native_scan(x, algo, max_chunks=mc, **kw)
+        torch.cuda.synchronize()
+        _equal(got, kscan.native_scan_plain(x, algo, max_chunks=mc, **kw))
+
+
+@pytest.mark.parametrize("name", sorted(PARAMS))
+def test_native_scan_kernel_seqcdc(dev, name):
+    p = PARAMS[name]
+    host = _rows(np.random.default_rng(4), 20000)
+    x = torch.from_numpy(host).to(dev)
+    got = kscan.native_scan(x, "seqcdc", params=p)
+    torch.cuda.synchronize()
+    _equal(got, kscan.native_scan_plain(x, "seqcdc", params=p))
+    for r in range(host.shape[0]):
+        b, c = boundaries_sequential(x[r], p)
+        assert b[: int(c)].tolist() == boundaries_numpy(host[r], p).tolist()
+
+
+def test_chunk_kernel_wrappers_refuse(dev):
+    i32 = torch.zeros(100, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        kgear.gear_hash(i32)
+    with pytest.raises(ValueError):
+        kext.block_max(i32)
+    with pytest.raises(ValueError):
+        kext.block_max(i32.to(torch.uint8), 0)
+    b = torch.zeros((1, 100), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):
+        kselect.select_boundaries(b.to(torch.uint8), b, 100, P)
+    with pytest.raises(ValueError):
+        kselect.select_boundaries(b, b[:, :50], 100, P)
+    # a W-block wider than the kernel's 32 mask words: the launcher refuses
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        kselect.select_boundaries(b, b, 100, _WideW())
+    with pytest.raises(ValueError):
+        kscan.native_scan(i32[None], "gear", min_size=64, max_size=128)
+    with pytest.raises(ValueError):
+        kscan.native_scan(i32.to(torch.uint8)[None], "zstd", min_size=64,
+                          max_size=128)
+    with pytest.raises(ValueError):  # too short for a seqcdc scan
+        kscan.native_scan(i32.to(torch.uint8)[None, :1], "seqcdc", params=P)
+
+
+class _WideW:
+    """SeqCDC-shaped parameters whose W-block (2048) exceeds the kernel's."""
+
+    seq_length, skip_trigger, skip_size = 3, 6, 4096
+    min_size, max_size, sub_min_skip, block_width = 8192, 16384, 8189, 2048
+
+
+def test_chunkers_on_the_card_count_launches(dev):
+    """Every registered chunker on the card gives the CPU's bounds, and
+    the registry's kernels launch."""
+    kernels = (kgear.KERNEL, kselect.KERNEL, kscan.KERNEL, kmasks.KERNEL)
+    for k in kernels:
+        k.launches = 0
+    rng = np.random.default_rng(12)
+    data = {"random": rng.integers(0, 256, 300_000, dtype=np.uint8),
+            "low": rng.integers(0, 3, 300_000, dtype=np.uint8)}
+    for name in available():
+        for avg in (4096, 8192):
+            kw = calibrated_kwargs(name, avg)
+            extra = ({"backend": "torch"} if name in ("crc", "rabin")
+                     else {})
+            for d in data.values():
+                want = make_chunker(name, avg, device="cpu", **kw).chunk(d)
+                got = make_chunker(name, avg, device=dev, **kw,
+                                   **extra).chunk(d)
+                np.testing.assert_array_equal(got, want, err_msg=name)
+    assert all(k.launches > 0 for k in kernels), [
+        (k.name, k.launches) for k in kernels]

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repro.core.params import SeqCDCParams as JParams
@@ -28,6 +29,18 @@ from repro_torch.kernels import fingerprint as kfp
 
 P = JParams(avg_size=256, seq_length=3, skip_trigger=6, skip_size=32,
             min_size=64, max_size=512)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _leave_no_jax_trace():
+    """Clear JAX's caches once this file's tests are done.  The reference's
+    module-level jits (its scheduler's ``_device_chunk_packed`` among them)
+    would keep this file's traces, and a reference test that runs later in
+    the same process and monkeypatches what such a jit calls would hit the
+    cached trace and never see its patch."""
+    yield
+    jax.clear_caches()
+
 
 _SENTINEL = 1 << 30
 

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repro.core.params import SeqCDCParams as JParams
@@ -40,6 +41,18 @@ P5 = JParams(avg_size=256, seq_length=5, skip_trigger=6, skip_size=32,
              min_size=64, max_size=512)
 P_SKID = JParams(avg_size=4096, seq_length=5, skip_trigger=3,
                  skip_size=3000, min_size=2048, max_size=8192)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _leave_no_jax_trace():
+    """Clear JAX's caches once this file's tests are done.  The reference's
+    module-level jits (its scheduler's ``_device_chunk_packed`` among them)
+    would keep this file's traces, and a reference test that runs later in
+    the same process and monkeypatches what such a jit calls would hit the
+    cached trace and never see its patch."""
+    yield
+    jax.clear_caches()
+
 
 _SENTINEL = 1 << 30
 _NAMES = ("bounds", "counts", "fps", "lengths")

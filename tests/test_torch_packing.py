@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import _packing_cases as cases_mod
@@ -47,6 +48,18 @@ from repro_torch.service import (
     DedupService,
     PackingDivergenceError,
 )
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _leave_no_jax_trace():
+    """Clear JAX's caches once this file's tests are done.  The reference's
+    module-level jits (its scheduler's ``_device_chunk_packed`` among them)
+    would keep this file's traces, and a reference test that runs later in
+    the same process and monkeypatches what such a jit calls would hit the
+    cached trace and never see its patch."""
+    yield
+    jax.clear_caches()
+
 
 PARAMS = {name: JParams(**fields) for name, fields in
           cases_mod.PARAMS.items()}

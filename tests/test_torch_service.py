@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
 from repro.core.params import SeqCDCParams as JParams
 from repro.service import DedupService as JDedupService
 
@@ -30,6 +32,17 @@ SRC = os.path.join(ROOT, "src")
 
 P = JParams(avg_size=256, seq_length=3, skip_trigger=6, skip_size=32,
             min_size=64, max_size=512)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _leave_no_jax_trace():
+    """Clear JAX's caches once this file's tests are done.  The reference's
+    module-level jits (its scheduler's ``_device_chunk_packed`` among them)
+    would keep this file's traces, and a reference test that runs later in
+    the same process and monkeypatches what such a jit calls would hit the
+    cached trace and never see its patch."""
+    yield
+    jax.clear_caches()
 
 
 def versioned_objects(seed: int, versions: int, objects: int,
@@ -216,6 +229,10 @@ def test_port_imports_no_jax_and_no_repro():
         "    sh.submit('t', d[:300])\n"
         "    sh.flush()\n"
         "    assert sh.get('a') == d.tobytes()\n"
+        "from repro_torch.core import available, make_chunker\n"
+        "for name in available():\n"
+        "    b = make_chunker(name, 4096, device='cpu').chunk(d)\n"
+        "    assert b[-1] == d.size, name\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
         "m.startswith('repro.')]\n"
@@ -226,6 +243,27 @@ def test_port_imports_no_jax_and_no_repro():
                {"PYTHONPATH": os.path.abspath(SRC)})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("clean")
+
+
+@pytest.mark.timeout(300)
+def test_package_init_and_shard_server_import_no_torch():
+    """``import repro_torch``, its parameters and the shard server's module
+    stay numpy+stdlib: a spawned shard server must not pay torch's import,
+    so the package inits resolve their torch modules lazily."""
+    code = (
+        "import sys\n"
+        "import repro_torch\n"
+        "import repro_torch.core.params\n"
+        "import repro_torch.service.transport.shard_server\n"
+        "assert repro_torch.core.SeqCDCParams is repro_torch.SeqCDCParams\n"
+        "assert 'torch' not in sys.modules, sorted(\n"
+        "    m for m in sys.modules if m.startswith('repro_torch'))\n"
+        "print('torch-free')\n"
+    )
+    out = _run([sys.executable, "-c", code], ROOT,
+               {"PYTHONPATH": os.path.abspath(SRC)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("torch-free")
 
 
 @pytest.mark.timeout(300)

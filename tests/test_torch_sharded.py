@@ -15,6 +15,8 @@ import os
 import numpy as np
 import pytest
 
+import jax
+
 from repro.core.params import SeqCDCParams as JParams
 from repro.dedup import dist_index as jdist
 from repro.service import ShardedDedupService as JSharded
@@ -25,6 +27,19 @@ from repro_torch.service import ShardedDedupService
 
 P = JParams(avg_size=256, seq_length=3, skip_trigger=6, skip_size=32,
             min_size=64, max_size=512)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _leave_no_jax_trace():
+    """Clear JAX's caches once this file's tests are done.  The reference's
+    module-level jits (its scheduler's ``_device_chunk_packed`` among them)
+    would keep this file's traces, and a reference test that runs later in
+    the same process and monkeypatches what such a jit calls would hit the
+    cached trace and never see its patch."""
+    yield
+    jax.clear_caches()
+
+
 TP = repro_torch.params_from_reference(P)
 KW = dict(slots=2, min_bucket=1024)
 

@@ -20,7 +20,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It drives only
    the numpy oracle, kernel, plain and (block max) library times, and the
    least time the card could take (its bound); the plain gather and event
    automaton steps, once each on a 4 MiB SeqCDC stream, bit-equal to the
-   select kernel; then the block-max op once, its only path;
+   select kernel; then the block-max op once, its only path; the flash
+   attention kernel at llama3.2-1b's serving shapes (1 x 2048 and 4096
+   tokens, 32 query and 8 KV heads of width 64, causal, bfloat16 and
+   float32) and one small ragged case each for the full mask and a local
+   window, with its error beside the stated tolerance, kernel, plain and
+   SDPA times and its bound;
 4. the single-store service: ``DedupService.open`` on a temporary
    directory with the mask, fingerprint and pipeline cross-checks on (their
    replays run the split path: the masks, select and fingerprint kernels),
@@ -42,12 +47,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It drives only
    and two timed calls each, GB/s and mean chunk size, and every
    (vectorized, native) pair of ``tests/test_baselines.py`` bit-equal on
    one stream;
-7. the ``kernels`` JSON line, then the result line.
+7. LM serving at full ``llama3.2-1b`` width: random bfloat16 weights from
+   a seeded generator on the card, ``Engine`` with 4 slots and a 4,160-
+   token cache, 8 requests of 4096, 2048, 4096, 2048, 1024, 512, 100 and
+   37 prompt tokens taking 32 new tokens each (greedy); every request
+   must finish with 32 in-range tokens and finite logits and the flash
+   kernel must launch once a layer for each prompt above 1024 tokens
+   (4 x 16); prefill ms per prompt, decode tokens/s, and the device's
+   busy share over the run's first decode-only steps (their device time
+   traced in a replay of the same requests); then one 2048-token
+   prompt's last-token logits on the flash route against the materialised
+   route (plain torch), in bfloat16 and in float32 with TF32 off, within
+   the stated tolerance and with the same argmax;
+8. the ``kernels`` JSON line, then the result line.
 
 The launch counts are set to 0 before the block-max op in phase 3 and
-before phases 4, 5 and 6, and read after each; every kernel must launch in
-one of them, and each phase must launch the kernels of its own path.  The
-``kernels`` line sums them.
+before phases 4, 5, 6 and 7, and read after each; every kernel must launch
+in one of them, and each phase must launch the kernels of its own path.
+The ``kernels`` line sums them.
 
 It exits non-zero, with no result line, without a CUDA card, outside a
 checkout of the repo, or when any phase fails.
@@ -67,9 +84,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
 #: H100 SXM: HBM3 rate and the non-tensor (FP32 CUDA-core) peak rate
-#: (NVIDIA data sheet); operations bounds use the latter
+#: (NVIDIA data sheet); operations bounds use the latter, except for
+#: bfloat16 attention, which the card's tensor cores take at 989 TFLOP/s
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
 
 #: the single-store phase's corpus: versions x objects, about 128 MiB
 #: logical
@@ -152,9 +171,10 @@ def max_abs_err(got, want) -> int:
     return err
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float,
+             ops_per_s: float = OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -541,6 +561,107 @@ def block_max_path(seed: int, n: int, kernels) -> dict:
     return {k.name: k.launches for k in kernels}
 
 
+# -- phase 3, flash attention (the LM serving path's kernel) ---------------
+
+#: (label, B, S, H, KV, hd, dtype, causal, window): the serving shapes of
+#: llama3.2-1b (32 query and 8 KV heads of width 64) at the two prompt
+#: lengths that take the flash route, and one small ragged case each for
+#: the full (non-causal) mask and a local window
+FLASH_CASES = [
+    ("S2048 bf16", 1, 2048, 32, 8, 64, "bfloat16", True, 0),
+    ("S4096 bf16", 1, 4096, 32, 8, 64, "bfloat16", True, 0),
+    ("S2048 f32", 1, 2048, 32, 8, 64, "float32", True, 0),
+    ("S4096 f32", 1, 4096, 32, 8, 64, "float32", True, 0),
+    ("S96 hd16 full", 2, 96, 4, 2, 16, "float32", False, 0),
+    ("S96 hd16 window 24", 2, 96, 4, 2, 16, "float32", True, 24),
+]
+
+
+def flash_pairs(S: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask keeps: the operations this input needs."""
+    import numpy as np
+
+    i = np.arange(S)
+    hi = i + 1 if causal else np.full(S, S)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros(S, np.int64)
+    return int((hi - lo).sum())
+
+
+def flash_phase(seed: int) -> dict:
+    """The flash kernel against its plain version at each case, with the
+    kernel's, the plain version's and one SDPA call's times and the
+    bound."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attn as kflash
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's f32
+    out = {}
+    for label, B, S, H, KV, hd, dt, causal, window in FLASH_CASES:
+        rng = np.random.default_rng(seed + S + hd)
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.from_numpy(
+            (rng.standard_normal(shape) * 0.5).astype(np.float32)).to(
+                "cuda", dtype)
+            for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+        kw = dict(causal=causal, window=window)
+        blk = dict(q_block=1024, kv_block=1024)
+        got = kflash.flash_attention(q, k, v, **kw)
+        want = kflash.flash_attention_plain(q, k, v, **kw, **blk)
+        torch.cuda.synchronize()
+        # elementwise |got - want| <= atol + rtol |want| (kflash.TOLERANCE:
+        # one bfloat16 step of each output in bfloat16)
+        tol = kflash.TOLERANCE[dtype]
+        diff = (got.float() - want.float()).abs()
+        limit = tol["atol"] + tol["rtol"] * want.float().abs()
+        err = float(diff.max())
+        worst = float((diff / limit).max())
+        tolerance = f"{tol['atol']:g} + {tol['rtol']:g} |want|"
+        if not worst <= 1.0:
+            raise AssertionError(f"flash_attn {label}: max_abs_err {err}, "
+                                 f"{worst:.3f} of the tolerance {tolerance}")
+        esize = q.element_size()
+        nbytes = B * S * (2 * H + 2 * KV) * hd * esize
+        ops = 4 * B * H * hd * flash_pairs(S, causal, window)
+        rate = BF16_TENSOR_OPS_PER_S if dt == "bfloat16" else OPS_PER_S
+        bms, by = bound_ms(nbytes, ops, rate)
+        # one PyTorch call computing the same function, heads first
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        mask = None
+        if window:
+            i = torch.arange(S, device="cuda")
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
+                                                 - window)
+            if not causal:
+                mask = i[None, :] > i[:, None] - window
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=True)
+
+        try:
+            library_ms = cuda_ms(sdpa, 20, 3)
+        except TypeError:  # a torch without enable_gqa
+            library_ms = None
+        reps = 20 if S >= 2048 else 50
+        out[label] = timed(dict(
+            max_abs_err=err, tolerance=tolerance, tol_used=worst,
+            max_abs_want=float(want.float().abs().max()), bound_ms=bms,
+            bound_by=by, gflop=ops / 1e9, mbytes=nbytes / 1e6,
+            shape=f"{B}x{S}x{H}x{hd} kv {KV} {dt} causal={causal} "
+                  f"window={window}",
+            **kernel_times(lambda: kflash.flash_attention(q, k, v, **kw),
+                           reps, "flash_attn_kernel"),
+            plain_ms=cuda_ms(lambda: kflash.flash_attention_plain(
+                q, k, v, **kw, **blk), 3),
+            library_ms=library_ms,
+        ))
+    return out
+
+
 # -- phase 4: the service ------------------------------------------------------
 
 def make_corpus(seed: int, versions: int, objects: int,
@@ -900,6 +1021,173 @@ def registry_phase(seed: int, avg: int, kernels) -> dict:
     return dict(chunkers=out, pairs=pairs, launches=launches)
 
 
+# -- phase 7: LM serving at full llama3.2-1b width ---------------------------
+
+#: prompt lengths of the serving phase's requests, in submission order
+SERVE_PROMPTS = (4096, 2048, 4096, 2048, 1024, 512, 100, 37)
+SERVE_NEW = 32
+SERVE_SLOTS = 4
+SERVE_CACHE = 4160
+#: last-token logits of a 2048-token prompt, flash route against the
+#: materialised route (plain torch): in bfloat16 the routes round scores,
+#: weights and context at different places in 16 layers; in float32 with
+#: TF32 off they differ in summation order only
+LOGITS_TOL = {"bfloat16": 0.25, "float32": 1e-4}
+
+
+def serving_phase(seed: int, kernels) -> dict:
+    """``Engine`` with random bfloat16 weights at full llama3.2-1b width:
+    8 requests of SERVE_PROMPTS tokens, 32 new tokens each, greedy, on 4
+    slots; the launch counts set to 0 just before and read just after.
+    Then the device's busy share over the run's first decode-only steps,
+    and one 2048-token prompt's last-token logits on the flash route
+    against the materialised route, in bfloat16 and in float32."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.layers import template_map
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = get_config("llama3.2-1b")
+    t0 = time.perf_counter()
+    params = lm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = []
+    template_map(leaves.append, lm.lm_template(cfg))
+    n_params = sum(math.prod(t.shape) for t in leaves)
+    rng = np.random.default_rng(seed + 7)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in SERVE_PROMPTS]
+    scfg = ServeConfig(max_slots=SERVE_SLOTS, cache_len=SERVE_CACHE,
+                       max_new_tokens=SERVE_NEW)
+
+    class CheckedEngine(Engine):
+        """Keeps every sampled step's logits' finiteness on the card, and
+        each step's decode seconds beside whether it admitted requests."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.finite = []
+            self.steps = []
+
+        def _sample(self, logits):
+            self.finite.append(torch.isfinite(logits).all())
+            return super()._sample(logits)
+
+        def step(self):
+            n, s_ = len(self.stats.prefill), self.stats.decode_s
+            super().step()
+            self.steps.append((len(self.stats.prefill) > n,
+                               self.stats.decode_s - s_))
+
+    # cuBLAS and allocator warm-up on the shortest prompt (no flash route)
+    warm = Engine(cfg, params, ServeConfig(max_slots=SERVE_SLOTS,
+                                           cache_len=256, max_new_tokens=2))
+    warm.submit(prompts[-1])
+    warm.run()
+    del warm
+    torch.cuda.reset_peak_memory_stats()
+    eng = CheckedEngine(cfg, params, scfg)
+    for p in prompts:
+        eng.submit(p)
+    for k in kernels:
+        k.launches = 0  # the main path's count starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if sorted(out) != list(range(len(prompts))):
+        raise AssertionError(f"requests {sorted(out)} finished, not all 8")
+    for rid, toks in out.items():
+        if len(toks) != SERVE_NEW or not all(
+                0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"request {rid}: {len(toks)} tokens, "
+                                 f"range {min(toks)}-{max(toks)}")
+    if not bool(torch.stack(eng.finite).all()):
+        raise AssertionError("non-finite logits while serving")
+    st = eng.stats
+    # the device's busy share over the steps after the first that admit
+    # nothing (4 slots decoding at 2,050-4,127 tokens of context): their
+    # device time traced in a replay of the same requests (greedy, so the
+    # same steps), over their seconds in the untraced run above
+    n_busy = next(i for i, (admitted, _) in enumerate(eng.steps[1:], 1)
+                  if admitted) - 1
+    busy_s = sum(s_ for _, s_ in eng.steps[1:1 + n_busy])
+    del eng
+    replay = Engine(cfg, params, scfg)
+    for p in prompts:
+        replay.submit(p)
+    replay.step()  # the first four prefills and the first decode step
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_busy):
+            replay.step()
+        torch.cuda.synchronize()
+    if len(replay.stats.prefill) != SERVE_SLOTS:
+        raise AssertionError("the traced replay steps admitted requests")
+    del replay
+    device_us = kernels = 0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0.0) or getattr(
+            ev, "self_cuda_time_total", 0.0)
+        if us > 0:
+            device_us += us
+            kernels += ev.count
+
+    # flash route against the materialised route on one 2048-token prompt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tok = torch.as_tensor(prompts[1], device="cuda")[None]
+    logits = {}
+    with torch.inference_mode():
+        for dt in ("bfloat16", "float32"):
+            c = cfg.replace(param_dtype=dt, compute_dtype=dt)
+            # the same seed's float32 draws, which the bfloat16 weights round
+            p = params if dt == "bfloat16" else lm.init_params(
+                c, torch.Generator(device="cuda").manual_seed(seed))
+            a, _ = lm.prefill_step(c, p, {"tokens": tok}, tok.shape[1])
+            b, _ = lm.prefill_step(c.replace(attn_kv_block=0), p,
+                                   {"tokens": tok}, tok.shape[1])
+            a, b = a.float(), b.float()
+            err = float((a - b).abs().max())
+            top2 = torch.topk(a[0], 2).values
+            logits[dt] = dict(
+                max_abs_err=err, tolerance=LOGITS_TOL[dt],
+                max_abs_logit=float(a.abs().max()),
+                argmax=(int(a.argmax()), int(b.argmax())),
+                top2_gap=float(top2[0] - top2[1]),
+                finite=bool(torch.isfinite(a).all() & torch.isfinite(b).all()))
+            if not (logits[dt]["finite"] and err <= LOGITS_TOL[dt]):
+                raise AssertionError(f"{dt} logits, flash vs materialised: "
+                                     f"{logits[dt]}")
+            if logits[dt]["argmax"][0] != logits[dt]["argmax"][1]:
+                raise AssertionError(f"{dt} argmax differs: {logits[dt]}")
+            del p, a, b
+    prefill = {}
+    for n, s_ in st.prefill:
+        prefill.setdefault(n, []).append(s_ * 1e3)
+    return dict(
+        params=n_params, init_s=init_s, wall_s=wall_s, launches=launches,
+        tokens=sum(map(len, out.values())), prefill_ms=prefill,
+        prefill_tok_s=sum(n for n, _ in st.prefill)
+        / sum(s_ for _, s_ in st.prefill),
+        decode_steps=st.decode_steps, decode_s=st.decode_s,
+        decode_tokens=st.decode_tokens,
+        decode_tok_s=st.decode_tokens / st.decode_s,
+        decode_ms_per_step=st.decode_s / st.decode_steps * 1e3,
+        peak_gb=peak_gb, logits=logits, busy_steps=n_busy,
+        busy_s=busy_s, busy_share=device_us / 1e6 / busy_s,
+        busy_device_ms_per_step=device_us / 1e3 / n_busy,
+        busy_step_ms=busy_s / n_busy * 1e3,
+        busy_kernels_per_step=kernels / n_busy)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -988,9 +1276,23 @@ def main(argv=None) -> int:
     log(f"automaton steps on one {st['n']} B SeqCDC stream, bit-equal to "
         f"the select kernel ({st['select_kernel_ms']:.4f} ms): plain gather "
         f"{st['gather_ms']:.1f} ms, plain event {st['event_ms']:.1f} ms")
+    fl = flash_phase(args.seed)
+    measured["flash"] = fl
+    for name, r in fl.items():
+        lib = (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None
+               else "not measured (no enable_gqa)")
+        log(f"kernel flash_attn {name} ({r['shape']}): max_abs_err "
+            f"{r['max_abs_err']:.3g} (tolerance {r['tolerance']}, "
+            f"{r['tol_used']:.3f} of it used; largest output "
+            f"{r['max_abs_want']:.3g}), "
+            f"{r['ms']:.4f} ms ({r['ms_source']}; {r['call_ms']:.4f} ms per "
+            f"call), plain {r['plain_ms']:.4f} ms, SDPA {lib}, bound "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']}: {r['gflop']:.2f} "
+            f"GFLOP, {r['mbytes']:.2f} MB)")
     from repro_torch.kernels import (
         extremum,
         fingerprint,
+        flash_attn,
         fused_pipeline,
         gear_hash,
         native_scan,
@@ -1068,13 +1370,48 @@ def main(argv=None) -> int:
     if missing:
         raise AssertionError(f"kernels never launched by the chunker "
                              f"registry: {missing}")
+    # 7. LM serving at full llama3.2-1b width
+    sv = serving_phase(args.seed, KERNELS)
+    log(f"serving: llama3.2-1b full width, {sv['params']} parameters "
+        f"(bf16, init {sv['init_s']:.2f} s), {len(SERVE_PROMPTS)} requests "
+        f"on {SERVE_SLOTS} slots, {sv['tokens']} tokens in "
+        f"{sv['wall_s']:.3f} s, peak {sv['peak_gb']:.2f} GB")
+    log("serving: prefill ms by prompt length: " + ", ".join(
+        f"{n}: " + "/".join(f"{t:.2f}" for t in ts)
+        for n, ts in sv["prefill_ms"].items())
+        + f"; prefill {sv['prefill_tok_s']:.1f} prompt tokens/s")
+    log(f"serving: decode {sv['decode_tok_s']:.2f} tokens/s "
+        f"({sv['decode_tokens']} tokens in {sv['decode_steps']} steps, "
+        f"{sv['decode_ms_per_step']:.3f} ms a step); launches "
+        f"{sv['launches']}")
+    log(f"serving: device busy share {sv['busy_share']:.4f} over the "
+        f"run's {sv['busy_steps']} decode-only steps after the first (4 "
+        f"slots, 2,050-4,127 tokens of context; {sv['busy_step_ms']:.3f} "
+        f"ms a step untraced, {sv['busy_device_ms_per_step']:.3f} device "
+        f"ms and {sv['busy_kernels_per_step']:.1f} kernels a step traced "
+        f"in a replay)")
+    for dt, r in sv["logits"].items():
+        log(f"serving: 2048-token last-token logits, flash vs materialised "
+            f"route, {dt}: max_abs_err {r['max_abs_err']:.4g} (tolerance "
+            f"{r['tolerance']}; largest logit {r['max_abs_logit']:.3f}), "
+            f"argmax {r['argmax'][0]} == {r['argmax'][1]}, top-2 gap "
+            f"{r['top2_gap']:.4f}")
+    from repro_torch.configs import get_config
+
+    llama = get_config("llama3.2-1b")  # 16 layers, attn_kv_block 1024
+    want_flash = sum(n > llama.attn_kv_block
+                     for n in SERVE_PROMPTS) * llama.n_layers
+    if sv["launches"][flash_attn.KERNEL.name] != want_flash:
+        raise AssertionError(
+            f"flash kernel launched {sv['launches'][flash_attn.KERNEL.name]} "
+            f"times while serving, not {want_flash}")
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith(("jax.", "repro."))
               or m == "repro"]
     if leaked:
         raise AssertionError(f"the port imported {leaked[:5]}")
 
-    # 7. the kernels line and the result
+    # 8. the kernels line and the result
     row_of = {
         packed_pipeline.KERNEL: ("16KiBx8 packed all-tiny",
                                  packed["all-tiny"]),
@@ -1082,6 +1419,7 @@ def main(argv=None) -> int:
         extremum.KERNEL: (reg["block_max"]["shape"], reg["block_max"]),
         native_scan.KERNEL: (reg["native_scan"]["seqcdc"]["shape"],
                              reg["native_scan"]["seqcdc"]),
+        flash_attn.KERNEL: (fl["S4096 bf16"]["shape"], fl["S4096 bf16"]),
     }
     errs = {
         packed_pipeline.KERNEL: [m["max_abs_err"] for m in packed.values()],
@@ -1089,6 +1427,7 @@ def main(argv=None) -> int:
             reg["select_boundaries gear row"]["max_abs_err"]],
         native_scan.KERNEL: [m["max_abs_err"]
                              for m in reg["native_scan"].values()],
+        flash_attn.KERNEL: [m["max_abs_err"] for m in fl.values()],
     }
     rows = []
     for k in KERNELS:
@@ -1097,7 +1436,8 @@ def main(argv=None) -> int:
             measured[s][k.name]["max_abs_err"] for s in shapes
             if k.name in measured[s]])
         launches = (path3[k.name] + svc["launches"][k.name]
-                    + sh["launches"][k.name] + rg["launches"][k.name])
+                    + sh["launches"][k.name] + rg["launches"][k.name]
+                    + sv["launches"][k.name])
         if launches == 0:
             raise AssertionError(f"kernel {k.name} never launched")
         rows.append(dict(
@@ -1113,7 +1453,8 @@ def main(argv=None) -> int:
                     exist_ok=True)
         with open(args.json, "w") as f:
             json.dump(dict(card=card, build_s=build_s, kernels=measured,
-                           service=svc, sharded=sh, registry=rg), f,
+                           service=svc, sharded=sh, registry=rg,
+                           serving=sv), f,
                       indent=1, default=float)
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

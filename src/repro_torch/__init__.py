@@ -1,12 +1,13 @@
-"""repro_torch — the SeqCDC dedup service on PyTorch and hand-written CUDA.
+"""repro_torch — the SeqCDC dedup service on PyTorch and hand-written CUDA,
+and the LM substrate's serving path beside it.
 
 A port of the JAX package ``repro`` to one NVIDIA Hopper card.  It imports
 torch, numpy and the standard library only, never jax and nothing of
 ``repro``: what it needs of the reference lives here as its own copy
 (``core.params``, ``core.oracle``, ``dedup.store``, ``obs``,
 ``service.objects``, ``service.writer``, ``service.depot``,
-``service.transport``, ``_lazy``), byte-for-byte where an on-disk or wire
-format depends on it.
+``service.transport``, ``_lazy``, ``configs``), byte-for-byte where an
+on-disk or wire format depends on it.
 
 Layout (mirrors ``repro``):
 
@@ -20,7 +21,12 @@ Layout (mirrors ``repro``):
   tensors on the CPU;
 * ``service`` — the bucketed ``ChunkScheduler`` (with segment packing of
   small objects), ``DedupService`` and ``ShardedDedupService`` with its
-  writers and shard transport.
+  writers and shard transport;
+* ``configs``, ``models``, ``serve``, ``launch`` — the LM substrate's
+  serving path for the dense family (``llama3.2-1b``): configurations
+  (pure Python copies), the decoder with its KV caches (long prompts run
+  the flash-attention kernel), the continuous-batching ``Engine`` and the
+  ``python -m repro_torch.launch.serve`` CLI.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

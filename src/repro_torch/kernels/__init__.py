@@ -16,7 +16,9 @@ plain torch version only for tensors on the CPU:
 * ``select_boundaries`` — the ``wide`` W-block automaton over given
   bitmaps (the split path's phase 2 and the hash chunkers' selector);
 * ``native_scan`` — the per-byte native CDC scans (the ``_seq`` chunkers
-  and ``boundaries_sequential``), one thread per stream.
+  and ``boundaries_sequential``), one thread per stream;
+* ``flash_attn`` — causal (or full) flash attention forward with grouped
+  KV heads, the LM serving path's prefill attention.
 
 Importing this package builds nothing and needs no card.
 """
@@ -25,6 +27,7 @@ from __future__ import annotations
 from . import (
     extremum,
     fingerprint,
+    flash_attn,
     fused_pipeline,
     gear_hash,
     native_scan,
@@ -33,12 +36,13 @@ from . import (
     seqcdc_masks,
 )
 
-#: every kernel of the port, in the order of the TPU kernels they replace,
-#: then the two device forms of the reference's lax.scans
+#: every kernel of the port, in the order of the TPU kernels they replace
+#: (1-6), then the two device forms of the reference's lax.scans, then
+#: TPU kernel 7, flash attention (the LM serving path's)
 KERNELS = (seqcdc_masks.KERNEL, fingerprint.KERNEL, fused_pipeline.KERNEL,
            packed_pipeline.KERNEL, gear_hash.KERNEL, extremum.KERNEL,
-           select_boundaries.KERNEL, native_scan.KERNEL)
+           select_boundaries.KERNEL, native_scan.KERNEL, flash_attn.KERNEL)
 
-__all__ = ["KERNELS", "extremum", "fingerprint", "fused_pipeline",
-           "gear_hash", "native_scan", "packed_pipeline",
+__all__ = ["KERNELS", "extremum", "fingerprint", "flash_attn",
+           "fused_pipeline", "gear_hash", "native_scan", "packed_pipeline",
            "select_boundaries", "seqcdc_masks"]

@@ -1,0 +1,117 @@
+"""Top-level language model: embed -> block stack -> norm -> logits.
+
+The port of ``repro/models/lm.py`` for the ``tokens`` input mode (the
+``embeddings`` and ``mixed`` modes and ``loss_and_metrics`` wait for later
+slices).  Parameters are a plain tree of tensors shaped by
+:func:`lm_template`, the reference's layout (``segments`` a list of
+stacked per-segment dicts, ``final_norm``, ``embed``); :func:`init_params`
+makes them from a seed on the card unless asked for another device, and
+``models.convert.params_from_jax`` carries the reference's across.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from . import transformer as tfm
+from .layers import PT, embed_template, init_tree, norm_template, rmsnorm, unembed_apply
+
+Params = Dict[str, Any]
+
+
+def compute_dtype(cfg) -> torch.dtype:
+    return getattr(torch, cfg.compute_dtype)
+
+
+def param_dtype(cfg) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)
+
+
+def lm_template(cfg) -> Params:
+    t: Params = {
+        "segments": [tpl for (_, _, tpl) in tfm.stack_templates(cfg)],
+        "final_norm": norm_template(cfg.d_model),
+    }
+    if cfg.input_mode in ("tokens", "mixed"):
+        t["embed"] = embed_template(cfg.vocab_size, cfg.d_model)
+    if not cfg.tie_embeddings:
+        t["unembed"] = PT(
+            (cfg.d_model, cfg.vocab_size), ("embed", "vocab"), "normal", 0.02
+        )
+    return t
+
+
+def init_params(cfg, generator: torch.Generator | None = None,
+                device="cuda") -> Params:
+    """Parameters from a seeded generator on ``device`` (seed 0 when none
+    is given, as the reference's CLI uses ``PRNGKey(0)``)."""
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    return init_tree(lm_template(cfg), generator, dtype=param_dtype(cfg),
+                     device=device)
+
+
+def _check_mode(cfg):
+    if cfg.input_mode != "tokens":
+        raise NotImplementedError(
+            f"input mode {cfg.input_mode!r} is not ported: the port serves "
+            f"token models (ROADMAP.md, LM substrate)")
+
+
+def embed_inputs(cfg, params: Params, batch: Dict[str, torch.Tensor]):
+    """(B, S, D) input activations of the ``tokens`` input mode."""
+    _check_mode(cfg)
+    return params["embed"][batch["tokens"]].to(compute_dtype(cfg))
+
+
+def _head(cfg, params: Params, x: torch.Tensor) -> torch.Tensor:
+    x = rmsnorm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
+    return unembed_apply(params, x, cfg)
+
+
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    B, S = x.shape[:2]
+    return torch.arange(S, device=x.device).expand(B, S)
+
+
+def forward(cfg, params: Params, batch: Dict[str, torch.Tensor]):
+    """Full-sequence logits (B, S, V)."""
+    x = embed_inputs(cfg, params, batch)
+    x, _, _ = tfm.forward_stack(cfg, params["segments"], x, _positions(x))
+    return _head(cfg, params, x)
+
+
+# ---------------------------------------------------------------------------
+# serving path
+# ---------------------------------------------------------------------------
+
+
+def init_caches(cfg, batch: int, cache_len: int, dtype=None, device="cuda"):
+    """Decode caches, parallel to the segment structure."""
+    return tfm.init_stack_states(cfg, batch, cache_len,
+                                 dtype or compute_dtype(cfg), device)
+
+
+def prefill_step(cfg, params: Params, batch: Dict[str, torch.Tensor],
+                 cache_len: int):
+    """Process the prompt; returns (last-token logits (B, V), caches).
+
+    Only the final position's logits are computed."""
+    x = embed_inputs(cfg, params, batch)
+    x, caches = tfm.prefill_stack(cfg, params["segments"], x, _positions(x),
+                                  cache_len)
+    logits = _head(cfg, params, x[:, -1:, :])
+    return logits[:, 0], caches
+
+
+def decode_step(cfg, params: Params, caches, tokens: torch.Tensor, pos):
+    """One decode step.  tokens (B, 1) int, pos the absolute position: a
+    scalar, or one per row (B,) for rows at different positions (the
+    engine's slots).  Returns (logits (B, V), caches), the caches updated
+    in place."""
+    _check_mode(cfg)
+    x = params["embed"][tokens].to(compute_dtype(cfg))
+    x, caches = tfm.decode_stack(cfg, params["segments"], x, caches, pos)
+    logits = _head(cfg, params, x)
+    return logits[:, 0], caches

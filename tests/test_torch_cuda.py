@@ -429,3 +429,111 @@ def test_chunkers_on_the_card_count_launches(dev):
                 np.testing.assert_array_equal(got, want, err_msg=name)
     assert all(k.launches > 0 for k in kernels), [
         (k.name, k.launches) for k in kernels]
+
+
+# -- flash attention (the LM serving path's kernel) ------------------------
+
+
+def _flash_inputs(seed, B, S, H, KV, hd, dtype, dev):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(
+        (rng.standard_normal(shape) * 0.5).astype(np.float32)).to(dev, dtype)
+        for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+
+
+@pytest.fixture
+def no_tf32():
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = old
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("B,S,H,KV", [(2, 1, 4, 2), (1, 63, 2, 2),
+                                      (2, 96, 4, 1), (1, 257, 8, 2)])
+def test_flash_kernel_matches_plain(dev, no_tf32, dtype, hd, B, S, H, KV):
+    from repro_torch.kernels import flash_attn as kflash
+
+    q, k, v = _flash_inputs(hd + S, B, S, H, KV, hd, dtype, dev)
+    for causal, window in ((True, 0), (False, 0), (True, 24), (False, 40)):
+        got = kflash.flash_attention(q, k, v, causal=causal, window=window)
+        want = kflash.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == q.shape
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(),
+                                   **kflash.TOLERANCE[dtype],
+                                   err_msg=f"causal={causal} window={window}")
+
+
+def test_flash_kernel_takes_strided_inputs_and_counts_launches(dev, no_tf32):
+    from repro_torch.kernels import flash_attn as kflash
+
+    q, k, v = _flash_inputs(7, 1, 128, 8, 2, 64, torch.float32, dev)
+    qt = q.transpose(1, 2).contiguous().transpose(1, 2)  # not contiguous
+    kflash.KERNEL.launches = 0
+    got = kflash.flash_attention(qt, k, v, scale=0.1)
+    want = kflash.flash_attention_plain(q, k, v, scale=0.1)
+    torch.cuda.synchronize()
+    assert kflash.KERNEL.launches == 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **kflash.TOLERANCE[torch.float32])
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(dev):
+    from repro_torch.kernels import flash_attn as kflash
+
+    q, k, v = _flash_inputs(8, 1, 16, 4, 2, 8, torch.float32, dev)
+    with pytest.raises(ValueError, match="head width"):
+        kflash.flash_attention(q, k, v)
+    q, k, v = _flash_inputs(8, 1, 16, 4, 2, 16, torch.float16, dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        kflash.flash_attention(q, k, v)
+    q, k, v = _flash_inputs(8, 1, 16, 4, 2, 16, torch.float32, dev)
+    with pytest.raises(ValueError, match="one type"):
+        kflash.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="one device"):
+        kflash.flash_attention(q, k.cpu(), v)
+
+
+def test_reduced_model_and_engine_on_the_card_match_the_cpu(dev, no_tf32):
+    """Reduced llama3.2-1b (float32, attn_kv_block=16): forward logits on
+    the card (the flash kernel in every layer) equal the CPU's (its plain
+    version), and the engine's greedy tokens are the CPU engine's."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import flash_attn as kflash
+    from repro_torch.models import lm
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = get_reduced("llama3.2-1b").replace(attn_q_block=16,
+                                             attn_kv_block=16)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    on_dev = {"segments": [{k: {n: t.to(dev) for n, t in v.items()}
+                            if isinstance(v, dict) else v.to(dev)
+                            for k, v in seg.items()}
+                           for seg in params["segments"]],
+              "final_norm": params["final_norm"].to(dev),
+              "embed": params["embed"].to(dev)}
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (2, 48)))
+    kflash.KERNEL.launches = 0
+    got = lm.forward(cfg, on_dev, {"tokens": toks.to(dev)})
+    torch.cuda.synchronize()
+    assert kflash.KERNEL.launches == cfg.n_layers
+    want = lm.forward(cfg, params, {"tokens": toks})
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=3e-4,
+                               atol=3e-4)
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(0, 256, n) for n in (48, 9, 32, 16, 64)]
+    out = {}
+    for device, p in (("cpu", params), (dev, on_dev)):
+        eng = Engine(cfg, p, ServeConfig(max_slots=2, cache_len=96,
+                                         max_new_tokens=6), device=device)
+        for pr in prompts:
+            eng.submit(pr)
+        out[str(device)] = eng.run()
+    assert out["cpu"] == out[str(dev)]

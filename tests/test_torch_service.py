@@ -233,6 +233,17 @@ def test_port_imports_no_jax_and_no_repro():
         "for name in available():\n"
         "    b = make_chunker(name, 4096, device='cpu').chunk(d)\n"
         "    assert b[-1] == d.size, name\n"
+        "from repro_torch.configs import get_reduced\n"
+        "from repro_torch.models import lm\n"
+        "from repro_torch.serve import Engine, ServeConfig\n"
+        "from repro_torch.launch import serve as cli\n"
+        "cli.main(['--device', 'cpu', '--requests', '2', '--max-new', '3'])\n"
+        "cfg = get_reduced('llama3.2-1b').replace(attn_q_block=16, "
+        "attn_kv_block=16)\n"
+        "eng = Engine(cfg, lm.init_params(cfg, device='cpu'), ServeConfig("
+        "max_slots=2, cache_len=64, max_new_tokens=3), device='cpu')\n"
+        "eng.submit(np.arange(32) % 256)\n"
+        "assert len(eng.run()[0]) == 3\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
         "m.startswith('repro.')]\n"
@@ -254,6 +265,7 @@ def test_package_init_and_shard_server_import_no_torch():
         "import sys\n"
         "import repro_torch\n"
         "import repro_torch.core.params\n"
+        "import repro_torch.configs\n"
         "import repro_torch.service.transport.shard_server\n"
         "assert repro_torch.core.SeqCDCParams is repro_torch.SeqCDCParams\n"
         "assert 'torch' not in sys.modules, sorted(\n"

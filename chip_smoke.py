@@ -25,7 +25,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It drives only
    tokens, 32 query and 8 KV heads of width 64, causal, bfloat16 and
    float32) and one small ragged case each for the full mask and a local
    window, with its error beside the stated tolerance, kernel, plain and
-   SDPA times and its bound;
+   SDPA times and its bound, and the count of tensor-core instructions
+   (``HMMA``/``HGMMA``) in the built flash library's bfloat16 and float32
+   kernels, from ``cuobjdump -sass``; the fused kernel also on two
+   adversarial 1 MiB x 8 batches (constant bytes, where only max-size cuts
+   fire, and a pattern of period ``max_size``), bit-equal with times, and
+   the split path's three kernels (masks, select, fingerprint) summed
+   against the fused kernel at each service shape;
 4. the single-store service: ``DedupService.open`` on a temporary
    directory with the mask, fingerprint and pipeline cross-checks on (their
    replays run the split path: the masks, select and fingerprint kernels),
@@ -128,10 +134,14 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, reps: int, kernel: str) -> float | None:
-    """Mean device milliseconds per call of the CUDA kernel whose name
-    contains ``kernel``, from a ``torch.profiler`` trace of ``reps`` calls;
-    None if the trace holds no device time for it."""
+def device_ms(fn, reps: int, kernel: str) -> tuple[float | None, int]:
+    """Mean device milliseconds per call of the CUDA kernels whose names
+    contain ``kernel``, each launched once a call, from a
+    ``torch.profiler`` trace of ``reps`` calls: per kernel name its device
+    time over the launches the trace recorded, summed over the names (a
+    trace late in a long process can miss launches, so a sum over ``reps``
+    would undercount).  Also the fewest launches recorded for a name; None
+    and 0 if the trace holds no device time for them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -141,19 +151,24 @@ def device_ms(fn, reps: int, kernel: str) -> float | None:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = 0.0
+    ms, records = 0.0, []
     for ev in prof.key_averages():
-        if kernel in ev.key:
-            us += getattr(ev, "self_device_time_total", 0.0) or getattr(
-                ev, "self_cuda_time_total", 0.0)
-    return us / reps / 1e3 if us > 0 else None
+        us = getattr(ev, "self_device_time_total", 0.0) or getattr(
+            ev, "self_cuda_time_total", 0.0)
+        if kernel in ev.key and us > 0 and ev.count:
+            ms += us / ev.count / 1e3
+            records.append(ev.count)
+    return (ms, min(records)) if records else (None, 0)
 
 
 def kernel_times(run, reps: int, kernel: str) -> dict:
     """A kernel wrapper's per-call time (CUDA events, host launch overhead
-    included) and its kernel's device time (profiler)."""
-    return dict(call_ms=cuda_ms(run, reps, 3),
-                device_ms=device_ms(run, reps, kernel))
+    included) and its kernel's device time (profiler) with the launches
+    the trace recorded of the ``reps``."""
+    call = cuda_ms(run, reps, 3)
+    dev, records = device_ms(run, reps, kernel)
+    return dict(call_ms=call, device_ms=dev, device_records=records,
+                device_reps=reps)
 
 
 def max_abs_err(got, want) -> int:
@@ -182,8 +197,10 @@ def timed(r: dict) -> dict:
     """Set ``ms``: the kernel's own time on the card where the profiler's
     trace has it, else the per-call time (host launch overhead included)."""
     r["ms"] = r["device_ms"] if r["device_ms"] is not None else r["call_ms"]
-    r["ms_source"] = ("profiler device time" if r["device_ms"] is not None
-                      else "CUDA events per call")
+    r["ms_source"] = (
+        f"profiler device time, {r['device_records']} of "
+        f"{r['device_reps']} launches traced" if r["device_ms"] is not None
+        else "CUDA events per call")
     return r
 
 
@@ -248,7 +265,7 @@ def kernel_phase(p, B: int, S: int, seed: int) -> dict:
         max_abs_err=err, bound_ms=bms, bound_by=by,
         **kernel_times(lambda: kfused.fused_pipeline_batch(x, p,
                                                            max_chunks=mc),
-                       10, "fused_pipeline_kernel"),
+                       10, "fused_pipeline_"),
         plain_ms=cuda_ms(
             lambda: kfused.fused_pipeline_plain(x, p, max_chunks=mc),
             plain_reps),
@@ -404,6 +421,74 @@ def packed_phase(p, B: int, S: int, seed: int) -> dict:
                 x, e, p, max_chunks=mc), 3),
         ))
     return out
+
+
+def fused_adversarial_phase(p, B: int, S: int, seed: int) -> dict:
+    """The fused kernel against its plain version on batches where the
+    scan resolves many blocks a chunk: constant bytes (a different value a
+    row; no candidates, no opposing pairs, only max-size cuts) and a
+    pattern of period ``max_size`` (each row its own random period)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.automaton import max_chunks_for
+    from repro_torch.core.oracle import boundaries_numpy
+    from repro_torch.kernels import fused_pipeline as kfused
+
+    rng = np.random.default_rng(seed)
+    batches = {
+        "constant": np.repeat((np.arange(B, dtype=np.uint8) * 31)[:, None],
+                              S, axis=1),
+        "period max_size": np.stack([np.resize(rng.integers(
+            0, 256, p.max_size, dtype=np.uint8), S) for _ in range(B)]),
+    }
+    mc = max_chunks_for(S, p)
+    out = {}
+    for label, host in batches.items():
+        x = torch.from_numpy(host).cuda()
+        got = kfused.fused_pipeline_batch(x, p, max_chunks=mc)
+        want = kfused.fused_pipeline_plain(x, p, max_chunks=mc)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if err:
+            raise AssertionError(f"fused_pipeline differs from its plain "
+                                 f"version on the {label} batch")
+        bounds, counts = (t.cpu().numpy() for t in got[:2])
+        for r in (0, B - 1):
+            if (bounds[r, : counts[r]].tolist()
+                    != boundaries_numpy(host[r], p).tolist()):
+                raise AssertionError(f"fused bounds row {r} ({label}) != "
+                                     f"numpy oracle")
+        bms, by = bound_ms(B * S + 16 * B * mc + 4 * B,
+                           (p.seq_length + 4) * B * S)
+        out[label] = timed(dict(
+            max_abs_err=err, bound_ms=bms, bound_by=by,
+            chunks=int(counts.sum()),
+            **kernel_times(lambda: kfused.fused_pipeline_batch(
+                x, p, max_chunks=mc), 10, "fused_pipeline_"),
+            plain_ms=cuda_ms(lambda: kfused.fused_pipeline_plain(
+                x, p, max_chunks=mc), 2),
+        ))
+    return out
+
+
+def tensor_core_sass(kernel) -> dict:
+    """Tensor-core instructions (``HMMA``/``HGMMA`` lines) per function of
+    a built kernel library, from ``cuobjdump -sass``."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(kernel.library)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[fn] += 1
+    return counts
 
 
 # -- phase 3, the chunker registry's kernels -----------------------------
@@ -654,7 +739,7 @@ def flash_phase(seed: int) -> dict:
             shape=f"{B}x{S}x{H}x{hd} kv {KV} {dt} causal={causal} "
                   f"window={window}",
             **kernel_times(lambda: kflash.flash_attention(q, k, v, **kw),
-                           reps, "flash_attn_kernel"),
+                           reps, "flash_attn_"),
             plain_ms=cuda_ms(lambda: kflash.flash_attention_plain(
                 q, k, v, **kw, **blk), 3),
             library_ms=library_ms,
@@ -1248,6 +1333,20 @@ def main(argv=None) -> int:
                 f"({r['ms_source']}; {r['call_ms']:.4f} ms per call), plain "
                 f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']})")
+        split = sum(res[k]["ms"] for k in ("seqcdc_masks",
+                                           "select_boundaries",
+                                           "fingerprint"))
+        log(f"split path {label}: masks + select + fingerprint kernels "
+            f"{split:.4f} ms against the fused kernel "
+            f"{res['fused_pipeline']['ms']:.4f} ms")
+    adversarial = fused_adversarial_phase(p, 8, 1 << 20, args.seed)
+    measured["1MiBx8 adversarial"] = adversarial
+    for label, r in adversarial.items():
+        log(f"kernel fused_pipeline 1MiBx8 {label} ({r['chunks']} chunks): "
+            f"bit-equal to plain (max_abs_err {r['max_abs_err']}), "
+            f"{r['ms']:.4f} ms ({r['ms_source']}; {r['call_ms']:.4f} ms per "
+            f"call), plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
 
     packed = packed_phase(p, 8, 16 << 10, args.seed)
     measured["16KiBx8 packed"] = packed
@@ -1289,6 +1388,18 @@ def main(argv=None) -> int:
             f"call), plain {r['plain_ms']:.4f} ms, SDPA {lib}, bound "
             f"{r['bound_ms']:.6f} ms ({r['bound_by']}: {r['gflop']:.2f} "
             f"GFLOP, {r['mbytes']:.2f} MB)")
+    from repro_torch.kernels import flash_attn as kflash
+
+    sass = tensor_core_sass(kflash.KERNEL)
+    hmma = {body: sum(c for f, c in sass.items()
+                      if f"flash_attn_{body}_kernel" in f)
+            for body in ("bf16", "f32")}
+    log(f"flash_attn SASS (cuobjdump -sass): {hmma['bf16']} tensor-core "
+        f"instructions (HMMA/HGMMA) in the bfloat16 kernels, "
+        f"{hmma['f32']} in the float32 ones")
+    if hmma["bf16"] == 0:
+        raise AssertionError("the bfloat16 flash kernels issue no "
+                             "tensor-core instruction")
     from repro_torch.kernels import (
         extremum,
         fingerprint,
@@ -1428,6 +1539,8 @@ def main(argv=None) -> int:
         native_scan.KERNEL: [m["max_abs_err"]
                              for m in reg["native_scan"].values()],
         flash_attn.KERNEL: [m["max_abs_err"] for m in fl.values()],
+        fused_pipeline.KERNEL: [m["max_abs_err"]
+                                for m in adversarial.values()],
     }
     rows = []
     for k in KERNELS:

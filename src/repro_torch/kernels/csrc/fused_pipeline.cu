@@ -18,26 +18,44 @@
 // multiply-adds per byte for the hashes) are far below the card's integer
 // rate.  Least time: (B * S + 16 * B * mc + 4 * B) / 3.35 TB/s.
 //
-// Design: the TPU kernel walks a row's tiles in grid order with the scan
-// state in scratch memory; blocks on this card run in no order, so here one
-// thread block (8 warps) owns one row and a loop inside it walks the row's
-// tiles in order.  Per tile of 4096 positions all 8 warps stage the bytes
-// (plus the L-1 halo) in shared memory, every thread with its 17 loads in
-// flight at once, and turn the compares into 32-bit candidate/opposing
-// words with __ballot_sync.  Warp 0 then runs the automaton over the
-// tile's W-blocks (wblock.cuh: lane i takes word i of a block, the first
-// candidate is a warp min of __ffs, the skip trigger the m-th opposing bit
-// found by a warp prefix sum of __popc), and every lane applies _resolve
-// on the same values; the scan state stays in its registers and the scan
-// position goes to shared memory for the next tile's skip test.  A block the scan position has already passed is a
-// no-op in the split path (its state is unchanged), so the loop jumps to
-// the block holding the scan position, and a tile with no such block is
-// not even staged.  Emitted bounds and lengths are written as they come;
-// once the row is scanned the 8 warps hash the kept chunks [s, e) straight
-// from device memory (L2-resident: the row was just staged), a warp per
-// chunk, with modp.cuh's add_range and warp_sum_mod.
-// With B <= 8 rows per dispatch this fills 8 of the card's 132 SMs: the
-// parallel form across a row is later work.
+// What bounds this design is the scan's serial chain: each W-block's
+// resolution depends on the previous one's, and a row has one.  So the
+// design keeps everything else off that chain.  Two launches behind one
+// call:
+//
+// 1. fused_pipeline_scan_kernel, one CTA of two warps per row.  The
+//    producer warp streams the row into a ring of kSlabs shared-memory
+//    slabs of kSlab bytes with cp.async.bulk, each slab's arrival signalled
+//    on its own mbarrier and its release by the scanning warp on another,
+//    so the copy runs ahead of the scan at the card's bandwidth and never
+//    waits on it while the ring has room.  The scanning warp runs the
+//    automaton event by event.  The W-block walk of the split path decides
+//    each block from the first candidate, the trigger (the m-th opposing
+//    pair counted since the last event) and the cut at or after k, and an
+//    event moves k past its block (W <= min(skip, sub_min)) unless the row
+//    is done; so the outcome depends on where the events fall, not on the
+//    block boundaries, and blocks the scan jumps over are no-ops.  The scan
+//    therefore searches a window of kWin positions from the W-block
+//    holding k, lane i holding word i (wblock.cuh's block_search_words over
+//    32 words, then its resolve): an event inside the window updates the
+//    state and the search repeats from the new k; no event moves k to the
+//    window's end with the opposing pairs counted.  A window's mask words
+//    are computed on demand, when k first leaves the previous window: lane
+//    i computes word i by itself from aligned 4-byte loads of the ring (4
+//    positions a step with __vcmpgtu4/__vcmpltu4), the L-1 run test as
+//    shifts and ands of the run pairs.  After each emit k skips sub_min
+//    bytes, which are never compared; the words of a window past its last
+//    event are computed and not used.  Words per W-block instead (one
+//    search a block, as the split path walks) ran slower on random rows
+//    and several times slower on constant ones: a window's words cost
+//    about what one block's do, one warp's latency.  No whole-tile mask
+//    pass, no block-wide barrier: the chain is one window search per event
+//    and per kWin positions reached.  Bounds and lengths are written as
+//    they come; the final cut once per row.
+// 2. fused_pipeline_hash_kernel, one warp per chunk slot over the whole
+//    batch (B * mc warps on every SM, as fingerprint.cu spreads them), with
+//    modp.cuh's add_range and warp_sum_mod; the rows are L2-resident from
+//    the scan's copies.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -51,101 +69,259 @@ using modp::kFull;
 using modp::warp_sum_mod;
 using wblock::kBig;
 using wblock::kMaxHalo;
-using wblock::kThreads;
-using wblock::kTile;
-using wblock::kWarps;
 
-__global__ void __launch_bounds__(kThreads)
-fused_pipeline_kernel(const uint8_t* __restrict__ x,
-                      const int32_t* __restrict__ pw,
-                      int32_t* __restrict__ bounds,
-                      int32_t* __restrict__ counts,
-                      uint32_t* __restrict__ fps,
-                      int32_t* __restrict__ lens, wblock::ScanParams P,
-                      int inc) {
-  __shared__ uint8_t sx[kTile + kMaxHalo];
-  __shared__ uint32_t scand[kTile / 32];
-  __shared__ uint32_t sopp[kTile / 32];
-  __shared__ long long sh_k, sh_s;  // warp 0's scan state, for every warp
-  __shared__ int sh_kept;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+constexpr int kSlab = 8192;  // bytes a bulk copy (a multiple of 16)
+constexpr int kSlabs = 4;    // ring slots
+constexpr int kRing = kSlab * kSlabs;  // a power of two
+constexpr int kScanThreads = 64;       // warp 0 scans, warp 1 produces
+constexpr int kWin = 1024;  // positions a search window: 32 words
+constexpr int kHashThreads = 128;
+static_assert((kRing & (kRing - 1)) == 0, "ring positions wrap by a mask");
+static_assert(kWin + 96 <= kSlab, "a window's bytes span at most two slabs");
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// waits for the completion of the barrier's phase of the given parity
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// bytes global -> shared by the copy engine, completion on bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ unsigned low_bits(long long count) {
+  return count >= 32 ? kFull : count <= 0 ? 0u : (1u << count) - 1u;
+}
+
+// Four 0x00/0xff bytes -> four bits (byte j -> bit j)
+__device__ __forceinline__ unsigned byte_bits(uint32_t v) {
+  return ((v & 0x01010101u) * 0x01020408u) >> 24;
+}
+
+// The candidate and opposing words of the 32 positions from p0 (bit q is
+// position p0 + q), from the ring (v0: p0's ring offset): 4 positions a
+// step with byte-wise compares (__vcmpgtu4/__vcmpltu4) of unaligned words,
+// which the lane assembles from aligned 4-byte loads.  Bit t of (lo, hi)
+// is the pair (p0 + t, p0 + t + 1) continuing a run (increasing, or
+// decreasing); a candidate is L-1 of them in a row.  Positions whose pair
+// or run leaves the row are not set.  kG bounds the steps: 10 for L <= 7,
+// 24 for L <= 65.
+template <int kG>
+__device__ __forceinline__ void mask_word(const uint8_t* ring, int v0,
+                                          long long p0, long long n, int L,
+                                          int inc, unsigned& cw,
+                                          unsigned& ow) {
+  cw = ow = 0;
+  if (p0 >= n - 1) return;  // no pair starts in the word
+  const uint32_t* r32 = reinterpret_cast<const uint32_t*>(ring);
+  constexpr int kWords = kRing / 4 - 1;
+  const int sh = (v0 & 3) * 8;
+  const int w0 = v0 >> 2;
+  const int G = (33 + L) >> 2;  // steps covering positions p0 .. p0+29+L
+  uint32_t cur_w = r32[w0 & kWords], nxt_w = r32[(w0 + 1) & kWords];
+  unsigned long long lo = 0;
+  unsigned hi = 0, opp = 0;
+#pragma unroll
+  for (int j = 0; j < kG; ++j) {
+    if (j < G) {
+      const uint32_t cur = __funnelshift_rc(cur_w, nxt_w, sh);
+      const uint32_t nx = __funnelshift_rc(cur_w, nxt_w, sh + 8);
+      const uint32_t up = __vcmpgtu4(nx, cur), dn = __vcmpltu4(nx, cur);
+      const unsigned run = byte_bits(inc ? up : dn);
+      if (4 * j < 64)
+        lo |= (unsigned long long)run << (4 * j);
+      else
+        hi |= run << (4 * j - 64);
+      if (j < 8) opp |= byte_bits(inc ? dn : up) << (4 * j);
+      cur_w = nxt_w;
+      nxt_w = r32[(w0 + 2 + j) & kWords];
+    }
+  }
+  const unsigned long long mid = (lo >> 32) | ((unsigned long long)hi << 32);
+  unsigned cand = kFull;
+#pragma unroll
+  for (int t = 0; t < 4 * kG - 32; ++t)
+    if (t <= L - 2)
+      cand &= t < 32 ? (unsigned)(lo >> t) : (unsigned)(mid >> (t - 32));
+  cw = cand & low_bits(n - L - p0 + 1);  // runs inside the row
+  ow = opp & low_bits(n - 1 - p0);       // pairs inside the row
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+fused_pipeline_scan_kernel(const uint8_t* __restrict__ x,
+                           int32_t* __restrict__ bounds,
+                           int32_t* __restrict__ counts,
+                           int32_t* __restrict__ lens, wblock::ScanParams P,
+                           int inc) {
+  __shared__ __align__(128) uint8_t ring[kRing];
+  __shared__ __align__(8) uint64_t full[kSlabs], empty[kSlabs];
+  const int tid = threadIdx.x, lane = tid & 31;
   const long long b = blockIdx.x;
   const long long n = P.n;
   const uint8_t* row = x + b * n;
   int32_t* bnd = bounds + b * P.mc;
   int32_t* ln = lens + b * P.mc;
-  uint32_t* fp = fps + b * P.mc * 2;
-  for (int i = tid; i < P.mc; i += kThreads) {
+  for (int i = tid; i < P.mc; i += kScanThreads) {
     bnd[i] = kBig;
     ln[i] = 0;
-    fp[2 * i] = 0;
-    fp[2 * i + 1] = 0;
   }
+  // The ring holds the row from its 16-byte aligned floor (bulk copies
+  // move 16-byte units): position p is virtual position p + a, slab j
+  // holds virtual [j * kSlab, (j + 1) * kSlab) in slot j % kSlabs.  Bytes
+  // before the row or past its end are copied but never compared.
+  const int a = (int)(reinterpret_cast<uintptr_t>(row) & 15);
+  const long long vlen = n + a;
+  const long long nslabs = (vlen + kSlab - 1) / kSlab;
   if (tid == 0) {
-    sh_k = P.sub_min;
-    sh_s = 0;
+    for (int i = 0; i < kSlabs; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // the scan registers; only warp 0's copy is live
+  if (tid >= 32) {  // -- the producer: one thread streams the row -------
+    if (tid == 32) {
+      const uint8_t* base = row - a;
+      for (long long j = 0; j < nslabs; ++j) {
+        const int slot = (int)(j % kSlabs);
+        if (j >= kSlabs)  // slab j - kSlabs released
+          mbar_wait(&empty[slot], (unsigned)((j / kSlabs) & 1) ^ 1u);
+        const long long left = vlen - j * kSlab;
+        const int bytes = ((int)(left < kSlab ? left : kSlab) + 15) & ~15;
+        mbar_expect_tx(&full[slot], bytes);
+        bulk_copy(ring + slot * kSlab, base + j * kSlab, bytes, &full[slot]);
+      }
+    }
+    return;
+  }
+
+  // -- the scanning warp ---------------------------------------------------
+  long long ready = 0;     // slabs [0, ready) have arrived
+  long long released = 0;  // slabs [0, released) are handed back
+  // Make slabs [.., hi] resident and hand back those below lo; a slab is
+  // handed back only after it has arrived, and before waiting on slab r
+  // every arrived slab below min(r, lo) is handed back, so the producer
+  // (which needs slab r - kSlabs back to copy slab r) always can.
+  auto need = [&](long long lo, long long hi) {
+    __syncwarp();  // every lane is done reading what is handed back
+    for (;;) {
+      const long long upto = lo < ready ? lo : ready;
+      for (; released < upto; ++released)
+        if (lane == 0) mbar_arrive(&empty[released % kSlabs]);
+      if (ready > hi) break;
+      mbar_wait(&full[ready % kSlabs], (unsigned)((ready / kSlabs) & 1));
+      ++ready;
+    }
+  };
+
+  const int W = P.W, L = P.L;
+  // The window [wstart, wstart + kWin) from the W-block holding k, its
+  // mask words computed when k first leaves the previous window.
+  long long wstart = -kWin;
+  unsigned cw = 0, ow = 0;
   wblock::ScanState st{P.sub_min, 0, 0, 0, 0};
-  for (long long t0 = 0; t0 < P.cover; t0 += kTile) {
-    if (sh_s >= n) break;             // the row is done
-    if (sh_k >= t0 + kTile) continue;  // every block of this tile is a no-op
-    // -- stage the tile's bytes (zero past the row), all loads in flight --
-    wblock::stage_tile(sx, row, t0, n, P.L, tid);
-    __syncthreads();
-    // -- phase-1 mask words: bit q of word w is position t0 + 32w + q ------
-    for (int w = warp; w < kTile / 32; w += kWarps) {
-      const int i = w * 32 + lane;
-      const long long pos = t0 + i;
-      bool cd = false, op = false;
-      if (pos < n - 1) {
-        const uint8_t a = sx[i], nx = sx[i + 1];
-        op = inc ? (nx < a) : (nx > a);
-      }
-      if (pos <= n - P.L) {
-        cd = true;
-        for (int j = 0; j < P.L - 1; ++j) {
-          const uint8_t a = sx[i + j], nx = sx[i + j + 1];
-          cd = cd && (inc ? (nx > a) : (nx < a));
-        }
-      }
-      const unsigned cw = __ballot_sync(kFull, cd);
-      const unsigned ow = __ballot_sync(kFull, op);
-      if (lane == 0) {
-        scand[w] = cw;
-        sopp[w] = ow;
+  while (st.s < n && st.k < P.cover) {
+    if (st.k >= wstart + kWin) {
+      wstart = st.k & ~(long long)(W - 1);  // W is a power of two
+      const long long hi_pos =
+          wstart + kWin + L - 1 < n ? wstart + kWin + L - 1 : n;
+      if (wstart < hi_pos) {
+        const long long lo = (wstart + a) / kSlab;
+        const long long hi = (hi_pos - 1 + a) / kSlab;
+        if (lo > released || hi >= ready) need(lo, hi);
+        // lane i: word i, positions wstart + 32i ..
+        const int v0 = (int)((wstart + 32 * lane + a) & (kRing - 1));
+        if (L <= 7)
+          mask_word<10>(ring, v0, wstart + 32 * lane, n, L, inc, cw, ow);
+        else
+          mask_word<24>(ring, v0, wstart + 32 * lane, n, L, inc, cw, ow);
+      } else {
+        cw = ow = 0;  // past the row
       }
     }
-    __syncthreads();
-    // -- warp 0: the W-block automaton over this tile -----------------------
-    if (warp == 0) {
-      wblock::scan_tile(st, scand, sopp, t0, P, bnd, ln, lane);
-      if (lane == 0) {
-        sh_k = st.k;
-        sh_s = st.s;
-      }
-    }
-    __syncthreads();
+    // the next event from k, or none before the window's end: k moves to
+    // the next window with the opposing pairs counted
+    const long long wend = wstart + kWin < P.cover ? wstart + kWin : P.cover;
+    wblock::resolve(st,
+                    wblock::block_search_words(cw, ow, st.k - wstart, wstart,
+                                               st.c, P.T, lane),
+                    wend, P, bnd, ln, lane);
   }
-  // -- select_boundaries' fixup (the final boundary n), then the hashes ----
-  if (tid == 0) {
-    const long long cnt = wblock::final_cut(st, P, bnd, ln);
-    counts[b] = (int32_t)cnt;
-    sh_kept = (int)(cnt < P.mc ? cnt : P.mc);
-  }
-  __syncthreads();
-  for (int j = warp; j < sh_kept; j += kWarps) {
-    const long long e = bnd[j], st0 = j > 0 ? bnd[j - 1] : 0;
-    unsigned long long a1 = 0, a2 = 0;
-    add_range<4>(row, st0, e, e, pw, lane, a1, a2);
-    a1 = warp_sum_mod(a1);
-    a2 = warp_sum_mod(a2);
+  if (lane == 0) counts[b] = (int32_t)wblock::final_cut(st, P, bnd, ln);
+  need(nslabs, nslabs - 1);  // every copy has landed before the CTA exits
+}
+
+// One warp per chunk slot of the batch: the kept chunks' hashes, zeros
+// past them (the scan wrote bounds, lengths and counts).
+__global__ void __launch_bounds__(kHashThreads)
+fused_pipeline_hash_kernel(const uint8_t* __restrict__ x,
+                           const int32_t* __restrict__ bounds,
+                           const int32_t* __restrict__ counts,
+                           const int32_t* __restrict__ pw,
+                           uint32_t* __restrict__ fps, int B, long long n,
+                           int mc) {
+  const long long warp =
+      (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp >= (long long)B * mc) return;
+  const long long b = warp / mc;
+  const int j = (int)(warp - b * mc);
+  const long long slot = b * mc + j;
+  if (j >= counts[b]) {  // counts every emit; the table keeps mc of them
     if (lane == 0) {
-      fp[2 * j] = (uint32_t)a1;
-      fp[2 * j + 1] = (uint32_t)a2;
+      fps[2 * slot] = 0;
+      fps[2 * slot + 1] = 0;
     }
+    return;
+  }
+  const long long e = bounds[slot], s = j > 0 ? bounds[slot - 1] : 0;
+  unsigned long long a1 = 0, a2 = 0;
+  add_range<1>(x + b * n, s, e, e, pw, lane, a1, a2);
+  a1 = warp_sum_mod(a1);
+  a2 = warp_sum_mod(a2);
+  if (lane == 0) {
+    fps[2 * slot] = (uint32_t)a1;
+    fps[2 * slot + 1] = (uint32_t)a2;
   }
 }
 
@@ -157,15 +333,25 @@ extern "C" int fused_pipeline_launch(const void* x, const void* pw,
                                      long long cover, int mc, int L, int inc,
                                      int W, int T, int skip, int sub_min,
                                      int max_size, void* stream) {
-  if (W < 1 || W > 1024 || (W & (W - 1)) != 0 || kTile % W != 0 ||
-      L < 2 || L - 1 > kMaxHalo)
+  if (W < 1 || W > 1024 || (W & (W - 1)) != 0 || L < 2 || L - 1 > kMaxHalo)
     return static_cast<int>(cudaErrorInvalidValue);
   const wblock::ScanParams P{n, cover, mc, L, W, T, skip, sub_min, max_size};
-  if (B > 0) {
-    fused_pipeline_kernel<<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(x), static_cast<const int32_t*>(pw),
-        static_cast<int32_t*>(bounds), static_cast<int32_t*>(counts),
-        static_cast<uint32_t*>(fps), static_cast<int32_t*>(lens), P, inc);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B <= 0) return static_cast<int>(cudaGetLastError());
+  fused_pipeline_scan_kernel<<<B, kScanThreads, 0, st>>>(
+      static_cast<const uint8_t*>(x), static_cast<int32_t*>(bounds),
+      static_cast<int32_t*>(counts), static_cast<int32_t*>(lens), P, inc);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long threads = (long long)B * mc * 32;
+  if (threads > 0) {
+    fused_pipeline_hash_kernel<<<
+        (unsigned)((threads + kHashThreads - 1) / kHashThreads), kHashThreads,
+        0, st>>>(static_cast<const uint8_t*>(x),
+                 static_cast<const int32_t*>(bounds),
+                 static_cast<const int32_t*>(counts),
+                 static_cast<const int32_t*>(pw), static_cast<uint32_t*>(fps),
+                 B, n, mc);
   }
   return static_cast<int>(cudaGetLastError());
 }

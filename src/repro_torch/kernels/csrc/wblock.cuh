@@ -1,12 +1,14 @@
 // The W-block scan's shared pieces, used by fused_pipeline.cu,
 // packed_pipeline.cu and select_boundaries.cu.
 //
-// The kernels give one 8-warp block a row and walk its tiles in order:
-// per tile of kTile positions the warps turn the tile's candidate/opposing
-// bits (byte compares of a staged tile, or given bitmaps) into 32-bit words
-// with __ballot_sync, and warp 0 resolves
-// the tile's W-blocks from those words (W <= 1024, so at most 32 words a
-// block: lane i takes word i).
+// packed_pipeline.cu and select_boundaries.cu give one 8-warp block a row
+// and walk its tiles in order: per tile of kTile positions the warps turn
+// the tile's candidate/opposing bits (byte compares of a staged tile, or
+// given bitmaps) into 32-bit words with __ballot_sync, and warp 0 resolves
+// the tile's W-blocks from those words (scan_tile).  fused_pipeline.cu
+// computes the words of a 1024-position window on demand and searches it
+// with the same block_search_words and resolve.  W <= 1024, so at most 32
+// words a block: lane i takes word i.
 #pragma once
 
 #include <cstdint>
@@ -51,29 +53,38 @@ struct BlockHit {
   int total;     // active opposing pairs in the block
 };
 
-// Warp 0's search of the W-block [bstart, bstart + W), whose mask words
-// start at tile offset rel, from the scan position's offset o into the
-// block: the first candidate is a warp min of __ffs, the trigger the m-th
-// active opposing bit (m = T - c + 1, c <= T) found by a warp prefix sum
-// of __popc.  Every lane returns the same values.
-__device__ __forceinline__ BlockHit block_search(const uint32_t* scand,
-                                                 const uint32_t* sopp,
-                                                 int rel, int W, long long o,
-                                                 long long bstart,
-                                                 long long c, int T,
-                                                 int lane) {
-  unsigned cw = 0, ow = 0;
-  if (lane < (W >= 32 ? W / 32 : 1)) {
-    const unsigned wmask = W >= 32 ? kFull : ((1u << W) - 1u);
-    const int sh = W >= 32 ? 0 : (rel & 31);
-    cw = (scand[(rel >> 5) + lane] >> sh) & wmask;
-    ow = (sopp[(rel >> 5) + lane] >> sh) & wmask;
-    const long long lo = 32LL * lane;
-    const unsigned act =
-        o <= lo ? kFull : (o >= lo + 32 ? 0u : kFull << (o - lo));
-    cw &= act;
-    ow &= act;
+// Position of the r-th set bit of u (1 <= r <= popc(u)), by halves.
+__device__ __forceinline__ int nth_bit(unsigned u, int r) {
+  int pos = 0;
+#pragma unroll
+  for (int half = 16; half > 0; half >>= 1) {
+    const int cnt = __popc(u & ((1u << half) - 1u));
+    if (cnt < r) {
+      r -= cnt;
+      u >>= half;
+      pos += half;
+    }
   }
+  return pos;
+}
+
+// The search of the W-block [bstart, bstart + W) by one warp, lane i
+// holding word i of the block's candidate and opposing bits (cw, ow; zero
+// past the block), from the scan position's offset o into the block: the
+// first candidate is a warp min of __ffs, the trigger the m-th active
+// opposing bit (m = T - c + 1, c <= T) found by a warp prefix sum of
+// __popc.  Every lane returns the same values.
+__device__ __forceinline__ BlockHit block_search_words(unsigned cw,
+                                                       unsigned ow,
+                                                       long long o,
+                                                       long long bstart,
+                                                       long long c, int T,
+                                                       int lane) {
+  const long long lo = 32LL * lane;
+  const unsigned act =
+      o <= lo ? kFull : (o >= lo + 32 ? 0u : kFull << (o - lo));
+  cw &= act;
+  ow &= act;
   int kc_rel = cw ? 32 * lane + __ffs(cw) - 1 : kBig;
   kc_rel = __reduce_min_sync(kFull, kc_rel);
   const int pc = __popc(ow);
@@ -87,14 +98,29 @@ __device__ __forceinline__ BlockHit block_search(const uint32_t* scand,
   const int excl = incl - pc;
   const long long m = T - c + 1;
   int kt_rel = kBig;
-  if (excl < m && m <= incl) {
-    unsigned u = ow;
-    for (long long r = 1; r < m - excl; ++r) u &= u - 1;
-    kt_rel = 32 * lane + __ffs(u) - 1;
-  }
+  if (excl < m && m <= incl)
+    kt_rel = 32 * lane + nth_bit(ow, (int)(m - excl));
   kt_rel = __reduce_min_sync(kFull, kt_rel);
   return BlockHit{kc_rel < kBig ? bstart + kc_rel : kBig,
                   kt_rel < kBig ? bstart + kt_rel : kBig, total};
+}
+
+// block_search_words over the block's words in scand/sopp, which start at
+// tile offset rel.
+__device__ __forceinline__ BlockHit block_search(const uint32_t* scand,
+                                                 const uint32_t* sopp,
+                                                 int rel, int W, long long o,
+                                                 long long bstart,
+                                                 long long c, int T,
+                                                 int lane) {
+  unsigned cw = 0, ow = 0;
+  if (lane < (W >= 32 ? W / 32 : 1)) {
+    const unsigned wmask = W >= 32 ? kFull : ((1u << W) - 1u);
+    const int sh = W >= 32 ? 0 : (rel & 31);
+    cw = (scand[(rel >> 5) + lane] >> sh) & wmask;
+    ow = (sopp[(rel >> 5) + lane] >> sh) & wmask;
+  }
+  return block_search_words(cw, ow, o, bstart, c, T, lane);
 }
 
 // The split path's scan parameters: the row length, the padded block range
@@ -111,14 +137,50 @@ struct ScanState {
   long long k, c, s, cnt, last_kept;
 };
 
+// The reference's _resolve (repro/core/automaton.py) for the W-block
+// ending at bend that holds the scan position st.k (in_block), given its
+// search h; every lane on the same values.  An emitted bound (and, where
+// ln is not null, the chunk length) goes to the row's table; emits past mc
+// are counted and dropped, as the split path's mode="drop" scatter drops
+// them.
+__device__ __forceinline__ void resolve(ScanState& st, const BlockHit& h,
+                                        long long bend, const ScanParams& P,
+                                        int32_t* bnd, int32_t* ln, int lane) {
+  const long long kc = h.kc, kt = h.kt, k = st.k, s = st.s;
+  const long long cut_b = s + P.max_size < P.n ? s + P.max_size : P.n;
+  const long long cut_k = cut_b - (P.L - 1);
+  const long long e_cut = cut_k > k ? cut_k : k;
+  const bool fire_cut = e_cut < bend && e_cut <= (kc < kt ? kc : kt);
+  const bool fire_cand = !fire_cut && kc < kt;
+  const bool fire_trig = !fire_cut && !fire_cand && kt < kBig;
+  const bool emit_cut = fire_cut || (fire_trig && kt + P.skip >= cut_k);
+  const bool emit = emit_cut || fire_cand;
+  const long long bound = emit_cut ? cut_b : kc + P.L;
+  if (emit)
+    st.k = bound + P.sub_min;
+  else if (fire_trig)
+    st.k = kt + P.skip;
+  else
+    st.k = bend;
+  st.c = (fire_cut || fire_cand || fire_trig) ? 0 : st.c + h.total;
+  if (emit) {
+    if (st.cnt < P.mc) {  // the split path's mode="drop" scatter
+      if (lane == 0) {
+        bnd[st.cnt] = (int32_t)bound;
+        if (ln) ln[st.cnt] = (int32_t)(bound - s);
+      }
+      st.last_kept = bound;
+    }
+    ++st.cnt;
+    st.s = bound;
+  }
+}
+
 // Warp 0's walk over the W-blocks of the tile starting at t0, whose mask
-// words are in scand/sopp: per block, block_search and the reference's
-// _resolve (repro/core/automaton.py), every lane on the same values.  A
-// block the scan position has passed is a no-op in the split path (its
-// state is unchanged), so the walk jumps to the block holding k.  Emitted
-// bounds (and, where ln is not null, chunk lengths) go to the row's table
-// as they come; emits past mc are counted and dropped, as the split path's
-// mode="drop" scatter drops them.
+// words are in scand/sopp: per block, block_search and resolve, every lane
+// on the same values.  A block the scan position has passed is a no-op in
+// the split path (its state is unchanged), so the walk jumps to the block
+// holding k.
 __device__ __forceinline__ void scan_tile(ScanState& st, const uint32_t* scand,
                                           const uint32_t* sopp, long long t0,
                                           const ScanParams& P, int32_t* bnd,
@@ -126,52 +188,21 @@ __device__ __forceinline__ void scan_tile(ScanState& st, const uint32_t* scand,
   const int W = P.W;
   const long long tend = t0 + kTile;
   const long long blk_end = tend < P.cover ? tend : P.cover;
-  long long k = st.k, c = st.c, s = st.s, cnt = st.cnt,
-            last_kept = st.last_kept;
-  long long bstart = (k / W) * W;
+  long long bstart = (st.k / W) * W;
   if (bstart < t0) bstart = t0;
-  while (bstart < blk_end && s < P.n) {
+  while (bstart < blk_end && st.s < P.n) {
     const long long bend = bstart + W;
-    if (k >= bend) {  // not in_block: state unchanged, jump to k's block
-      const long long to = (k / W) * W;
+    if (st.k >= bend) {  // not in_block: state unchanged, jump to k's block
+      const long long to = (st.k / W) * W;
       bstart = to > bend ? to : bend;
       continue;
     }
-    const long long o = k > bstart ? k - bstart : 0;  // first active pos
-    const BlockHit h = block_search(scand, sopp, (int)(bstart - t0), W, o,
-                                    bstart, c, P.T, lane);
-    const long long kc = h.kc, kt = h.kt;
-    // _resolve (in_block holds here)
-    const long long cut_b = s + P.max_size < P.n ? s + P.max_size : P.n;
-    const long long cut_k = cut_b - (P.L - 1);
-    const long long e_cut = cut_k > k ? cut_k : k;
-    const bool fire_cut = e_cut < bend && e_cut <= (kc < kt ? kc : kt);
-    const bool fire_cand = !fire_cut && kc < kt;
-    const bool fire_trig = !fire_cut && !fire_cand && kt < kBig;
-    const bool emit_cut = fire_cut || (fire_trig && kt + P.skip >= cut_k);
-    const bool emit = emit_cut || fire_cand;
-    const long long bound = emit_cut ? cut_b : kc + P.L;
-    if (emit)
-      k = bound + P.sub_min;
-    else if (fire_trig)
-      k = kt + P.skip;
-    else
-      k = bend;
-    c = (fire_cut || fire_cand || fire_trig) ? 0 : c + h.total;
-    if (emit) {
-      if (cnt < P.mc) {  // the split path's mode="drop" scatter
-        if (lane == 0) {
-          bnd[cnt] = (int32_t)bound;
-          if (ln) ln[cnt] = (int32_t)(bound - s);
-        }
-        last_kept = bound;
-      }
-      ++cnt;
-      s = bound;
-    }
+    const long long o = st.k > bstart ? st.k - bstart : 0;  // first active
+    resolve(st, block_search(scand, sopp, (int)(bstart - t0), W, o, bstart,
+                             st.c, P.T, lane),
+            bend, P, bnd, ln, lane);
     bstart = bend;
   }
-  st = ScanState{k, c, s, cnt, last_kept};
 }
 
 // select_boundaries' fix-up (the final boundary n) by one thread; returns

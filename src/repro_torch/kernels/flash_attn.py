@@ -7,8 +7,11 @@ _flash_attention``: both compute softmax attention with an online-softmax
 takes q ``(B,S,H,hd)`` and k, v ``(B,S,KV,hd)`` with H a multiple of KV
 (grouped-query attention by indexing the KV head ``h // (H/KV)``, not by
 repeating K/V), float32 or bfloat16, ``hd`` in 16/32/64/128, the causal
-mask or none, and an optional local ``window``.  At the serving shapes it
-is bound by operations; the bound is in ``chip_smoke.py`` and PERF.md.
+mask or none, and an optional local ``window``.  bfloat16 inputs run on
+the tensor cores (``mma.sync``, float32 accumulation, P split into two
+bfloat16 halves against V), float32 inputs on the CUDA cores in full
+float32.  At the serving shapes it is bound by operations; the bound is in
+``chip_smoke.py`` and PERF.md.
 
 :func:`flash_attention_plain` is its plain version: the block loop of the
 reference's ``_flash_attention`` in torch, every tile upcast to float32 as
@@ -134,7 +137,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head width {hd} not in {HEAD_DIMS}")
     if scale is None:
         scale = 1.0 / (hd**0.5)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # contiguous, at 16-byte aligned addresses (the kernel's copy width)
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+               for t in (q, k, v))
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out

@@ -1,10 +1,13 @@
 """CUDA kernel: fused chunk + fingerprint pipeline, one launch per batch.
 
 Replaces ``repro/kernels/fused_pipeline.py:fused_pipeline_batch``.  The
-kernel (``csrc/fused_pipeline.cu``) gives each row one thread block that
-walks the row's tiles in order: mask words per tile in shared memory, the
-``wide`` W-block automaton per block, then the hash of every kept chunk.
-It is memory-bound (each byte needed once).  Its plain version is the
+kernel (``csrc/fused_pipeline.cu``) is two launches behind one call: a
+scan with one two-warp CTA per row (a producer warp streams the row into
+a shared-memory ring with bulk copies; the scanning warp computes the mask
+words of each W-block the ``wide`` automaton reaches, on demand, and
+resolves it), then one warp per chunk slot of the batch hashing the kept
+chunks.  The function is memory-bound (each byte needed once); the design
+is bound by the scan's serial chain.  Its plain version is the
 composed split path (:func:`fused_pipeline_plain`), as
 ``repro/kernels/ref.py`` defines the TPU kernel's oracle:
 ``boundaries_batch`` followed by the batched ``chunk_fingerprints``.

@@ -110,6 +110,69 @@ def test_fused_and_fingerprint_kernels(dev, name, n):
                                       fingerprints_numpy(host[r], ob))
 
 
+#: rows long enough that the fused kernel's ring of shared-memory slabs
+#: wraps many times, and the adversarial contents of a row
+BIG_ROWS = [1 << 20, 2 << 20]
+ROW_KINDS = ("constant", "ramp", "period", "random")
+
+
+def _big_row(rng, p, n: int, kind: str) -> np.ndarray:
+    if kind == "constant":  # no candidates, no opposing pairs
+        return np.full(n, 0x5A, np.uint8)
+    if kind == "ramp":  # strictly increasing, wrapping every 256 bytes
+        return (np.arange(n) % 256).astype(np.uint8)
+    if kind == "period":  # a random pattern of period max_size
+        return np.resize(rng.integers(0, 256, p.max_size, dtype=np.uint8), n)
+    return rng.integers(0, 256, n, dtype=np.uint8)
+
+
+def _fused_against_plain(x, host, p):
+    """The fused kernel against fused_pipeline_plain bit for bit (its
+    automaton stage the plain torch loop where that walks at most 8,192
+    W-blocks, else the select kernel, which the select tests hold against
+    that loop), and every row's bounds against the numpy oracle."""
+    n = x.shape[1]
+    mc = max_chunks_for(n, p)
+    sel = "torch" if n // p.block_width <= 8192 else "cuda"
+    got = kfused.fused_pipeline_batch(x, p, max_chunks=mc)
+    want = kfused.fused_pipeline_plain(x, p, max_chunks=mc, select_impl=sel)
+    torch.cuda.synchronize()
+    _equal(got, want)
+    bounds, counts, fps = (t.cpu().numpy() for t in got[:3])
+    for r in range(host.shape[0]):
+        ob = boundaries_numpy(host[r], p)
+        assert bounds[r, : counts[r]].tolist() == ob.tolist(), r
+    ob = bounds[0, : counts[0]]
+    np.testing.assert_array_equal(fps[0, : counts[0]],
+                                  fingerprints_numpy(host[0], ob))
+
+
+@pytest.mark.parametrize("name", sorted(PARAMS))
+@pytest.mark.parametrize("n", BIG_ROWS)
+@pytest.mark.parametrize("kind", ROW_KINDS)
+def test_fused_kernel_one_big_row(dev, name, n, kind):
+    p = PARAMS[name]
+    host = _big_row(np.random.default_rng(n), p, n, kind)[None]
+    _fused_against_plain(torch.from_numpy(host).to(dev), host, p)
+
+
+@pytest.mark.parametrize("name", sorted(PARAMS))
+@pytest.mark.parametrize("n", BIG_ROWS)
+def test_fused_kernel_big_batch(dev, name, n):
+    """Eight rows of every adversarial kind at once, 7 bytes past the
+    size, so each row starts at another offset from 16 bytes (the ring's
+    copy width)."""
+    p = PARAMS[name]
+    rng = np.random.default_rng(n + 1)
+    host = np.stack([_big_row(rng, p, n + 7, kind)
+                     for kind in ROW_KINDS + ROW_KINDS[::-1]])
+    host[6] = 255 - host[6]  # a decreasing ramp
+    flat = torch.from_numpy(np.concatenate(
+        [np.zeros(3, np.uint8), host.ravel()])).to(dev)
+    x = flat[3:].view(host.shape)  # rows start off 16 bytes
+    _fused_against_plain(x, host, p)
+
+
 def test_fingerprint_kernel_counts_and_undersized_table(dev):
     rng = np.random.default_rng(5)
     x = torch.from_numpy(rng.integers(0, 256, (3, 9000),
@@ -467,6 +530,43 @@ def test_flash_kernel_matches_plain(dev, no_tf32, dtype, hd, B, S, H, KV):
                                    want.float().cpu().numpy(),
                                    **kflash.TOLERANCE[dtype],
                                    err_msg=f"causal={causal} window={window}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("S", [40, 1024, 1500, 2048])
+def test_flash_kernel_long_sequences(dev, no_tf32, dtype, hd, S):
+    """Serving lengths (and one below a 64-query tile), B = 2, causal,
+    full and windowed masks, under the same elementwise tolerance."""
+    from repro_torch.kernels import flash_attn as kflash
+
+    q, k, v = _flash_inputs(S + hd, 2, S, 4, 2, hd, dtype, dev)
+    for causal, window in ((True, 0), (False, 0), (True, 300), (False, 500)):
+        got = kflash.flash_attention(q, k, v, causal=causal, window=window)
+        want = kflash.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window, q_block=256,
+                                            kv_block=256)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == q.shape
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(),
+                                   **kflash.TOLERANCE[dtype],
+                                   err_msg=f"causal={causal} window={window}")
+
+
+def test_flash_kernel_takes_misaligned_bf16_inputs(dev):
+    """A contiguous bf16 view that does not start on 16 bytes (the
+    kernel's copy width) gives the aligned input's output."""
+    from repro_torch.kernels import flash_attn as kflash
+
+    q, k, v = _flash_inputs(11, 1, 130, 4, 2, 32, torch.bfloat16, dev)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)
+    qo = buf[1:].view(q.shape)
+    qo.copy_(q)
+    assert qo.is_contiguous() and qo.data_ptr() % 16
+    got = kflash.flash_attention(qo, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kflash.flash_attention(q, k, v))
 
 
 def test_flash_kernel_takes_strided_inputs_and_counts_launches(dev, no_tf32):

@@ -1,0 +1,203 @@
+#!/usr/bin/env python3
+"""Time the native-scan, select and fused kernels at the sizes the paths
+launch them, on one NVIDIA card.
+
+Run from the root of a checkout: ``python3 bench_scans.py [--src DIR]
+[--label NAME] [--json FILE]``.  ``--src`` names the ``src`` directory
+whose ``repro_torch`` is timed (default: this checkout's), so two trees
+can be compared on one card in one go: run it for each in turns
+(parent, change, change, parent).  Every timed call goes through the
+public wrapper and is timed with CUDA events (a call's time, the
+wrapper's allocations included), after one warm-up call:
+
+* the native scan (``kernels.native_scan``) on one 16 MiB random stream
+  for each algorithm at calibrated 8 KiB knobs, as phase 6's ``_seq``
+  chunkers launch it, three timed calls each, with the card's SM clock
+  sampled during the calls and cycles a byte (seqcdc: a byte of stream);
+  and on 64 KiB (``chip_smoke.py`` phase 3's shape);
+* the select kernel (``kernels.select_boundaries``) on SeqCDC bitmaps at
+  paper 8 KiB parameters (1 MiB x 8, 48 KiB x 8 and one 64 MiB row) and on
+  gear selector rows (calibrated 8 KiB gear: one 16 MiB and one 1 MiB
+  row), five timed calls each (two on the 64 MiB row);
+* the fused pipeline at 1 MiB x 8, paper 8 KiB parameters.
+
+Each output's SHA-256 digest is printed, so two trees' outputs can be
+held equal.  ``--sass FILE`` also writes ``cuobjdump -sass`` of the built
+native-scan library there, for reading its per-byte chain.  It imports
+neither jax nor the JAX package, and exits 2 without a card.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import subprocess
+import sys
+
+from chip_smoke import SCAN_ALGOS, scan_kwargs, sm_clock_during
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def call_ms(fn, reps: int) -> list[float]:
+    """Milliseconds of each of ``reps`` calls of ``fn`` after a warm-up,
+    by CUDA events."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return times
+
+
+def digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def native_rows(seed: int) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import native_scan as kscan
+
+    stream = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 256, 16 << 20, dtype=np.uint8)).cuda()
+    out = {}
+    for algo in SCAN_ALGOS:
+        kw = scan_kwargs(algo)
+        for label, n, reps in (("16MiB", 16 << 20, 3), ("64KiB", 64 << 10,
+                                                        5)):
+            x = stream[None, :n]
+            run = lambda: kscan.native_scan(x, algo, **kw)  # noqa: E731
+            ms, mhz = sm_clock_during(lambda: call_ms(run, reps))
+            got = run()
+            mean = sum(ms) / len(ms)
+            out[f"native_scan {algo} {label}"] = dict(
+                ms=ms, mean_ms=mean, sm_mhz=mhz, bytes=n,
+                cycles_per_byte=(mean * 1e-3 * mhz * 1e6 / n
+                                 if mhz else None),
+                chunks=int(got[1][0]), digest=digest(got))
+    return out
+
+
+def select_rows(seed: int) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.core import make_chunker
+    from repro_torch.core.automaton import max_chunks_for
+    from repro_torch.core.baselines.selectors import SelectorParams
+    from repro_torch.core.calibrate import calibrated_kwargs
+    from repro_torch.core.params import paper_params
+    from repro_torch.kernels import fused_pipeline as kfused
+    from repro_torch.kernels import gear_hash as kgear
+    from repro_torch.kernels import select_boundaries as kselect
+    from repro_torch.kernels import seqcdc_masks as kmasks
+
+    rng = np.random.default_rng(seed + 1)
+    p = paper_params(8192)
+    out = {}
+    for label, (B, n, reps) in {"seqcdc 1MiBx8": (8, 1 << 20, 5),
+                                "seqcdc 48KiBx8": (8, 48 << 10, 5),
+                                "seqcdc 64MiBx1": (1, 64 << 20, 2)}.items():
+        x = torch.from_numpy(rng.integers(0, 256, (B, n),
+                                          dtype=np.uint8)).cuda()
+        cand, opp = kmasks.seqcdc_masks(x, p.seq_length, p.mode)
+        mc = max_chunks_for(n, p)
+        run = lambda: kselect.select_boundaries(  # noqa: E731
+            cand, opp, n, p, max_chunks=mc)
+        ms = call_ms(run, reps)
+        got = run()
+        out[f"select {label}"] = dict(ms=ms, mean_ms=sum(ms) / len(ms),
+                                      chunks=int(got[1].sum()),
+                                      digest=digest(got))
+        if label == "seqcdc 1MiBx8":
+            frun = lambda: kfused.fused_pipeline_batch(  # noqa: E731
+                x, p, max_chunks=mc)
+            ms = call_ms(frun, reps)
+            out["fused 1MiBx8"] = dict(ms=ms, mean_ms=sum(ms) / len(ms),
+                                       digest=digest(frun()))
+        del x, cand, opp
+    gear = make_chunker("gear", 8192, device="cuda",
+                        **calibrated_kwargs("gear", 8192))
+    sp = SelectorParams(min_size=gear.min_size, max_size=gear.max_size)
+    stream = torch.from_numpy(rng.integers(0, 256, 16 << 20,
+                                           dtype=np.uint8)).cuda()
+    for label, n in (("gear 16MiB", 16 << 20), ("gear 1MiB", 1 << 20)):
+        h = kgear.gear_hash(stream[:n]).to(torch.int64)
+        bits = ((h & int(gear.mask)) == 0)[None]
+        zeros = torch.zeros_like(bits)
+        run = lambda: kselect.select_boundaries(  # noqa: E731
+            bits, zeros, n, sp)
+        ms = call_ms(run, 5)
+        got = run()
+        out[f"select {label}"] = dict(ms=ms, mean_ms=sum(ms) / len(ms),
+                                      chunks=int(got[1][0]),
+                                      digest=digest(got))
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", default=os.path.join(ROOT, "src"))
+    ap.add_argument("--label", default="tree")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--json", default=None)
+    ap.add_argument("--sass", default=None)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, os.path.abspath(args.src))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("bench_scans: no CUDA card", file=sys.stderr)
+        return 2
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    import repro_torch
+
+    print(f"{args.label}: {card}; repro_torch from "
+          f"{os.path.dirname(repro_torch.__file__)}", flush=True)
+    rows = select_rows(args.seed)
+    rows.update(native_rows(args.seed))
+    for name, r in rows.items():
+        extra = (f", SM {r['sm_mhz']:.0f} MHz, {r['cycles_per_byte']:.2f} "
+                 f"cycles a byte" if r.get("cycles_per_byte") else "")
+        print(f"{args.label}: {name}: mean {r['mean_ms']:.4f} ms (calls "
+              + ", ".join(f"{t:.4f}" for t in r["ms"])
+              + f"){extra}; digest {r['digest']}", flush=True)
+    if args.sass:
+        import shutil
+
+        from repro_torch.kernels import native_scan as kscan
+
+        tool = shutil.which("cuobjdump") or os.path.join(
+            os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+            "cuobjdump")
+        with open(args.sass, "w") as f:
+            subprocess.run([tool, "-sass", str(kscan.KERNEL.library)],
+                           stdout=f, check=True)
+    if args.json:
+        os.makedirs(os.path.dirname(os.path.abspath(args.json)),
+                    exist_ok=True)
+        with open(args.json, "w") as f:
+            json.dump(dict(label=args.label, card=card, rows=rows), f,
+                      indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -16,11 +16,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It drives only
    heavy-tail sizes below 16 KiB); the registry's kernels at calibrated
    8 KiB knobs (gear and block max over a 64 MiB stream, select over one
    1 MiB gear selector row, the native scan over 64 KiB for each of its
-   seven algorithms); every output bit-equal, rows spot-checked against
-   the numpy oracle, kernel, plain and (block max) library times, and the
-   least time the card could take (its bound); the plain gather and event
-   automaton steps, once each on a 4 MiB SeqCDC stream, bit-equal to the
-   select kernel; then the block-max op once, its only path; the flash
+   seven algorithms); at the sizes phase 6 launches them, the native scan
+   on one 16 MiB stream for each algorithm (bit-equal to the vectorized
+   chunker of its pair, three timed calls, the SM clock sampled during
+   them and cycles a byte) and the select kernel on one 64 MiB SeqCDC row
+   (bit-equal to the fused kernel's bounds) and one 16 MiB gear selector
+   row (bit-equal to ``select_numpy``); every output bit-equal, rows
+   spot-checked against the numpy oracle, kernel, plain and (block max)
+   library times, and the least time the card could take (its bound); the
+   plain gather and event automaton steps, once each on a 4 MiB SeqCDC
+   stream, bit-equal to the select kernel; then the block-max op once,
+   its only path; the flash
    attention kernel at llama3.2-1b's serving shapes (1 x 2048 and 4096
    tokens, 32 query and 8 KV heads of width 64, causal, bfloat16 and
    float32) and one small ragged case each for the full mask and a local
@@ -204,6 +210,21 @@ def timed(r: dict) -> dict:
     return r
 
 
+def sm_clock_during(fn):
+    """``fn()``'s result and the highest SM clock (MHz) that ``nvidia-smi``
+    reads while it runs (sampled every 200 ms; None if no sample)."""
+    q = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits", "-lms", "200"], stdout=subprocess.PIPE, text=True)
+    try:
+        out = fn()
+    finally:
+        q.terminate()
+        text, _ = q.communicate()
+    mhz = [float(v) for v in text.split() if v.strip().isdigit()]
+    return out, (max(mhz) if mhz else None)
+
+
 # -- phase 3: each kernel against its plain version ---------------------------
 
 def kernel_phase(p, B: int, S: int, seed: int) -> dict:
@@ -306,7 +327,7 @@ def kernel_phase(p, B: int, S: int, seed: int) -> dict:
     out["select_boundaries"] = timed(dict(
         max_abs_err=err, bound_ms=bms, bound_by=by,
         **kernel_times(lambda: kselect.select_boundaries(
-            cand, opp, S, p, max_chunks=mc), 10, "select_boundaries_kernel"),
+            cand, opp, S, p, max_chunks=mc), 10, "select_boundaries_"),
         plain_ms=cuda_ms(
             lambda: select_boundaries(cand, opp, S, p, max_chunks=mc),
             plain_reps),
@@ -498,6 +519,19 @@ def tensor_core_sass(kernel) -> dict:
 SCAN_ALGOS = ("gear", "crc", "rabin", "fastcdc", "ae", "ram", "seqcdc")
 
 
+def scan_kwargs(algo: str) -> dict:
+    """The native scan's keyword arguments for ``algo`` as its ``_seq``
+    chunker passes them, at calibrated 8 KiB knobs."""
+    from repro_torch.core import make_chunker
+    from repro_torch.core.calibrate import calibrated_kwargs
+
+    c = make_chunker(f"{algo}_seq", 8192, device="cuda",
+                     **calibrated_kwargs(algo, 8192))
+    if algo == "seqcdc":
+        return dict(params=c.params)
+    return dict(min_size=c.min_size, max_size=c.max_size, **c.scan_args())
+
+
 def chunk_kernel_phase(seed: int, n_big: int, n_select: int,
                        n_scan: int) -> dict:
     """The gear, block-max, select (gear selector row) and native-scan
@@ -572,7 +606,7 @@ def chunk_kernel_phase(seed: int, n_big: int, n_select: int,
         max_abs_err=err, bound_ms=bms, bound_by=by,
         shape=f"1x{n_select} gear selector", chunks=int(got[1][0]),
         **kernel_times(lambda: kselect.select_boundaries(
-            bits, opp, n_select, sp), 10, "select_boundaries_kernel"),
+            bits, opp, n_select, sp), 10, "select_boundaries_"),
         plain_ms=cuda_ms(lambda: automaton.select_boundaries(
             bits, opp, n_select, sp), 1),
     ))
@@ -603,11 +637,7 @@ def chunk_kernel_phase(seed: int, n_big: int, n_select: int,
     scans = {}
     xs = x[None, :n_scan]
     for algo in SCAN_ALGOS:
-        c = make_chunker(f"{algo}_seq", 8192, device="cuda",
-                         **calibrated_kwargs(algo, 8192))
-        kw = (dict(params=c.params) if algo == "seqcdc" else
-              dict(min_size=c.min_size, max_size=c.max_size,
-                   **c.scan_args()))
+        kw = scan_kwargs(algo)
         got = kscan.native_scan(xs, algo, **kw)
         want = kscan.native_scan_plain(xs, algo, **kw)
         torch.cuda.synchronize()
@@ -626,6 +656,109 @@ def chunk_kernel_phase(seed: int, n_big: int, n_select: int,
                              1, 0),
         ))
     out["native_scan"] = scans
+    return out
+
+
+#: the sizes phase 6 launches the native scan and the select kernel at:
+#: 16 MiB a ``_seq`` chunker and a gear selector row, 64 MiB the seqcdc row
+LAUNCHED_SCAN = 16 << 20
+LAUNCHED_SEQCDC = 64 << 20
+
+
+def launched_phase(seed: int) -> dict:
+    """The native scan and select kernels at the sizes phase 6 launches
+    them.  Each native algorithm on one 16 MiB stream as its ``_seq``
+    chunker calls it (calibrated 8 KiB knobs), held against the bounds of
+    the vectorized chunker of its pair, then three timed calls with the SM
+    clock sampled during them; the select kernel on one 64 MiB SeqCDC row
+    (paper 8 KiB parameters, the masks kernel's bitmaps) held against the
+    fused kernel's bounds, and on one 16 MiB gear selector row held against
+    ``select_numpy``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import make_chunker
+    from repro_torch.core.automaton import max_chunks_for
+    from repro_torch.core.baselines.selectors import (
+        SelectorParams,
+        select_numpy,
+    )
+    from repro_torch.core.calibrate import calibrated_kwargs
+    from repro_torch.core.params import paper_params
+    from repro_torch.kernels import fused_pipeline as kfused
+    from repro_torch.kernels import gear_hash as kgear
+    from repro_torch.kernels import native_scan as kscan
+    from repro_torch.kernels import select_boundaries as kselect
+    from repro_torch.kernels import seqcdc_masks as kmasks
+
+    rng = np.random.default_rng(seed + 6)
+    host = rng.integers(0, 256, LAUNCHED_SEQCDC, dtype=np.uint8)
+    stream = torch.from_numpy(host).cuda()
+    n = LAUNCHED_SCAN
+    out = {}
+    for algo in SCAN_ALGOS:
+        kw = scan_kwargs(algo)
+        xs = stream[None, :n]
+        b, cnt = kscan.native_scan(xs, algo, **kw)
+        got = b[0, : int(cnt[0])].cpu().numpy()
+        extra = {"backend": "torch"} if algo in ("crc", "rabin") else {}
+        want = make_chunker(algo, 8192, device="cuda",
+                            **calibrated_kwargs(algo, 8192),
+                            **extra).chunk(host[:n])
+        if not np.array_equal(got, want):
+            raise AssertionError(f"native_scan ({algo}) at {n} B differs "
+                                 f"from the {algo} chunker")
+        ms, mhz = sm_clock_during(lambda: [
+            cuda_ms(lambda: kscan.native_scan(xs, algo, **kw), 1, 0)
+            for _ in range(3)])
+        mean = sum(ms) / len(ms)
+        bms, by = bound_ms(n + 4 * b.shape[1], n)
+        out[f"native_scan {algo}"] = dict(
+            shape=f"1x{n} {algo}", chunks=int(cnt[0]), ms=mean, calls_ms=ms,
+            sm_mhz=mhz, cycles_per_byte=(mean * 1e-3 * mhz * 1e6 / n
+                                         if mhz else None),
+            bound_ms=bms, bound_by=by, ms_source="CUDA events per call")
+
+    p = paper_params(8192)
+    x = stream[None]
+    cand, opp = kmasks.seqcdc_masks(x, p.seq_length, p.mode)
+    mc = max_chunks_for(LAUNCHED_SEQCDC, p)
+    got = kselect.select_boundaries(cand, opp, LAUNCHED_SEQCDC, p,
+                                    max_chunks=mc)
+    want = kfused.fused_pipeline_batch(x, p, max_chunks=mc)[:2]
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if err:
+        raise AssertionError("select_boundaries on a 64 MiB SeqCDC row "
+                             "differs from the fused kernel's bounds")
+    bms, by = bound_ms(2 * LAUNCHED_SEQCDC + 4 * mc + 4, LAUNCHED_SEQCDC)
+    out["select_boundaries seqcdc row"] = timed(dict(
+        shape=f"1x{LAUNCHED_SEQCDC} SeqCDC", chunks=int(got[1][0]),
+        max_abs_err=err, bound_ms=bms, bound_by=by,
+        **kernel_times(lambda: kselect.select_boundaries(
+            cand, opp, LAUNCHED_SEQCDC, p, max_chunks=mc), 3,
+            "select_boundaries_")))
+    del cand, opp, want
+
+    gear = make_chunker("gear", 8192, device="cuda",
+                        **calibrated_kwargs("gear", 8192))
+    h = kgear.gear_hash(stream[:n]).to(torch.int64)
+    bits = ((h & int(gear.mask)) == 0)[None]
+    zeros = torch.zeros_like(bits)
+    sp = SelectorParams(min_size=gear.min_size, max_size=gear.max_size)
+    b, cnt = kselect.select_boundaries(bits, zeros, n, sp)
+    want = select_numpy(np.flatnonzero(bits[0].cpu().numpy()), n,
+                        sp.min_size, sp.max_size)
+    if b[0, : int(cnt[0])].cpu().numpy().tolist() != want.tolist():
+        raise AssertionError("select_boundaries on a 16 MiB gear selector "
+                             "row differs from select_numpy")
+    mc = b.shape[1]
+    bms, by = bound_ms(2 * n + 4 * mc + 4, n)
+    out["select_boundaries gear row"] = timed(dict(
+        shape=f"1x{n} gear selector", chunks=int(cnt[0]), max_abs_err=0,
+        bound_ms=bms, bound_by=by,
+        **kernel_times(lambda: kselect.select_boundaries(bits, zeros, n, sp),
+                       5, "select_boundaries_")))
     return out
 
 
@@ -1371,6 +1504,23 @@ def main(argv=None) -> int:
             f"({r['ms_source']}; {r['call_ms']:.4f} ms per call), plain "
             f"{r['plain_ms']:.4f} ms{lib}, bound {r['bound_ms']:.6f} ms "
             f"({r['bound_by']})")
+    launched = launched_phase(args.seed)
+    measured["launched"] = launched
+    for name, r in launched.items():
+        clock = ""
+        if "calls_ms" in r:
+            clock = (f"; SM {r['sm_mhz']:.0f} MHz, {r['cycles_per_byte']:.2f} "
+                     f"cycles a byte" if r["sm_mhz"] else
+                     "; SM clock not sampled") + ", calls " + ", ".join(
+                f"{t:.2f}" for t in r["calls_ms"]) + " ms"
+        check = ("bit-equal to its pair's vectorized chunker"
+                 if name.startswith("native") else
+                 "bit-equal to the fused kernel's bounds"
+                 if "seqcdc" in name else "bit-equal to select_numpy")
+        log(f"kernel {name} at its launched size ({r['shape']}, "
+            f"{r['chunks']} chunks): {check}, {r['ms']:.4f} ms "
+            f"({r['ms_source']}){clock}, bound {r['bound_ms']:.6f} ms "
+            f"({r['bound_by']})")
     st = reg["steps"]
     log(f"automaton steps on one {st['n']} B SeqCDC stream, bit-equal to "
         f"the select kernel ({st['select_kernel_ms']:.4f} ms): plain gather "
@@ -1535,12 +1685,22 @@ def main(argv=None) -> int:
     errs = {
         packed_pipeline.KERNEL: [m["max_abs_err"] for m in packed.values()],
         select_boundaries.KERNEL: [
-            reg["select_boundaries gear row"]["max_abs_err"]],
+            reg["select_boundaries gear row"]["max_abs_err"],
+            launched["select_boundaries seqcdc row"]["max_abs_err"]],
         native_scan.KERNEL: [m["max_abs_err"]
                              for m in reg["native_scan"].values()],
         flash_attn.KERNEL: [m["max_abs_err"] for m in fl.values()],
         fused_pipeline.KERNEL: [m["max_abs_err"]
                                 for m in adversarial.values()],
+    }
+    # the times at the sizes phase 6 launches them (no plain time there:
+    # the plain versions are Python loops)
+    launched_of = {
+        native_scan.KERNEL: {a: launched[f"native_scan {a}"]["ms"]
+                             for a in SCAN_ALGOS},
+        select_boundaries.KERNEL: {
+            r["shape"]: r["ms"] for name, r in launched.items()
+            if name.startswith("select")},
     }
     rows = []
     for k in KERNELS:
@@ -1560,6 +1720,7 @@ def main(argv=None) -> int:
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r.get("library_ms"),
             shape=shape, ms_source=r["ms_source"], call_ms=r["call_ms"],
+            **({"launched": launched_of[k]} if k in launched_of else {}),
         ))
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),

@@ -16,7 +16,7 @@ plain torch version only for tensors on the CPU:
 * ``select_boundaries`` — the ``wide`` W-block automaton over given
   bitmaps (the split path's phase 2 and the hash chunkers' selector);
 * ``native_scan`` — the per-byte native CDC scans (the ``_seq`` chunkers
-  and ``boundaries_sequential``), one thread per stream;
+  and ``boundaries_sequential``), one thread's serial loop per stream;
 * ``flash_attn`` — causal (or full) flash attention forward with grouped
   KV heads, the LM serving path's prefill attention.
 

@@ -8,9 +8,8 @@
 //   bounds (B, mc) int32, sentinel 1<<30 past the kept chunks;
 //   counts (B,) int32, every emit counted, kept or not;
 //   fps (B, mc, 2) uint32 and lens (B, mc) int32, zero past the kept chunks.
-// Emits past mc are dropped whole, as the split path's mode="drop" scatter
-// drops them (keep = emit & cnt < mc); max_chunks must be a true upper
-// bound on the chunk count, as for the TPU kernel.
+// Emits past mc are counted and dropped whole, as the TPU kernel drops
+// them (keep = emit & cnt < mc).
 //
 // Bound on this card: memory.  The function needs each input byte once
 // (B * S bytes) and writes 16 bytes per chunk slot plus a count per row; its
@@ -23,31 +22,21 @@
 // design keeps everything else off that chain.  Two launches behind one
 // call:
 //
-// 1. fused_pipeline_scan_kernel, one CTA of two warps per row.  The
-//    producer warp streams the row into a ring of kSlabs shared-memory
-//    slabs of kSlab bytes with cp.async.bulk, each slab's arrival signalled
-//    on its own mbarrier and its release by the scanning warp on another,
-//    so the copy runs ahead of the scan at the card's bandwidth and never
-//    waits on it while the ring has room.  The scanning warp runs the
-//    automaton event by event.  The W-block walk of the split path decides
-//    each block from the first candidate, the trigger (the m-th opposing
-//    pair counted since the last event) and the cut at or after k, and an
-//    event moves k past its block (W <= min(skip, sub_min)) unless the row
-//    is done; so the outcome depends on where the events fall, not on the
-//    block boundaries, and blocks the scan jumps over are no-ops.  The scan
-//    therefore searches a window of kWin positions from the W-block
-//    holding k, lane i holding word i (wblock.cuh's block_search_words over
-//    32 words, then its resolve): an event inside the window updates the
-//    state and the search repeats from the new k; no event moves k to the
-//    window's end with the opposing pairs counted.  A window's mask words
-//    are computed on demand, when k first leaves the previous window: lane
-//    i computes word i by itself from aligned 4-byte loads of the ring (4
-//    positions a step with __vcmpgtu4/__vcmpltu4), the L-1 run test as
-//    shifts and ands of the run pairs.  After each emit k skips sub_min
-//    bytes, which are never compared; the words of a window past its last
-//    event are computed and not used.  Words per W-block instead (one
-//    search a block, as the split path walks) ran slower on random rows
-//    and several times slower on constant ones: a window's words cost
+// 1. fused_pipeline_scan_kernel, one CTA of two warps per row.  A producer
+//    thread streams the row into a ring of shared-memory slabs with
+//    cp.async.bulk (ring.cuh), so the copy runs ahead of the scan at the
+//    card's bandwidth and never waits on it while the ring has room.  The
+//    scanning warp runs the automaton event by event over windows of kWin
+//    positions from the W-block holding k (wblock.cuh's walk_windows:
+//    block_search_words over 32 words, then resolve).  A window's mask
+//    words are computed on demand, when k first leaves the previous
+//    window: lane i computes word i by itself from aligned 4-byte loads of
+//    the ring (4 positions a step with __vcmpgtu4/__vcmpltu4), the L-1 run
+//    test as shifts and ands of the run pairs.  After each emit k skips
+//    sub_min bytes, which are never compared; the words of a window past
+//    its last event are computed and not used.  Words per W-block instead
+//    (one search a block, as the split path walks) ran slower on random
+//    rows and several times slower on constant ones: a window's words cost
 //    about what one block's do, one warp's latency.  No whole-tile mask
 //    pass, no block-wide barrier: the chain is one window search per event
 //    and per kWin positions reached.  Bounds and lengths are written as
@@ -60,6 +49,7 @@
 #include <cuda_runtime.h>
 
 #include "modp.cuh"
+#include "ring.cuh"
 #include "wblock.cuh"
 
 namespace {
@@ -69,63 +59,14 @@ using modp::kFull;
 using modp::warp_sum_mod;
 using wblock::kBig;
 using wblock::kMaxHalo;
+using wblock::kWin;
 
-constexpr int kSlab = 8192;  // bytes a bulk copy (a multiple of 16)
-constexpr int kSlabs = 4;    // ring slots
-constexpr int kRing = kSlab * kSlabs;  // a power of two
-constexpr int kScanThreads = 64;       // warp 0 scans, warp 1 produces
-constexpr int kWin = 1024;  // positions a search window: 32 words
+using Ring = ring::Ring<8192, 4>;  // 8 KiB a bulk copy, four slots
+constexpr int kSlab = Ring::kSlab;
+constexpr int kRing = Ring::kBytes;
+constexpr int kScanThreads = 64;  // warp 0 scans, warp 1 produces
 constexpr int kHashThreads = 128;
-static_assert((kRing & (kRing - 1)) == 0, "ring positions wrap by a mask");
 static_assert(kWin + 96 <= kSlab, "a window's bytes span at most two slabs");
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// waits for the completion of the barrier's phase of the given parity
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-// bytes global -> shared by the copy engine, completion on bar
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          int bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
 
 __device__ __forceinline__ unsigned low_bits(long long count) {
   return count >= 32 ? kFull : count <= 0 ? 0u : (1u << count) - 1u;
@@ -145,13 +86,13 @@ __device__ __forceinline__ unsigned byte_bits(uint32_t v) {
 // or run leaves the row are not set.  kG bounds the steps: 10 for L <= 7,
 // 24 for L <= 65.
 template <int kG>
-__device__ __forceinline__ void mask_word(const uint8_t* ring, int v0,
+__device__ __forceinline__ void mask_word(const uint8_t* rb, int v0,
                                           long long p0, long long n, int L,
                                           int inc, unsigned& cw,
                                           unsigned& ow) {
   cw = ow = 0;
   if (p0 >= n - 1) return;  // no pair starts in the word
-  const uint32_t* r32 = reinterpret_cast<const uint32_t*>(ring);
+  const uint32_t* r32 = reinterpret_cast<const uint32_t*>(rb);
   constexpr int kWords = kRing / 4 - 1;
   const int sh = (v0 & 3) * 8;
   const int w0 = v0 >> 2;
@@ -191,8 +132,8 @@ fused_pipeline_scan_kernel(const uint8_t* __restrict__ x,
                            int32_t* __restrict__ counts,
                            int32_t* __restrict__ lens, wblock::ScanParams P,
                            int inc) {
-  __shared__ __align__(128) uint8_t ring[kRing];
-  __shared__ __align__(8) uint64_t full[kSlabs], empty[kSlabs];
+  __shared__ __align__(128) uint8_t buf[kRing];
+  __shared__ __align__(8) uint64_t full[Ring::kSlabs], empty[Ring::kSlabs];
   const int tid = threadIdx.x, lane = tid & 31;
   const long long b = blockIdx.x;
   const long long n = P.n;
@@ -203,92 +144,50 @@ fused_pipeline_scan_kernel(const uint8_t* __restrict__ x,
     bnd[i] = kBig;
     ln[i] = 0;
   }
-  // The ring holds the row from its 16-byte aligned floor (bulk copies
-  // move 16-byte units): position p is virtual position p + a, slab j
-  // holds virtual [j * kSlab, (j + 1) * kSlab) in slot j % kSlabs.  Bytes
-  // before the row or past its end are copied but never compared.
+  // the ring holds the row from its 16-byte floor: position p is virtual
+  // byte p + a (ring.cuh)
   const int a = (int)(reinterpret_cast<uintptr_t>(row) & 15);
   const long long vlen = n + a;
-  const long long nslabs = (vlen + kSlab - 1) / kSlab;
-  if (tid == 0) {
-    for (int i = 0; i < kSlabs; ++i) {
-      mbar_init(&full[i], 1);
-      mbar_init(&empty[i], 1);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  const long long nslabs = Ring::slabs(vlen);
+  Ring rg{buf, full, empty};
+  if (tid == 0) rg.init();
   __syncthreads();
 
   if (tid >= 32) {  // -- the producer: one thread streams the row -------
-    if (tid == 32) {
-      const uint8_t* base = row - a;
-      for (long long j = 0; j < nslabs; ++j) {
-        const int slot = (int)(j % kSlabs);
-        if (j >= kSlabs)  // slab j - kSlabs released
-          mbar_wait(&empty[slot], (unsigned)((j / kSlabs) & 1) ^ 1u);
-        const long long left = vlen - j * kSlab;
-        const int bytes = ((int)(left < kSlab ? left : kSlab) + 15) & ~15;
-        mbar_expect_tx(&full[slot], bytes);
-        bulk_copy(ring + slot * kSlab, base + j * kSlab, bytes, &full[slot]);
-      }
-    }
+    if (tid == 32) rg.produce(row - a, vlen);
     return;
   }
 
-  // -- the scanning warp ---------------------------------------------------
-  long long ready = 0;     // slabs [0, ready) have arrived
-  long long released = 0;  // slabs [0, released) are handed back
-  // Make slabs [.., hi] resident and hand back those below lo; a slab is
-  // handed back only after it has arrived, and before waiting on slab r
-  // every arrived slab below min(r, lo) is handed back, so the producer
-  // (which needs slab r - kSlabs back to copy slab r) always can.
-  auto need = [&](long long lo, long long hi) {
-    __syncwarp();  // every lane is done reading what is handed back
-    for (;;) {
-      const long long upto = lo < ready ? lo : ready;
-      for (; released < upto; ++released)
-        if (lane == 0) mbar_arrive(&empty[released % kSlabs]);
-      if (ready > hi) break;
-      mbar_wait(&full[ready % kSlabs], (unsigned)((ready / kSlabs) & 1));
-      ++ready;
-    }
-  };
-
+  // -- the scanning warp: the window walk, each window's mask words
+  // computed when k first leaves the previous window (windows from the
+  // W-block holding k) -------------------------------------------------------
   const int W = P.W, L = P.L;
-  // The window [wstart, wstart + kWin) from the W-block holding k, its
-  // mask words computed when k first leaves the previous window.
-  long long wstart = -kWin;
-  unsigned cw = 0, ow = 0;
   wblock::ScanState st{P.sub_min, 0, 0, 0, 0};
-  while (st.s < n && st.k < P.cover) {
-    if (st.k >= wstart + kWin) {
-      wstart = st.k & ~(long long)(W - 1);  // W is a power of two
-      const long long hi_pos =
-          wstart + kWin + L - 1 < n ? wstart + kWin + L - 1 : n;
-      if (wstart < hi_pos) {
+  wblock::walk_windows(
+      st, P, W - 1, bnd, ln, lane,
+      [&](long long wstart, unsigned& cw, unsigned& ow) {
+        const long long hi_pos =
+            wstart + kWin + L - 1 < n ? wstart + kWin + L - 1 : n;
+        if (wstart >= hi_pos) {  // past the row
+          cw = ow = 0;
+          return;
+        }
         const long long lo = (wstart + a) / kSlab;
         const long long hi = (hi_pos - 1 + a) / kSlab;
-        if (lo > released || hi >= ready) need(lo, hi);
+        if (lo > rg.released || hi >= rg.ready) {
+          __syncwarp();  // every lane is done reading what is handed back
+          rg.need(lo, hi, lane == 0);
+        }
         // lane i: word i, positions wstart + 32i ..
         const int v0 = (int)((wstart + 32 * lane + a) & (kRing - 1));
         if (L <= 7)
-          mask_word<10>(ring, v0, wstart + 32 * lane, n, L, inc, cw, ow);
+          mask_word<10>(buf, v0, wstart + 32 * lane, n, L, inc, cw, ow);
         else
-          mask_word<24>(ring, v0, wstart + 32 * lane, n, L, inc, cw, ow);
-      } else {
-        cw = ow = 0;  // past the row
-      }
-    }
-    // the next event from k, or none before the window's end: k moves to
-    // the next window with the opposing pairs counted
-    const long long wend = wstart + kWin < P.cover ? wstart + kWin : P.cover;
-    wblock::resolve(st,
-                    wblock::block_search_words(cw, ow, st.k - wstart, wstart,
-                                               st.c, P.T, lane),
-                    wend, P, bnd, ln, lane);
-  }
+          mask_word<24>(buf, v0, wstart + 32 * lane, n, L, inc, cw, ow);
+      });
   if (lane == 0) counts[b] = (int32_t)wblock::final_cut(st, P, bnd, ln);
-  need(nslabs, nslabs - 1);  // every copy has landed before the CTA exits
+  __syncwarp();
+  rg.need(nslabs, nslabs - 1, lane == 0);  // every copy has landed
 }
 
 // One warp per chunk slot of the batch: the kept chunks' hashes, zeros

@@ -1,14 +1,15 @@
 // The W-block scan's shared pieces, used by fused_pipeline.cu,
 // packed_pipeline.cu and select_boundaries.cu.
 //
-// packed_pipeline.cu and select_boundaries.cu give one 8-warp block a row
-// and walk its tiles in order: per tile of kTile positions the warps turn
-// the tile's candidate/opposing bits (byte compares of a staged tile, or
-// given bitmaps) into 32-bit words with __ballot_sync, and warp 0 resolves
-// the tile's W-blocks from those words (scan_tile).  fused_pipeline.cu
-// computes the words of a 1024-position window on demand and searches it
-// with the same block_search_words and resolve.  W <= 1024, so at most 32
-// words a block: lane i takes word i.
+// fused_pipeline.cu and select_boundaries.cu walk a row event by event over
+// windows of kWin positions (walk_windows): lane i holds word i of the
+// window's candidate and opposing bits (computed from the row's bytes, or
+// read from packed bitmaps), and block_search_words and resolve find and
+// apply the next event.  packed_pipeline.cu gives one 8-warp block a row
+// and walks its tiles in order: per tile of kTile positions the warps turn
+// the staged tile's byte compares into 32-bit words with __ballot_sync, and
+// warp 0 resolves the tile's W-blocks with block_search.  W <= 1024, so at
+// most 32 words a block: lane i takes word i.
 #pragma once
 
 #include <cstdint>
@@ -26,6 +27,7 @@ constexpr int kBig = 1 << 30;
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kStage = (kTile + kMaxHalo + kThreads - 1) / kThreads;
+constexpr int kWin = 1024;  // positions a search window: 32 words
 
 // Stages row[t0, t0 + kTile + L - 1) into sx, zero past the row end n,
 // every thread with its kStage loads in flight at once.  The caller
@@ -73,7 +75,8 @@ __device__ __forceinline__ int nth_bit(unsigned u, int r) {
 // past the block), from the scan position's offset o into the block: the
 // first candidate is a warp min of __ffs, the trigger the m-th active
 // opposing bit (m = T - c + 1, c <= T) found by a warp prefix sum of
-// __popc.  Every lane returns the same values.
+// __popc.  A window with no active bit returns at once.  Every lane
+// returns the same values.
 __device__ __forceinline__ BlockHit block_search_words(unsigned cw,
                                                        unsigned ow,
                                                        long long o,
@@ -85,6 +88,7 @@ __device__ __forceinline__ BlockHit block_search_words(unsigned cw,
       o <= lo ? kFull : (o >= lo + 32 ? 0u : kFull << (o - lo));
   cw &= act;
   ow &= act;
+  if (!__any_sync(kFull, cw | ow)) return BlockHit{kBig, kBig, 0};
   int kc_rel = cw ? 32 * lane + __ffs(cw) - 1 : kBig;
   kc_rel = __reduce_min_sync(kFull, kc_rel);
   const int pc = __popc(ow);
@@ -176,32 +180,37 @@ __device__ __forceinline__ void resolve(ScanState& st, const BlockHit& h,
   }
 }
 
-// Warp 0's walk over the W-blocks of the tile starting at t0, whose mask
-// words are in scand/sopp: per block, block_search and resolve, every lane
-// on the same values.  A block the scan position has passed is a no-op in
-// the split path (its state is unchanged), so the walk jumps to the block
-// holding k.
-__device__ __forceinline__ void scan_tile(ScanState& st, const uint32_t* scand,
-                                          const uint32_t* sopp, long long t0,
-                                          const ScanParams& P, int32_t* bnd,
-                                          int32_t* ln, int lane) {
-  const int W = P.W;
-  const long long tend = t0 + kTile;
-  const long long blk_end = tend < P.cover ? tend : P.cover;
-  long long bstart = (st.k / W) * W;
-  if (bstart < t0) bstart = t0;
-  while (bstart < blk_end && st.s < P.n) {
-    const long long bend = bstart + W;
-    if (st.k >= bend) {  // not in_block: state unchanged, jump to k's block
-      const long long to = (st.k / W) * W;
-      bstart = to > bend ? to : bend;
-      continue;
+// The automaton's walk over a row by one warp, event by event: the W-block
+// walk of the split path decides each block from the first candidate, the
+// trigger (the m-th opposing pair counted since the last event) and the
+// cut at or after k, and an event moves k past its block (W <= min(skip,
+// sub_min)) unless the row is done; so the outcome depends on where the
+// events fall, not on the block boundaries, and blocks the scan jumps over
+// are no-ops.  The walk therefore searches a window of kWin positions from
+// wstart = k & ~align (align + 1 a power of two from W to kWin): an event
+// inside the window updates the state and the search repeats from the new
+// k; no event moves k to the window's end with the opposing pairs counted.
+// words(wstart, cw, ow) gives lane i the candidate and opposing words of
+// positions wstart + 32i .. wstart + 32i + 31, zero past the row; it is
+// called when k first leaves the previous window.
+template <class Words>
+__device__ __forceinline__ void walk_windows(ScanState& st,
+                                             const ScanParams& P,
+                                             long long align, int32_t* bnd,
+                                             int32_t* ln, int lane,
+                                             Words&& words) {
+  long long wstart = -kWin;
+  unsigned cw = 0, ow = 0;
+  while (st.s < P.n && st.k < P.cover) {
+    if (st.k >= wstart + kWin) {
+      wstart = st.k & ~align;
+      words(wstart, cw, ow);
     }
-    const long long o = st.k > bstart ? st.k - bstart : 0;  // first active
-    resolve(st, block_search(scand, sopp, (int)(bstart - t0), W, o, bstart,
-                             st.c, P.T, lane),
-            bend, P, bnd, ln, lane);
-    bstart = bend;
+    const long long wend = wstart + kWin < P.cover ? wstart + kWin : P.cover;
+    resolve(st,
+            block_search_words(cw, ow, st.k - wstart, wstart, st.c, P.T,
+                               lane),
+            wend, P, bnd, ln, lane);
   }
 }
 

@@ -12,17 +12,18 @@ composed split path (:func:`fused_pipeline_plain`), as
 ``repro/kernels/ref.py`` defines the TPU kernel's oracle:
 ``boundaries_batch`` followed by the batched ``chunk_fingerprints``.
 
-Precondition (the reference's): ``max_chunks`` must be a true upper bound
-on the chunk count, ``core.automaton.max_chunks_for``, which the scheduler
-always passes.  With an undersized bound the split path folds the overflow
-bytes into the last fingerprint slot while the kernel drops overflow
-chunks whole, so the two fingerprint tails differ.
+With an undersized ``max_chunks`` (below ``core.automaton.
+max_chunks_for``, which the scheduler always passes) emits past the table
+are dropped whole, as the reference's kernel drops them: the plain version
+hashes with one spare slot for the overflow bytes (:func:`kept_fingerprints`),
+where the bare split path would fold them into the last slot.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.automaton import _BIG
 from repro_torch.core.params import SeqCDCParams
@@ -44,6 +45,21 @@ KERNEL = Kernel(
 )
 
 
+def kept_fingerprints(data: torch.Tensor, bounds: torch.Tensor,
+                      counts: torch.Tensor, *, max_chunks: int,
+                      fp_impl: str = "torch"):
+    """``chunk_fingerprints`` of the kept chunks, overflow dropped whole.
+
+    With more emits than ``max_chunks`` slots, ``chunk_fingerprints`` folds
+    the bytes past the last kept bound into the last slot; the reference's
+    fused and packed kernels drop them.  A spare sentinel slot takes those
+    bytes and is cut off, so at a true bound nothing changes."""
+    spare = F.pad(bounds, (0, 1), value=_BIG)
+    fps, lens = chunk_fingerprints(data, spare, counts,
+                                   max_chunks=max_chunks + 1, fp_impl=fp_impl)
+    return fps[:, :max_chunks].contiguous(), lens[:, :max_chunks].contiguous()
+
+
 def fused_pipeline_plain(data: torch.Tensor, p: SeqCDCParams, *,
                          max_chunks: int, mask_impl: str = "torch",
                          step_impl: str = "wide", select_impl: str = "torch",
@@ -57,8 +73,8 @@ def fused_pipeline_plain(data: torch.Tensor, p: SeqCDCParams, *,
                                       step_impl=step_impl,
                                       select_impl=select_impl,
                                       max_chunks=max_chunks)
-    fps, lens = chunk_fingerprints(data, bounds, counts,
-                                   max_chunks=max_chunks, fp_impl=fp_impl)
+    fps, lens = kept_fingerprints(data, bounds, counts,
+                                  max_chunks=max_chunks, fp_impl=fp_impl)
     return bounds, counts, fps, lens
 
 

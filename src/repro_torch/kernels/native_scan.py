@@ -1,13 +1,14 @@
-"""CUDA kernel: the native per-byte CDC scans, one thread per stream.
+"""CUDA kernel: the native per-byte CDC scans, one thread's loop per stream.
 
 The device form of the reference's unaccelerated baselines, per-byte
 ``lax.scan``/``while_loop``s on the TPU with no Pallas kernel:
 ``core/baselines/hash_based.py:_scan_native`` (gear, crc, rabin, fastcdc),
 the AE/RAM scans of ``core/baselines/hashless.py`` and
 ``core/seqcdc.py:boundaries_sequential``.  The kernel
-(``csrc/native_scan.cu``) runs each stream as one thread's serial loop:
-its bytes bound (``n + 4*mc`` a stream at 3.35 TB/s) is far off by
-design, as the paper's unaccelerated baselines are.
+(``csrc/native_scan.cu``) runs each stream as one thread's serial loop,
+one CTA a stream, its bytes streamed into shared memory ahead of the loop
+by the copy engine: its bytes bound (``n + 4*mc`` a stream at 3.35 TB/s)
+is far off by design, as the paper's unaccelerated baselines are.
 
 Each plain version (:func:`native_scan_plain`) is the reference's step
 function as a scalar Python loop.  Both return the bounds directly, where
@@ -35,6 +36,8 @@ KERNEL = Kernel(
 
 #: the algorithms, in the kernel's numbering
 ALGOS = ("gear", "crc", "rabin", "fastcdc", "ae", "ram", "seqcdc")
+#: the longest CRC/Rabin window the kernel's ring keeps behind its scan
+MAX_WINDOW = 3 * 8192
 _M32 = 0xFFFFFFFF
 
 
@@ -171,6 +174,9 @@ def native_scan(data: torch.Tensor, algo: str, *, min_size: int = 0,
     if data.dtype != torch.uint8:
         raise ValueError(f"expected uint8 data, got {data.dtype}")
     kw, mc = _spec(data, algo, kw)
+    if algo in ("crc", "rabin") and not 0 <= window <= MAX_WINDOW:
+        raise ValueError(f"the kernel takes a {algo} window of 0 to "
+                         f"{MAX_WINDOW} bytes, got {window}")
     x = data.contiguous()
     dev = x.device
     B, n = x.shape

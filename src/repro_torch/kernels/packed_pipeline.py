@@ -29,13 +29,10 @@ from repro_torch.core.seqcdc import (
     boundaries_packed_batch,
     segment_end_positions,
 )
-from repro_torch.dedup.fingerprint import (
-    MAX_CHUNK,
-    chunk_fingerprints,
-    pow_tables,
-)
+from repro_torch.dedup.fingerprint import MAX_CHUNK, pow_tables
 
 from ._build import Kernel
+from .fused_pipeline import kept_fingerprints
 
 KERNEL = Kernel(
     "packed_pipeline",
@@ -56,8 +53,8 @@ def packed_pipeline_plain(data: torch.Tensor, ends: torch.Tensor,
     sep = segment_end_positions(ends, data.shape[-1])
     bounds, counts = boundaries_packed_batch(
         data, sep, ends, p, mask_impl=mask_impl, max_chunks=max_chunks)
-    fps, lens = chunk_fingerprints(data, bounds, counts,
-                                   max_chunks=max_chunks, fp_impl=fp_impl)
+    fps, lens = kept_fingerprints(data, bounds, counts,
+                                  max_chunks=max_chunks, fp_impl=fp_impl)
     return bounds, counts, fps, lens
 
 

@@ -3,10 +3,13 @@
 The device form of ``repro/core/automaton.py:_scan_wide`` (run through
 ``select_boundaries``), which the reference runs as a ``lax.scan``: it has
 no Pallas kernel, but a Python loop over W-blocks is no GPU path.  The
-kernel (``csrc/select_boundaries.cu``) gives each row one thread block
-that walks the row's tiles in order, stopping once the row is done.  Its
-least time on an H100 is ``2*B*n + 4*B*mc + 4*B`` bytes at 3.35 TB/s.  Its
-plain version is ``core.automaton.select_boundaries(step_impl="wide")``.
+kernel (``csrc/select_boundaries.cu``) is two launches behind one call: a
+pack across every SM turns the bitmaps into 32-bit words in scratch, then
+one CTA a row streams its words through a shared-memory ring and walks the
+automaton event by event, stopping once the row is done.  Its least time
+on an H100 is ``2*B*n + 4*B*mc + 4*B`` bytes at 3.35 TB/s (the scratch is
+the design's, not counted).  Its plain version is
+``core.automaton.select_boundaries(step_impl="wide")``.
 
 It serves the seqcdc chunker and the scheduler's split pipeline (SeqCDC
 candidate/opposing bitmaps) and the hash-based chunkers' selector (a match
@@ -25,7 +28,7 @@ from ._build import Kernel
 
 KERNEL = Kernel(
     "select_boundaries",
-    [ctypes.c_void_p] * 4
+    [ctypes.c_void_p] * 5
     + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong]
     + [ctypes.c_int] * 7,
     replaces="src/repro/core/automaton.py:103",
@@ -61,12 +64,16 @@ def select_boundaries(cand: torch.Tensor, opp: torch.Tensor, n: int, p, *,
     # the plain automaton pads its bitmaps so every event fires in-scan
     # (core/automaton._padded_blocks); the kernel covers those blocks
     cover = (n + p.skip_size + W + W - 1) // W * W
+    # the packed words: per 1024 positions 32 candidate and 32 opposing
+    words = torch.empty((B, max(1, -(-n // 1024)), 2, 32),
+                        dtype=torch.int32, device=dev)
     bounds = torch.empty((B, mc), dtype=torch.int32, device=dev)
     counts = torch.empty((B,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         KERNEL.launch(
-            cand.data_ptr(), opp.data_ptr(), bounds.data_ptr(),
-            counts.data_ptr(), B, n, cover, mc, p.seq_length, W,
+            cand.data_ptr(), opp.data_ptr(), words.data_ptr(),
+            bounds.data_ptr(), counts.data_ptr(), B, n, cover, mc,
+            p.seq_length, W,
             p.skip_trigger, p.skip_size, p.sub_min_skip, p.max_size,
             stream=torch.cuda.current_stream(dev).cuda_stream,
         )

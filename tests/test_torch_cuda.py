@@ -17,7 +17,7 @@ import _packing_cases
 from repro_torch.core import available, make_chunker
 from repro_torch.core.automaton import max_chunks_for
 from repro_torch.core.automaton import select_boundaries as select_plain
-from repro_torch.core.baselines.selectors import SelectorParams
+from repro_torch.core.baselines.selectors import SelectorParams, select_numpy
 from repro_torch.core.calibrate import calibrated_kwargs
 from repro_torch.core.oracle import boundaries_numpy
 from repro_torch.core.params import SeqCDCParams, paper_params
@@ -312,6 +312,49 @@ def test_packed_kernel_on_the_cpu_tests_cases(dev, name):
     _equal(got, kpacked.packed_pipeline_plain(x, e, p, max_chunks=mc))
 
 
+@pytest.mark.parametrize("name,S", [("P", 4096), ("w4", 1500),
+                                    ("paper8k", 16384)])
+@pytest.mark.parametrize("short", [1, 3])
+def test_packed_kernel_drops_overflow_at_undersized_max_chunks(dev, name, S,
+                                                                short):
+    """Below a true bound on the chunk count the kernel drops emits past
+    max_chunks whole, as its plain version and the reference's kernel do:
+    the fullest row keeps ``short`` chunks fewer than it has."""
+    p = PARAMS[name]
+    streams = _packed_cases(np.random.default_rng(S + short), p, S)
+    data, _, ends, _ = _packing_cases.pack(
+        [[seg.tobytes() for seg in row] for row in streams], S)
+    x = torch.from_numpy(data).to(dev)
+    e = torch.from_numpy(ends).to(dev)
+    true_mc = S // p.min_size + 2 * ends.shape[1] + 2
+    counts = kpacked.packed_pipeline_plain(x, e, p, max_chunks=true_mc)[1]
+    mc = max(1, int(counts.max()) - short)
+    got = kpacked.packed_pipeline_batch(x, e, p, max_chunks=mc)
+    torch.cuda.synchronize()
+    _equal(got, kpacked.packed_pipeline_plain(x, e, p, max_chunks=mc))
+
+
+@pytest.mark.parametrize("name", sorted(PARAMS))
+@pytest.mark.parametrize("short", [1, 4])
+def test_kernels_drop_overflow_at_undersized_max_chunks(dev, name, short):
+    """The fused, select and native seqcdc kernels below a true bound: the
+    fullest row keeps ``short`` chunks fewer than it has, emits past the
+    table are counted and dropped whole, as the plain versions do."""
+    p = PARAMS[name]
+    n = 20000
+    x = torch.from_numpy(_rows(np.random.default_rng(n + short), n)).to(dev)
+    counts = kfused.fused_pipeline_plain(
+        x, p, max_chunks=max_chunks_for(n, p))[1]
+    mc = max(1, int(counts.max()) - short)
+    _equal(kfused.fused_pipeline_batch(x, p, max_chunks=mc),
+           kfused.fused_pipeline_plain(x, p, max_chunks=mc))
+    cand, opp = kmasks.seqcdc_masks(x, p.seq_length, p.mode)
+    _equal(kselect.select_boundaries(cand, opp, n, p, max_chunks=mc),
+           select_plain(cand, opp, n, p, max_chunks=mc))
+    _equal(kscan.native_scan(x, "seqcdc", params=p, max_chunks=mc),
+           kscan.native_scan_plain(x, "seqcdc", params=p, max_chunks=mc))
+
+
 def test_packed_wrapper_rejects_what_the_kernel_does_not_take(dev):
     x = torch.zeros((2, 1024), dtype=torch.uint8, device=dev)
     e = torch.full((2, 4), 1024, dtype=torch.int32, device=dev)
@@ -399,6 +442,62 @@ def test_select_kernel_on_selector_bitmaps(dev, density):
         _equal(got, select_plain(bits, torch.zeros_like(bits), n, p))
 
 
+def _select_against_oracle(x, p):
+    """The select kernel on the masks of ``x`` against the plain automaton
+    where it walks at most 8,192 W-blocks, else against the fused kernel's
+    bounds and counts (which its own tests hold against that automaton)."""
+    n = x.shape[1]
+    mc = max_chunks_for(n, p)
+    cand, opp = kmasks.seqcdc_masks(x, p.seq_length, p.mode)
+    got = kselect.select_boundaries(cand, opp, n, p, max_chunks=mc)
+    if n // p.block_width <= 8192:
+        want = select_plain(cand, opp, n, p, max_chunks=mc)
+    else:
+        want = kfused.fused_pipeline_batch(x, p, max_chunks=mc)[:2]
+    torch.cuda.synchronize()
+    _equal(got, want)
+
+
+@pytest.mark.parametrize("name", sorted(PARAMS))
+@pytest.mark.parametrize("n", BIG_ROWS)
+@pytest.mark.parametrize("kind", ROW_KINDS)
+def test_select_kernel_one_big_row(dev, name, n, kind):
+    """Rows long enough that the kernel's ring of packed words wraps many
+    times, with every adversarial content (W < 32 among the sets)."""
+    p = PARAMS[name]
+    host = _big_row(np.random.default_rng(n + 2), p, n, kind)[None]
+    _select_against_oracle(torch.from_numpy(host).to(dev), p)
+
+
+@pytest.mark.parametrize("name", ["P", "w4", "paper8k"])
+def test_select_kernel_big_batch(dev, name):
+    """Eight rows of 1 MiB + 5 bytes at once: each row's packed words start
+    on their own group, and the row ends inside one."""
+    p = PARAMS[name]
+    rng = np.random.default_rng(9)
+    n = (1 << 20) + 5
+    host = np.stack([_big_row(rng, p, n, kind)
+                     for kind in ROW_KINDS + ROW_KINDS[::-1]])
+    _select_against_oracle(torch.from_numpy(host).to(dev), p)
+
+
+@pytest.mark.parametrize("density", [0.0, 1 / 8192, 1 / 700, 1.0])
+@pytest.mark.parametrize("mn,mx", [(2048, 16384), (4096, 65536)])
+def test_select_kernel_selector_rows_against_select_numpy(dev, density, mn,
+                                                          mx):
+    """The hash chunkers' selector (T = 2^30, skip 2^20) on a 2 MiB row
+    with an odd tail, against the event-driven numpy selection."""
+    n = (2 << 20) + 13
+    rng = np.random.default_rng(mn + int(density * 8192))
+    bits = rng.random(n) < density
+    p = SelectorParams(min_size=mn, max_size=mx)
+    t = torch.from_numpy(bits)[None].to(dev)
+    bounds, counts = kselect.select_boundaries(t, torch.zeros_like(t), n, p)
+    want = select_numpy(np.flatnonzero(bits), n, mn, mx)
+    assert int(counts[0]) == len(want)
+    np.testing.assert_array_equal(bounds[0, : len(want)].cpu().numpy(), want)
+
+
 def _scan_cases():
     gear = kgear.gear_table()
     return {
@@ -437,6 +536,84 @@ def test_native_scan_kernel_seqcdc(dev, name):
     for r in range(host.shape[0]):
         b, c = boundaries_sequential(x[r], p)
         assert b[: int(c)].tolist() == boundaries_numpy(host[r], p).tolist()
+
+
+NATIVE_ALGOS = ("gear", "crc", "rabin", "fastcdc", "ae", "ram", "seqcdc")
+#: a SeqCDC run longer than the native scan's 8-byte register window
+P_LONG = SeqCDCParams(avg_size=4096, seq_length=10, skip_trigger=5,
+                      skip_size=256, min_size=1024, max_size=8192)
+
+
+def _native_kw(algo, p=P):
+    if algo == "seqcdc":
+        return dict(params=p)
+    return dict(_scan_cases()[algo], min_size=1024, max_size=6000)
+
+
+@pytest.mark.parametrize("algo", NATIVE_ALGOS)
+@pytest.mark.parametrize("B,n,offset", [(1, 4099, 0), (1, 20011, 5),
+                                        (5, 33, 3), (5, 70001, 11)])
+def test_native_scan_kernel_streams_and_offsets(dev, algo, B, n, offset):
+    """One and five streams a launch, rows that start off the ring's
+    16-byte copy unit (each row at another offset) and lengths that are no
+    multiple of 16, against the plain loop."""
+    host = _rows(np.random.default_rng(n), n)[:B]
+    flat = torch.from_numpy(np.concatenate(
+        [np.zeros(offset, np.uint8), host.ravel()])).to(dev)
+    x = flat[offset:].view(host.shape)
+    kw = _native_kw(algo)
+    got = kscan.native_scan(x, algo, **kw)
+    torch.cuda.synchronize()
+    _equal(got, kscan.native_scan_plain(x, algo, **kw))
+
+
+@pytest.mark.parametrize("algo", NATIVE_ALGOS)
+@pytest.mark.parametrize("byte", [0, 0x5A, 0xFF])
+def test_native_scan_kernel_constant_bytes(dev, algo, byte):
+    """Constant streams, against the plain loop; seqcdc finds no run and
+    no opposing pair there, so it cuts at max_size only."""
+    n = 100_003
+    x = torch.full((1, n), byte, dtype=torch.uint8, device=dev)
+    kw = _native_kw(algo)
+    got = kscan.native_scan(x, algo, **kw)
+    torch.cuda.synchronize()
+    _equal(got, kscan.native_scan_plain(x, algo, **kw))
+    if algo == "seqcdc":
+        b = got[0][0, : int(got[1][0])].cpu().numpy()
+        assert (np.diff(b[:-1]) == P.max_size).all() and b[0] == P.max_size
+
+
+def test_native_scan_kernel_seqcdc_longer_than_its_register(dev):
+    host = _rows(np.random.default_rng(10), 20000)
+    x = torch.from_numpy(host).to(dev)
+    got = kscan.native_scan(x, "seqcdc", params=P_LONG)
+    torch.cuda.synchronize()
+    _equal(got, kscan.native_scan_plain(x, "seqcdc", params=P_LONG))
+    for r in range(host.shape[0]):
+        ob = boundaries_numpy(host[r], P_LONG)
+        assert got[0][r, : int(got[1][r])].tolist() == ob.tolist()
+
+
+@pytest.mark.parametrize("algo", NATIVE_ALGOS)
+def test_native_scan_kernel_16mib_against_the_vectorized_chunker(dev, algo):
+    """At the size phase 6 launches it (16 MiB, calibrated 8 KiB knobs),
+    each ``_seq`` chunker against the vectorized chunker of its pair."""
+    data = np.random.default_rng(16).integers(0, 256, 16 << 20,
+                                              dtype=np.uint8)
+    extra = {"backend": "torch"} if algo in ("crc", "rabin") else {}
+    want = make_chunker(algo, 8192, device=dev,
+                        **calibrated_kwargs(algo, 8192), **extra).chunk(data)
+    got = make_chunker(f"{algo}_seq", 8192, device=dev,
+                       **calibrated_kwargs(f"{algo}_seq", 8192)).chunk(data)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_native_scan_refuses_a_window_past_its_ring(dev):
+    x = torch.zeros((1, 100), dtype=torch.uint8, device=dev)
+    kw = dict(_scan_cases()["crc"], min_size=64, max_size=128)
+    kw["window"] = kscan.MAX_WINDOW + 1
+    with pytest.raises(ValueError, match="window"):
+        kscan.native_scan(x, "crc", **kw)
 
 
 def test_chunk_kernel_wrappers_refuse(dev):

@@ -131,6 +131,24 @@ def test_max_size_beyond_power_table_rejected():
                                     big, max_chunks=2)
 
 
+@pytest.mark.parametrize("n,mc,seed", [(129, 1, 0), (129, 2, 0),
+                                        (5000, 4, 1), (5000, 40, 1)])
+def test_undersized_max_chunks_drops_overflow_whole(n, mc, seed):
+    """Below a true bound on the chunk count the reference's Pallas kernel
+    drops emits past ``max_chunks`` whole (its split path would fold the
+    overflow bytes into the last fp slot); the port's plain version gives
+    the kernel's fps, bounds, counts and lengths.  The first case is the
+    smallest input found that told the two tails apart."""
+    d2 = np.random.default_rng(seed).integers(0, 256, (1, n), dtype=np.uint8)
+    assert mc < max_chunks_for(n, tp(P))
+    got = kfused.fused_pipeline_batch(torch.from_numpy(d2), tp(P),
+                                      max_chunks=mc)
+    want = jfused(jnp.asarray(d2), P, max_chunks=mc, interpret=True)
+    for g, w, name in zip(got, want, _NAMES):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w),
+                                      err_msg=name)
+
+
 def test_cpu_wrapper_is_the_plain_version(rng):
     d = torch.from_numpy(rng.integers(0, 256, (2, 3000), dtype=np.uint8))
     mc = max_chunks_for(3000, tp(P))

@@ -151,6 +151,27 @@ def test_packed_kernel_matches_pallas_interpret(group, tile):
     _assert_equal(got, want, "/".join(group))
 
 
+@pytest.mark.parametrize("ends,mc", [
+    ([1000, 2500, 4096, 4096], 3),
+    ([1000, 2500, 4096, 4096], 1),
+    ([4096, 4096, 4096, 4096], 5),
+    ([700, 2000, 2050, 4096], 9),
+])
+def test_undersized_max_chunks_drops_overflow_whole(ends, mc):
+    """Below a true bound the reference's Pallas packed kernel drops emits
+    past ``max_chunks`` whole; the port's plain version gives its fps,
+    bounds, counts and lengths.  The first case is the smallest input
+    found that told its tail from the split path's."""
+    data = np.random.default_rng(0).integers(0, 256, (1, 4096),
+                                             dtype=np.uint8)
+    e = np.asarray([ends], np.int32)
+    sep = segment_end_positions(torch.from_numpy(e), 4096).numpy()
+    got = _port_kernel(data, e, P, mc)
+    want = jpacked(jnp.asarray(data), jnp.asarray(sep), jnp.asarray(e), P,
+                   max_chunks=mc, interpret=True)
+    _assert_equal(got, want, f"ends {ends} mc {mc}")
+
+
 def test_packed_row_too_wide_rejected():
     data = torch.zeros((1, 1 << 17), dtype=torch.uint8)
     ends = torch.full((1, 2), 100, dtype=torch.int32)

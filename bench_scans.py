@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
-"""Time the native-scan, select and fused kernels at the sizes the paths
-launch them, on one NVIDIA card.
+"""Time the native-scan, select, fused, packed and gear kernels at the
+sizes the paths launch them, on one NVIDIA card.
 
 Run from the root of a checkout: ``python3 bench_scans.py [--src DIR]
-[--label NAME] [--json FILE]``.  ``--src`` names the ``src`` directory
-whose ``repro_torch`` is timed (default: this checkout's), so two trees
-can be compared on one card in one go: run it for each in turns
-(parent, change, change, parent).  Every timed call goes through the
-public wrapper and is timed with CUDA events (a call's time, the
-wrapper's allocations included), after one warm-up call:
+[--label NAME] [--only GROUPS] [--json FILE]``.  ``--src`` names the
+``src`` directory whose ``repro_torch`` is timed (default: this
+checkout's), so two trees can be compared on one card in one go: run it
+for each in turns (parent, change, change, parent).  Every timed call
+goes through the public wrapper and is timed with CUDA events (a call's
+time, the wrapper's allocations included), after one warm-up call:
 
 * the native scan (``kernels.native_scan``) on one 16 MiB random stream
   for each algorithm at calibrated 8 KiB knobs, as phase 6's ``_seq``
@@ -19,7 +19,21 @@ wrapper's allocations included), after one warm-up call:
   paper 8 KiB parameters (1 MiB x 8, 48 KiB x 8 and one 64 MiB row) and on
   gear selector rows (calibrated 8 KiB gear: one 16 MiB and one 1 MiB
   row), five timed calls each (two on the 64 MiB row);
-* the fused pipeline at 1 MiB x 8, paper 8 KiB parameters.
+* the fused pipeline at 1 MiB x 8, paper 8 KiB parameters;
+* the packed pipeline (``kernels.packed_pipeline``) on ``chip_smoke.py``
+  phase 3's three segment mixes, 8 packed rows of 16 KiB at paper 8 KiB
+  parameters (the sharded service's launched shape), twenty timed calls
+  each;
+* the Gear hash (``kernels.gear_hash``) over one 64 MiB stream, ten
+  timed calls.
+
+The packed and gear rows also give the kernels' device time a call, from
+a ``torch.profiler`` trace (``chip_smoke.device_ms``; the packed one also
+for its scan and hash launches apart): at these sizes a packed call's
+host overhead exceeds its kernels' time.
+
+``--only`` takes a comma-separated subset of the groups ``select`` (with
+the fused pipeline), ``native``, ``packed`` and ``gear``.
 
 Each output's SHA-256 digest is printed, so two trees' outputs can be
 held equal.  ``--sass FILE`` also writes ``cuobjdump -sass`` of the built
@@ -35,7 +49,14 @@ import os
 import subprocess
 import sys
 
-from chip_smoke import SCAN_ALGOS, scan_kwargs, sm_clock_during
+from chip_smoke import (
+    PACKED_MIXES,
+    SCAN_ALGOS,
+    device_ms,
+    packed_rows,
+    scan_kwargs,
+    sm_clock_during,
+)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -149,11 +170,62 @@ def select_rows(seed: int) -> dict:
     return out
 
 
+def packed_rows_timed(seed: int) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.core.params import paper_params
+    from repro_torch.kernels import packed_pipeline as kpacked
+
+    p = paper_params(8192)
+    B, S = 8, 16 << 10
+    rng = np.random.default_rng(seed)  # chip_smoke.py packed_phase's rows
+    out = {}
+    for mix in PACKED_MIXES:
+        data, ends, rows = packed_rows(rng, mix, B, S)
+        x = torch.from_numpy(data).cuda()
+        e = torch.from_numpy(ends).cuda()
+        mc = S // p.min_size + 2 * ends.shape[1] + 2
+        run = lambda: kpacked.packed_pipeline_batch(  # noqa: E731
+            x, e, p, max_chunks=mc)
+        ms = call_ms(run, 20)
+        out[f"packed 16KiBx8 {mix}"] = dict(
+            ms=ms, mean_ms=sum(ms) / len(ms),
+            device_ms=device_ms(run, 20, "packed_pipeline_")[0],
+            # the scan and hash launches apart (None for a tree whose
+            # kernel is one launch of another name)
+            scan_device_ms=device_ms(run, 20, "packed_pipeline_scan")[0],
+            hash_device_ms=device_ms(run, 20, "packed_pipeline_hash")[0],
+            streams=sum(len(r) for r in rows), digest=digest(run()))
+    return out
+
+
+def gear_rows(seed: int) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import gear_hash as kgear
+
+    x = torch.from_numpy(np.random.default_rng(seed + 3).integers(
+        0, 256, 64 << 20, dtype=np.uint8)).cuda()
+    run = lambda: kgear.gear_hash(x)  # noqa: E731
+    ms = call_ms(run, 10)
+    return {"gear 64MiB": dict(ms=ms, mean_ms=sum(ms) / len(ms),
+                               device_ms=device_ms(run, 10, "gear_hash_")[0],
+                               digest=digest([run()]))}
+
+
+GROUPS = {"select": select_rows, "native": native_rows,
+          "packed": packed_rows_timed, "gear": gear_rows}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--label", default="tree")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", default=",".join(GROUPS),
+                    help="comma-separated groups: " + ", ".join(GROUPS))
     ap.add_argument("--json", default=None)
     ap.add_argument("--sass", default=None)
     args = ap.parse_args(argv)
@@ -171,11 +243,18 @@ def main(argv=None) -> int:
 
     print(f"{args.label}: {card}; repro_torch from "
           f"{os.path.dirname(repro_torch.__file__)}", flush=True)
-    rows = select_rows(args.seed)
-    rows.update(native_rows(args.seed))
+    rows = {}
+    for group in args.only.split(","):
+        rows.update(GROUPS[group](args.seed))
     for name, r in rows.items():
         extra = (f", SM {r['sm_mhz']:.0f} MHz, {r['cycles_per_byte']:.2f} "
                  f"cycles a byte" if r.get("cycles_per_byte") else "")
+        if r.get("device_ms") is not None:
+            extra += f", device {r['device_ms']:.5f} ms a call (profiler"
+            if r.get("scan_device_ms") is not None:
+                extra += (f": scan {r['scan_device_ms']:.5f}, hash "
+                          f"{r['hash_device_ms']:.5f}")
+            extra += ")"
         print(f"{args.label}: {name}: mean {r['mean_ms']:.4f} ms (calls "
               + ", ".join(f"{t:.4f}" for t in r["ms"])
               + f"){extra}; digest {r['digest']}", flush=True)

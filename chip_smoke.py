@@ -437,7 +437,7 @@ def packed_phase(p, B: int, S: int, seed: int) -> dict:
             streams=sum(len(row) for row in rows),
             payload_bytes=int(ends[:, -1].sum()),
             **kernel_times(lambda: kpacked.packed_pipeline_batch(
-                x, e, p, max_chunks=mc), 20, "packed_pipeline_kernel"),
+                x, e, p, max_chunks=mc), 20, "packed_pipeline_"),
             plain_ms=cuda_ms(lambda: kpacked.packed_pipeline_plain(
                 x, e, p, max_chunks=mc), 3),
         ))

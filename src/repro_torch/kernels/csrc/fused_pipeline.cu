@@ -30,9 +30,10 @@
 //    positions from the W-block holding k (wblock.cuh's walk_windows:
 //    block_search_words over 32 words, then resolve).  A window's mask
 //    words are computed on demand, when k first leaves the previous
-//    window: lane i computes word i by itself from aligned 4-byte loads of
-//    the ring (4 positions a step with __vcmpgtu4/__vcmpltu4), the L-1 run
-//    test as shifts and ands of the run pairs.  After each emit k skips
+//    window: lane i computes word i by itself (wblock.cuh's mask_word)
+//    from aligned 4-byte loads of the ring (4 positions a step with
+//    __vcmpgtu4/__vcmpltu4), the L-1 run test as shifts and ands of the run
+//    pairs.  After each emit k skips
 //    sub_min bytes, which are never compared; the words of a window past
 //    its last event are computed and not used.  Words per W-block instead
 //    (one search a block, as the split path walks) ran slower on random
@@ -42,9 +43,9 @@
 //    and per kWin positions reached.  Bounds and lengths are written as
 //    they come; the final cut once per row.
 // 2. fused_pipeline_hash_kernel, one warp per chunk slot over the whole
-//    batch (B * mc warps on every SM, as fingerprint.cu spreads them), with
-//    modp.cuh's add_range and warp_sum_mod; the rows are L2-resident from
-//    the scan's copies.
+//    batch (B * mc warps on every SM, as fingerprint.cu spreads them):
+//    modp.cuh's hash_slot, which packed_pipeline.cu launches too; the rows
+//    are L2-resident from the scan's copies.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -54,77 +55,18 @@
 
 namespace {
 
-using modp::add_range;
-using modp::kFull;
-using modp::warp_sum_mod;
 using wblock::kBig;
 using wblock::kMaxHalo;
 using wblock::kWin;
+using wblock::mask_word;
 
 using Ring = ring::Ring<8192, 4>;  // 8 KiB a bulk copy, four slots
 constexpr int kSlab = Ring::kSlab;
 constexpr int kRing = Ring::kBytes;
+constexpr int kWrap = kRing / 4 - 1;  // the ring's word-index mask
 constexpr int kScanThreads = 64;  // warp 0 scans, warp 1 produces
 constexpr int kHashThreads = 128;
 static_assert(kWin + 96 <= kSlab, "a window's bytes span at most two slabs");
-
-__device__ __forceinline__ unsigned low_bits(long long count) {
-  return count >= 32 ? kFull : count <= 0 ? 0u : (1u << count) - 1u;
-}
-
-// Four 0x00/0xff bytes -> four bits (byte j -> bit j)
-__device__ __forceinline__ unsigned byte_bits(uint32_t v) {
-  return ((v & 0x01010101u) * 0x01020408u) >> 24;
-}
-
-// The candidate and opposing words of the 32 positions from p0 (bit q is
-// position p0 + q), from the ring (v0: p0's ring offset): 4 positions a
-// step with byte-wise compares (__vcmpgtu4/__vcmpltu4) of unaligned words,
-// which the lane assembles from aligned 4-byte loads.  Bit t of (lo, hi)
-// is the pair (p0 + t, p0 + t + 1) continuing a run (increasing, or
-// decreasing); a candidate is L-1 of them in a row.  Positions whose pair
-// or run leaves the row are not set.  kG bounds the steps: 10 for L <= 7,
-// 24 for L <= 65.
-template <int kG>
-__device__ __forceinline__ void mask_word(const uint8_t* rb, int v0,
-                                          long long p0, long long n, int L,
-                                          int inc, unsigned& cw,
-                                          unsigned& ow) {
-  cw = ow = 0;
-  if (p0 >= n - 1) return;  // no pair starts in the word
-  const uint32_t* r32 = reinterpret_cast<const uint32_t*>(rb);
-  constexpr int kWords = kRing / 4 - 1;
-  const int sh = (v0 & 3) * 8;
-  const int w0 = v0 >> 2;
-  const int G = (33 + L) >> 2;  // steps covering positions p0 .. p0+29+L
-  uint32_t cur_w = r32[w0 & kWords], nxt_w = r32[(w0 + 1) & kWords];
-  unsigned long long lo = 0;
-  unsigned hi = 0, opp = 0;
-#pragma unroll
-  for (int j = 0; j < kG; ++j) {
-    if (j < G) {
-      const uint32_t cur = __funnelshift_rc(cur_w, nxt_w, sh);
-      const uint32_t nx = __funnelshift_rc(cur_w, nxt_w, sh + 8);
-      const uint32_t up = __vcmpgtu4(nx, cur), dn = __vcmpltu4(nx, cur);
-      const unsigned run = byte_bits(inc ? up : dn);
-      if (4 * j < 64)
-        lo |= (unsigned long long)run << (4 * j);
-      else
-        hi |= run << (4 * j - 64);
-      if (j < 8) opp |= byte_bits(inc ? dn : up) << (4 * j);
-      cur_w = nxt_w;
-      nxt_w = r32[(w0 + 2 + j) & kWords];
-    }
-  }
-  const unsigned long long mid = (lo >> 32) | ((unsigned long long)hi << 32);
-  unsigned cand = kFull;
-#pragma unroll
-  for (int t = 0; t < 4 * kG - 32; ++t)
-    if (t <= L - 2)
-      cand &= t < 32 ? (unsigned)(lo >> t) : (unsigned)(mid >> (t - 32));
-  cw = cand & low_bits(n - L - p0 + 1);  // runs inside the row
-  ow = opp & low_bits(n - 1 - p0);       // pairs inside the row
-}
 
 __global__ void __launch_bounds__(kScanThreads)
 fused_pipeline_scan_kernel(const uint8_t* __restrict__ x,
@@ -181,17 +123,18 @@ fused_pipeline_scan_kernel(const uint8_t* __restrict__ x,
         // lane i: word i, positions wstart + 32i ..
         const int v0 = (int)((wstart + 32 * lane + a) & (kRing - 1));
         if (L <= 7)
-          mask_word<10>(buf, v0, wstart + 32 * lane, n, L, inc, cw, ow);
+          mask_word<10>(buf, v0, wstart + 32 * lane, n, L, inc, kWrap,
+                        cw, ow);
         else
-          mask_word<24>(buf, v0, wstart + 32 * lane, n, L, inc, cw, ow);
+          mask_word<24>(buf, v0, wstart + 32 * lane, n, L, inc, kWrap,
+                        cw, ow);
       });
   if (lane == 0) counts[b] = (int32_t)wblock::final_cut(st, P, bnd, ln);
   __syncwarp();
   rg.need(nslabs, nslabs - 1, lane == 0);  // every copy has landed
 }
 
-// One warp per chunk slot of the batch: the kept chunks' hashes, zeros
-// past them (the scan wrote bounds, lengths and counts).
+// One warp per chunk slot of the batch (modp.cuh's hash_slot).
 __global__ void __launch_bounds__(kHashThreads)
 fused_pipeline_hash_kernel(const uint8_t* __restrict__ x,
                            const int32_t* __restrict__ bounds,
@@ -199,29 +142,10 @@ fused_pipeline_hash_kernel(const uint8_t* __restrict__ x,
                            const int32_t* __restrict__ pw,
                            uint32_t* __restrict__ fps, int B, long long n,
                            int mc) {
-  const long long warp =
-      (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= (long long)B * mc) return;
-  const long long b = warp / mc;
-  const int j = (int)(warp - b * mc);
-  const long long slot = b * mc + j;
-  if (j >= counts[b]) {  // counts every emit; the table keeps mc of them
-    if (lane == 0) {
-      fps[2 * slot] = 0;
-      fps[2 * slot + 1] = 0;
-    }
-    return;
-  }
-  const long long e = bounds[slot], s = j > 0 ? bounds[slot - 1] : 0;
-  unsigned long long a1 = 0, a2 = 0;
-  add_range<1>(x + b * n, s, e, e, pw, lane, a1, a2);
-  a1 = warp_sum_mod(a1);
-  a2 = warp_sum_mod(a2);
-  if (lane == 0) {
-    fps[2 * slot] = (uint32_t)a1;
-    fps[2 * slot + 1] = (uint32_t)a2;
-  }
+  modp::hash_slot<1, 1>(
+      x, bounds, counts, pw, fps, B, n, mc,
+      (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5, 0,
+      threadIdx.x & 31);
 }
 
 }  // namespace

@@ -1,5 +1,5 @@
-// Exact mod-(2^31 - 1) chunk hashing, shared by fingerprint.cu and
-// fused_pipeline.cu.
+// Exact mod-(2^31 - 1) chunk hashing, shared by fingerprint.cu,
+// fused_pipeline.cu and packed_pipeline.cu.
 //
 // The chunk [s, e) of a row hashes to sum_i x[i] * r^min(e-1-i, 65535)
 // mod p for each generator r.  Both generators' power tables lie back to
@@ -76,6 +76,61 @@ __device__ __forceinline__ void add_range(const uint8_t* row, long long s,
       }
     }
     for (; i < stop; i += 32) add_byte(row, i, e, pw, a1, a2);
+  }
+}
+
+// Slot `slot` (= b * mc + j) of a (B, mc) chunk table over a (B, n)
+// batch, hashed by kParts warps: chunk j of row b spans [bounds[j-1] (0 for
+// j = 0), bounds[j]) and warp `part` adds its part-th kParts-th of it.  The
+// kept chunks' two hashes go to fps, zeros past them (counts[b] counts
+// every emit, the table keeps mc of them).  With kParts > 1 the parts are
+// the warps of one CTA, which calls this with all its threads for one
+// slot, and they meet in shared memory.  The rows are L2-resident from the
+// scan that wrote the bounds.
+template <int kStrides, int kParts>
+__device__ __forceinline__ void hash_slot(const uint8_t* x,
+                                          const int32_t* bounds,
+                                          const int32_t* counts,
+                                          const int32_t* pw, uint32_t* fps,
+                                          int B, long long n, int mc,
+                                          long long slot, int part,
+                                          int lane) {
+  if (slot >= (long long)B * mc) return;
+  const long long b = slot / mc;
+  const int j = (int)(slot - b * mc);
+  if (j >= counts[b]) {
+    if (part == 0 && lane == 0) {
+      fps[2 * slot] = 0;
+      fps[2 * slot + 1] = 0;
+    }
+    return;
+  }
+  const long long e = bounds[slot], s = j > 0 ? bounds[slot - 1] : 0;
+  unsigned long long a1 = 0, a2 = 0;
+  add_range<kStrides>(x + b * n, s + (e - s) * part / kParts,
+                      s + (e - s) * (part + 1) / kParts, e, pw, lane, a1,
+                      a2);
+  a1 = warp_sum_mod(a1);
+  a2 = warp_sum_mod(a2);
+  if constexpr (kParts > 1) {
+    __shared__ unsigned long long sum[kParts][2];
+    if (lane == 0) {
+      sum[part][0] = a1;
+      sum[part][1] = a2;
+    }
+    __syncthreads();
+    a1 = a2 = 0;
+#pragma unroll
+    for (int k = 0; k < kParts; ++k) {  // kParts residues below 2^31 each
+      a1 += sum[k][0];
+      a2 += sum[k][1];
+    }
+    a1 %= kP;
+    a2 %= kP;
+  }
+  if (part == 0 && lane == 0) {
+    fps[2 * slot] = (uint32_t)a1;
+    fps[2 * slot + 1] = (uint32_t)a2;
   }
 }
 

@@ -21,260 +21,264 @@
 // integer rate.  Least time: (B * S + 4 * B * G + 16 * B * mc + 4 * B) /
 // 3.35 TB/s.
 //
-// Design: fused_pipeline.cu's (wblock.cuh): one 8-warp block owns a row and
-// walks its tiles in order, stages each tile's bytes in shared memory,
-// builds candidate/opposing words with __ballot_sync, runs the automaton in
-// warp 0 and hashes the kept chunks from device memory after the scan.
-// What packing changes:
-// - The segment clip.  The TPU kernel reads a per-position segment-end
-//   operand (4 bytes a byte).  Here the kernel derives it from ends: a
-//   candidate at pos survives iff no segment end lies in [pos+1, pos+L-1]
-//   and pos < n_row, an opposing pair iff pos+1 is not an end and
-//   pos < n_row, which is the reference's pos <= sep-L and pos < sep-1 for
-//   the sep layout the scheduler builds (core/seqcdc.segment_end_positions).
-//   Per tile the ends in (t0, t0 + kTile + L - 1) go into a shared bitmap
-//   (a binary search finds the first, then one atomicOr each).  So the
-//   kernel reads 4 bytes per segment, not 4 per position.
-// - The se register.  ends stays in device memory: G reaches 65536 entries
-//   (a 64 KiB row of 1-byte streams), more than a block's shared memory.
-//   warp 0 reads it in order through a pointer that only moves forward, 32
-//   entries a warp load (next_end below), so no emit rescans the table.
-// - Several events per W-block.  An emit re-resolves the same block while
-//   the clamped scan position k = min(k', se - (L-1)) lies inside it and the
-//   row has payload left; every pass emits a strictly larger bound or
-//   leaves, so the loop ends.  The clamp can pull k below the block start
-//   (negative for a segment shorter than L-1): registers are signed 64-bit.
-// - Fingerprints.  The hash weights bytes by offset from the chunk end, so
-//   hashing each kept chunk [prev, bound) straight from the row gives the
-//   stream's own fingerprint; the TPU kernel's per-segment prefix operands
-//   and left stash exist only for its running prefix carry.
-// With 8 rows per dispatch this fills 8 of the card's 132 SMs.
+// Design.  The packed automaton resets at every segment end: a bound on
+// the end leaves the registers in a fresh stream's init state, and the
+// clipped masks never pair bytes of two segments.  So a packed row's
+// bounds are each segment's own bounds, chunked alone, plus its offset
+// (tests/test_torch_packing.py holds the reference to that), and the
+// segments of a row are independent streams.  Two launches behind one
+// call:
+//
+// 1. packed_pipeline_scan_kernel, one CTA of kWarps warps per row.
+//    - Thread 0 copies the whole row (at most 64 KiB, from its 16-byte
+//      floor) into dynamic shared memory with cp.async.bulk, kSlab bytes a
+//      copy, each copy completing its own mbarrier; a warp waits only for
+//      the slabs its segment reads.
+//    - Every thread takes segments of the ends table.  A segment shorter
+//      than min_size is one chunk, its own length: no candidate fits
+//      before sub_min + L and the only cut is the segment end (max_size >=
+//      min_size).  Longer segments go on a list.
+//    - The warps take the listed segments from a shared counter and walk
+//      each as its own stream of length l, the fused kernel's walk
+//      (wblock.cuh's walk_windows, resolve and final_cut) with mask_word
+//      reading the resident row; a segment's mask clip is the stream end
+//      itself.  The longest chain is the longest segment, not the row.
+//    - A warp cannot know where its segment's chunks go in the row's table
+//      before the segments ahead are scanned, so segment g writes its
+//      bounds at slot start_g / min_size + g of a scratch area: a stream of
+//      l bytes emits at most l / min_size + 1 bounds (every chunk but the
+//      last is min_size or longer), and start_{g+1} / min_size - start_g /
+//      min_size >= l_g / min_size, so the ranges never overlap.  The
+//      scratch (G counts, the list, n / min_size + G slots) lies in shared
+//      memory where it fits beside the row, else in the device buffer the
+//      wrapper passes; an undersized mc never runs short of it.
+//    - After a barrier, a block-wide prefix sum over the per-segment counts
+//      places segment g's bounds at [prefix_g, prefix_g + count_g) of the
+//      table, only slots below mc kept; lengths are differences of
+//      consecutive bounds.  Then select_boundaries_packed's fixup at n_row:
+//      it adds a count only when a dropped emit leaves the last kept bound
+//      below n_row.
+// 2. packed_pipeline_hash_kernel, one CTA per chunk slot over the batch,
+//    its kHashWarps warps each hashing a kHashWarps-th of the chunk
+//    (modp.cuh's hash_slot, which the fused kernel runs one warp a slot):
+//    a chunk starts at the previous bound of its row, every segment end
+//    being a bound.  A batch of 8 packed rows has a few hundred chunks at
+//    most, so the longest chunk, not the card's width, sets the time (one
+//    warp a slot, the hash took most of a heavy-tail call on an H100:
+//    bench_scans.py times the two launches apart).
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "modp.cuh"
+#include "ring.cuh"
 #include "wblock.cuh"
 
 namespace {
 
-using modp::add_range;
-using modp::kFull;
-using modp::warp_sum_mod;
+using ring::bulk_copy;
+using ring::mbar_expect_tx;
+using ring::mbar_wait;
 using wblock::kBig;
 using wblock::kMaxHalo;
-using wblock::kThreads;
-using wblock::kTile;
-using wblock::kWarps;
+using wblock::mask_word;
 
-constexpr int kEndWords = (kTile + kMaxHalo) / 32;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kHashWarps = 8;  // warps hashing one chunk
+constexpr int kMaxRow = 1 << 16;  // the reference's packed row bound
+constexpr int kSlab = 4096;       // bytes a bulk copy
+constexpr int kMaxSlabs = (kMaxRow + 16 + kSlab - 1) / kSlab;
+constexpr int kTail = 112;  // bytes mask_word reads past a stream end
+// shared memory a block may take, the row and the scratch together
+constexpr int kSmemMax = 200 << 10;
 
 struct Params {
-  long long n;      // row width S
-  long long cover;  // nb_split * W: the split path's padded block range
+  long long n;  // row width S
   int G, mc, L, inc, W, T, skip, sub_min, max_size;
+  int list;          // entries of the long-segment list: n / min_size + 1
+  int scratch;       // scratch ints a row: G counts, the list, the slots
+  int row_bytes;     // shared bytes for the row (its floor, tail included)
+  int smem_scratch;  // 1: the scratch lies in shared memory
 };
 
-// The first end strictly greater than x at or after index ei (kBig when
-// none), 32 entries a warp load; ei moves to its index.  Called by a whole
-// warp with the same arguments.  ends is nondecreasing and x never
-// decreases between calls, so the pointer only moves forward.
-__device__ __forceinline__ long long next_end(const int32_t* ends, int G,
-                                              int& ei, long long x,
-                                              int lane) {
-  for (;;) {
-    const int i = ei + lane;
-    const long long e = i < G ? (long long)ends[i] : (long long)kBig;
-    const unsigned hit = __ballot_sync(kFull, e > x);
-    if (hit) {
-      const int f = __ffs(hit) - 1;
-      ei += f;
-      return __shfl_sync(kFull, e, f);
-    }
-    ei += 32;
-  }
-}
-
-__device__ __forceinline__ bool is_end(const uint32_t* send, int q) {
-  return (send[q >> 5] >> (q & 31)) & 1u;
+// ends[g] clamped to the row: a malformed table cannot send a read outside
+// the row's shared copy
+__device__ __forceinline__ long long end_at(const int32_t* ends, int g,
+                                            long long n) {
+  const long long e = g < 0 ? 0 : ends[g];
+  return e < 0 ? 0 : e > n ? n : e;
 }
 
 __global__ void __launch_bounds__(kThreads)
-packed_pipeline_kernel(const uint8_t* __restrict__ x,
-                       const int32_t* __restrict__ ends_all,
-                       const int32_t* __restrict__ pw,
-                       int32_t* __restrict__ bounds,
-                       int32_t* __restrict__ counts,
-                       uint32_t* __restrict__ fps,
-                       int32_t* __restrict__ lens, Params P) {
-  __shared__ uint8_t sx[kTile + kMaxHalo];
-  __shared__ uint32_t scand[kTile / 32];
-  __shared__ uint32_t sopp[kTile / 32];
-  __shared__ uint32_t send[kEndWords];  // bit q: t0 + q is a segment end
-  __shared__ long long sh_k, sh_s;      // warp 0's scan state, for all
-  __shared__ int sh_lo, sh_kept;
+packed_pipeline_scan_kernel(const uint8_t* __restrict__ x,
+                            const int32_t* __restrict__ ends_all,
+                            int32_t* __restrict__ bounds,
+                            int32_t* __restrict__ counts,
+                            int32_t* __restrict__ lens,
+                            int32_t* __restrict__ gscratch, Params P) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ __align__(8) uint64_t full[kMaxSlabs];
+  __shared__ int sh_nlong, sh_next, sh_wsum[kWarps];
+  __shared__ long long sh_last;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long b = blockIdx.x;
-  const long long S = P.n;
-  const int W = P.W;
-  const uint8_t* row = x + b * S;
-  const int32_t* ends = ends_all + b * P.G;
-  const long long n_row = ends[P.G - 1];  // the payload end
+  const long long n = P.n;
+  const int m = P.sub_min + P.L;  // min_size
+  const uint8_t* row = x + b * n;
+  const int32_t* ends = ends_all + (long long)b * P.G;
   int32_t* bnd = bounds + b * P.mc;
   int32_t* ln = lens + b * P.mc;
-  uint32_t* fp = fps + b * P.mc * 2;
-  for (int i = tid; i < P.mc; i += kThreads) {
-    bnd[i] = kBig;
-    ln[i] = 0;
-    fp[2 * i] = 0;
-    fp[2 * i + 1] = 0;
+  int32_t* cnt = P.smem_scratch
+                     ? reinterpret_cast<int32_t*>(smem + P.row_bytes)
+                     : gscratch + b * P.scratch;
+  int32_t* list = cnt + P.G;
+  int32_t* slot = list + P.list;
+
+  // -- the row into shared memory: virtual byte v is row byte v - a --------
+  const int a = (int)(reinterpret_cast<uintptr_t>(row) & 15);
+  const int vlen = ((int)n + a + 15) & ~15;
+  const int nslabs = (vlen + kSlab - 1) / kSlab;
+  if (tid == 0) {
+    for (int j = 0; j < nslabs; ++j) ring::mbar_init(&full[j], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int j = 0; j < nslabs; ++j) {
+      const int bytes = vlen - j * kSlab < kSlab ? vlen - j * kSlab : kSlab;
+      mbar_expect_tx(&full[j], bytes);
+      bulk_copy(smem + j * kSlab, row - a + j * kSlab, bytes, &full[j]);
+    }
+    sh_nlong = 0;
+    sh_next = 0;
   }
-  // the scan registers; only warp 0's copy is live.  se is the current
-  // segment's end; k starts clamped to its first cut, as the reference's
-  // init does (the first segment may be shorter than min_size)
-  long long k = 0, c = 0, s = 0, se = 0, cnt = 0, last_kept = 0;
-  int ei = 0;
-  if (warp == 0) {
-    se = next_end(ends, P.G, ei, 0, lane);
-    k = se - (P.L - 1) < P.sub_min ? se - (P.L - 1) : P.sub_min;
-    if (lane == 0) {
-      sh_k = k;
-      sh_s = 0;
+  __syncthreads();
+
+  // -- every thread: short segments are one chunk, long ones to the list ---
+  for (int g = tid; g < P.G; g += kThreads) {
+    const long long st = end_at(ends, g - 1, n);
+    const long long l = end_at(ends, g, n) - st;
+    if (l >= m) {
+      list[atomicAdd(&sh_nlong, 1)] = g;
+    } else {
+      cnt[g] = l > 0;
+      if (l > 0) slot[st / m + g] = (int32_t)l;
     }
   }
   __syncthreads();
 
-  for (long long t0 = 0; t0 < P.cover; t0 += kTile) {
-    const long long tend = t0 + kTile;
-    if (sh_s >= n_row) break;      // the row is done
-    if (sh_k >= tend) continue;    // every block of this tile is a no-op
-    // -- stage the tile's bytes and mark the segment ends that clip it ----
-    wblock::stage_tile(sx, row, t0, S, P.L, tid);
-    for (int w = tid; w < kEndWords; w += kThreads) send[w] = 0;
-    if (tid == 0) {  // first end > t0
-      int lo = 0, hi = P.G;
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (ends[mid] > t0)
-          hi = mid;
-        else
-          lo = mid + 1;
-      }
-      sh_lo = lo;
-    }
-    __syncthreads();
-    const long long reach = t0 + kTile + P.L - 1;  // ends that clip a mask
-    for (int i = sh_lo + tid; i < P.G; i += kThreads) {
-      const long long e = ends[i];
-      if (e >= reach) break;
-      const int q = (int)(e - t0);
-      atomicOr(&send[q >> 5], 1u << (q & 31));
-    }
-    __syncthreads();
-    // -- phase-1 mask words, clipped per segment ---------------------------
-    for (int w = warp; w < kTile / 32; w += kWarps) {
-      const int i = w * 32 + lane;
-      const long long pos = t0 + i;
-      bool cd = false, op = false;
-      if (pos < n_row) {
-        if (!is_end(send, i + 1)) {
-          const uint8_t a = sx[i], nx = sx[i + 1];
-          op = P.inc ? (nx < a) : (nx > a);
-        }
-        cd = true;
-        for (int j = 0; j < P.L - 1; ++j) {
-          const uint8_t a = sx[i + j], nx = sx[i + j + 1];
-          cd = cd && !is_end(send, i + j + 1) &&
-               (P.inc ? (nx > a) : (nx < a));
-        }
-      }
-      const unsigned cw = __ballot_sync(kFull, cd);
-      const unsigned ow = __ballot_sync(kFull, op);
-      if (lane == 0) {
-        scand[w] = cw;
-        sopp[w] = ow;
-      }
-    }
-    __syncthreads();
-    // -- warp 0: the packed W-block automaton over this tile ----------------
-    if (warp == 0) {
-      const long long blk_end = tend < P.cover ? tend : P.cover;
-      long long bstart = (k / W) * W;
-      if (bstart < t0) bstart = t0;
-      while (bstart < blk_end && s < n_row) {
-        const long long bend = bstart + W;
-        if (k >= bend) {  // not in_block: state unchanged, jump to k's block
-          const long long to = (k / W) * W;
-          bstart = to > bend ? to : bend;
-          continue;
-        }
-        const long long o = k > bstart ? k - bstart : 0;  // first active pos
-        const wblock::BlockHit h = wblock::block_search(
-            scand, sopp, (int)(bstart - t0), W, o, bstart, c, P.T, lane);
-        const long long kc = h.kc, kt = h.kt;
-        // _resolve against the segment end se (in_block holds here)
-        const long long cut_b = s + P.max_size < se ? s + P.max_size : se;
-        const long long cut_k = cut_b - (P.L - 1);
-        const long long e_cut = cut_k > k ? cut_k : k;
-        const bool fire_cut = e_cut < bend && e_cut <= (kc < kt ? kc : kt);
-        const bool fire_cand = !fire_cut && kc < kt;
-        const bool fire_trig = !fire_cut && !fire_cand && kt < kBig;
-        const bool emit_cut = fire_cut || (fire_trig && kt + P.skip >= cut_k);
-        const bool emit = emit_cut || fire_cand;
-        const long long bound = emit_cut ? cut_b : kc + P.L;
-        c = (fire_cut || fire_cand || fire_trig) ? 0 : c + h.total;
-        if (!emit) {
-          k = fire_trig ? kt + P.skip : bend;  // both clear the block
-          bstart = bend;
-          continue;
-        }
-        if (cnt < P.mc) {  // the split path's mode="drop" scatter
-          if (lane == 0) {
-            bnd[cnt] = (int32_t)bound;
-            ln[cnt] = (int32_t)(bound - s);
-          }
-          last_kept = bound;
-        }
-        ++cnt;
-        s = bound;
-        // a bound on the segment end starts the next segment: the emit's
-        // registers are a fresh stream's init state
-        if (bound >= se) se = next_end(ends, P.G, ei, bound, lane);
-        k = bound + P.sub_min;
-        if (k > se - (P.L - 1)) k = se - (P.L - 1);  // the post-emit clamp
-        // a cut that resets the scan inside this block resolves it again
-        if (!(k < bend && s < n_row)) bstart = bend;
-      }
-      if (lane == 0) {
-        sh_k = k;
-        sh_s = s;
-      }
-    }
-    __syncthreads();
-  }
-  // -- select_boundaries_packed's fixup (the payload end), then hashes -----
-  if (tid == 0) {
-    if ((cnt > 0 ? last_kept : 0) < n_row && n_row > 0) {
-      if (cnt < P.mc) {
-        bnd[cnt] = (int32_t)n_row;
-        ln[cnt] = (int32_t)(n_row - s);
-      }
-      ++cnt;
-    }
-    counts[b] = (int32_t)cnt;
-    sh_kept = (int)(cnt < P.mc ? cnt : P.mc);
+  // -- the warps: each listed segment walked as its own stream -------------
+  const int W = P.W, L = P.L;
+  for (;;) {
+    int i = 0;
+    if (lane == 0) i = atomicAdd(&sh_next, 1);
+    i = __shfl_sync(wblock::kFull, i, 0);
+    if (i >= sh_nlong) break;
+    const int g = list[i];
+    const long long st = end_at(ends, g - 1, n);
+    const long long l = end_at(ends, g, n) - st;
+    const int vst = (int)st + a;
+    const int vend = vst + (int)l + kTail < vlen ? vst + (int)l + kTail
+                                                 : vlen;
+    for (int j = vst / kSlab; j <= (vend - 1) / kSlab; ++j)
+      mbar_wait(&full[j], 0);
+    const wblock::ScanParams SP{
+        l, (l + P.skip + W + W - 1) / W * W, (int)(l / m) + 1, L, W, P.T,
+        P.skip, P.sub_min, P.max_size};
+    int32_t* sb = slot + st / m + g;
+    wblock::ScanState ss{P.sub_min, 0, 0, 0, 0};
+    wblock::walk_windows(
+        ss, SP, W - 1, sb, nullptr, lane,
+        [&](long long wstart, unsigned& cw, unsigned& ow) {
+          // lane i: word i, positions wstart + 32i .. of the segment
+          const long long p0 = wstart + 32 * lane;
+          const int v0 = p0 < l ? vst + (int)p0 : 0;
+          if (L <= 7)
+            mask_word<10>(smem, v0, p0, l, L, P.inc, -1, cw, ow);
+          else
+            mask_word<24>(smem, v0, p0, l, L, P.inc, -1, cw, ow);
+        });
+    if (lane == 0) cnt[g] = (int32_t)wblock::final_cut(ss, SP, sb, nullptr);
   }
   __syncthreads();
-  for (int j = warp; j < sh_kept; j += kWarps) {
-    const long long e = bnd[j], st = j > 0 ? bnd[j - 1] : 0;
-    unsigned long long a1 = 0, a2 = 0;
-    add_range<4>(row, st, e, e, pw, lane, a1, a2);
-    a1 = warp_sum_mod(a1);
-    a2 = warp_sum_mod(a2);
-    if (lane == 0) {
-      fp[2 * j] = (uint32_t)a1;
-      fp[2 * j + 1] = (uint32_t)a2;
+
+  // -- inclusive prefix sum of the counts, in place, kThreads at a time ----
+  long long total = 0;
+  for (int base = 0; base < P.G; base += kThreads) {
+    const int g = base + tid;
+    int v = g < P.G ? cnt[g] : 0;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int u = __shfl_up_sync(wblock::kFull, v, d);
+      if (lane >= d) v += u;
+    }
+    if (lane == 31) sh_wsum[warp] = v;
+    __syncthreads();
+    if (warp == 0) {
+      int w = lane < kWarps ? sh_wsum[lane] : 0;
+#pragma unroll
+      for (int d = 1; d < kWarps; d <<= 1) {
+        const int u = __shfl_up_sync(wblock::kFull, w, d);
+        if (lane >= d) w += u;
+      }
+      if (lane < kWarps) sh_wsum[lane] = w;
+    }
+    __syncthreads();
+    if (g < P.G)
+      cnt[g] = (int32_t)(total + v + (warp ? sh_wsum[warp - 1] : 0));
+    total += sh_wsum[kWarps - 1];
+    __syncthreads();
+  }
+
+  // -- placement: segment g's bounds to [prefix_g, prefix_g + count_g) -----
+  const long long kept = total < P.mc ? total : P.mc;
+  for (int g = tid; g < P.G; g += kThreads) {
+    const long long lo = g > 0 ? cnt[g - 1] : 0, hi = cnt[g];
+    if (lo >= kept || hi == lo) continue;
+    const long long st = end_at(ends, g - 1, n);
+    const int32_t* sb = slot + st / m + g;
+    int32_t prev = 0;
+    for (long long j = lo; j < hi && j < kept; ++j) {
+      const int32_t v = sb[j - lo];
+      bnd[j] = (int32_t)(st + v);
+      ln[j] = v - prev;
+      prev = v;
+      if (j == kept - 1) sh_last = st + v;
     }
   }
+  for (long long j = kept + tid; j < P.mc; j += kThreads) {
+    bnd[j] = kBig;
+    ln[j] = 0;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    // select_boundaries_packed's fixup at the payload end.  With every emit
+    // kept the last bound is n_row (each segment ends in its own end), so
+    // it fires only when an emit was dropped: a count, no table slot.
+    const long long n_row = end_at(ends, P.G - 1, n);
+    const long long last = kept > 0 ? sh_last : 0;
+    long long c = total;
+    if (last < n_row && n_row > 0) {
+      if (c < P.mc) {
+        bnd[c] = (int32_t)n_row;
+        ln[c] = (int32_t)(n_row - last);
+      }
+      ++c;
+    }
+    counts[b] = (int32_t)c;
+    for (int j = 0; j < nslabs; ++j) mbar_wait(&full[j], 0);  // all landed
+  }
+}
+
+// One CTA per chunk slot of the batch, its kHashWarps warps each over a
+// kHashWarps-th of the chunk (modp.cuh's hash_slot).
+__global__ void __launch_bounds__(32 * kHashWarps)
+packed_pipeline_hash_kernel(const uint8_t* __restrict__ x,
+                            const int32_t* __restrict__ bounds,
+                            const int32_t* __restrict__ counts,
+                            const int32_t* __restrict__ pw,
+                            uint32_t* __restrict__ fps, int B, long long n,
+                            int mc) {
+  modp::hash_slot<4, kHashWarps>(x, bounds, counts, pw, fps, B, n, mc,
+                                 blockIdx.x, threadIdx.x >> 5,
+                                 threadIdx.x & 31);
 }
 
 }  // namespace
@@ -282,21 +286,45 @@ packed_pipeline_kernel(const uint8_t* __restrict__ x,
 extern "C" int packed_pipeline_launch(const void* x, const void* ends,
                                       const void* pw, void* bounds,
                                       void* counts, void* fps, void* lens,
-                                      int B, long long n, long long cover,
-                                      int G, int mc, int L, int inc, int W,
-                                      int T, int skip, int sub_min,
-                                      int max_size, void* stream) {
-  if (W < 1 || W > 1024 || (W & (W - 1)) != 0 || kTile % W != 0 ||
-      L < 2 || L - 1 > kMaxHalo || G < 1 || n > (1 << 16))
+                                      void* scratch, long long ints, int B,
+                                      long long n, int G, int mc, int L,
+                                      int inc, int W, int T, int skip,
+                                      int sub_min, int max_size,
+                                      void* stream) {
+  // scratch: B rows of ints, at least G counts, the long-segment list
+  // (n / min_size + 1) and the slots (n / min_size + G)
+  const int min_size = sub_min + L;
+  if (W < 1 || W > 1024 || (W & (W - 1)) != 0 || L < 2 ||
+      L - 1 > kMaxHalo || G < 1 || n < 1 || n > kMaxRow || min_size < 1 ||
+      ints < 2LL * G + 2 * (n / min_size) + 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Params P{n, cover, G, mc, L, inc, W, T, skip, sub_min, max_size};
-  if (B > 0) {
-    packed_pipeline_kernel<<<B, kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(x), static_cast<const int32_t*>(ends),
-        static_cast<const int32_t*>(pw), static_cast<int32_t*>(bounds),
-        static_cast<int32_t*>(counts), static_cast<uint32_t*>(fps),
-        static_cast<int32_t*>(lens), P);
+  const int row_bytes = ((int)n + 15 + kTail + 15) & ~15;
+  const bool in_smem = row_bytes + 4 * ints <= kSmemMax;
+  const int list = (int)(n / min_size) + 1;
+  const Params P{n, G,    mc,        L,         inc,
+                 W, T,    skip,      sub_min,   max_size,
+                 list, (int)ints, row_bytes, in_smem ? 1 : 0};
+  const int smem = row_bytes + (in_smem ? 4 * (int)ints : 0);
+  if (smem > (48 << 10)) {  // above 48 KiB only by opting in
+    const cudaError_t err = cudaFuncSetAttribute(
+        packed_pipeline_scan_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B <= 0) return static_cast<int>(cudaGetLastError());
+  packed_pipeline_scan_kernel<<<B, kThreads, smem, st>>>(
+      static_cast<const uint8_t*>(x), static_cast<const int32_t*>(ends),
+      static_cast<int32_t*>(bounds), static_cast<int32_t*>(counts),
+      static_cast<int32_t*>(lens), static_cast<int32_t*>(scratch), P);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long slots = (long long)B * mc;
+  if (slots > 0) {
+    packed_pipeline_hash_kernel<<<(unsigned)slots, 32 * kHashWarps, 0, st>>>(
+        static_cast<const uint8_t*>(x), static_cast<const int32_t*>(bounds),
+        static_cast<const int32_t*>(counts), static_cast<const int32_t*>(pw),
+        static_cast<uint32_t*>(fps), B, n, mc);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,15 +1,13 @@
 // The W-block scan's shared pieces, used by fused_pipeline.cu,
 // packed_pipeline.cu and select_boundaries.cu.
 //
-// fused_pipeline.cu and select_boundaries.cu walk a row event by event over
-// windows of kWin positions (walk_windows): lane i holds word i of the
-// window's candidate and opposing bits (computed from the row's bytes, or
-// read from packed bitmaps), and block_search_words and resolve find and
-// apply the next event.  packed_pipeline.cu gives one 8-warp block a row
-// and walks its tiles in order: per tile of kTile positions the warps turn
-// the staged tile's byte compares into 32-bit words with __ballot_sync, and
-// warp 0 resolves the tile's W-blocks with block_search.  W <= 1024, so at
-// most 32 words a block: lane i takes word i.
+// Each walks a stream event by event over windows of kWin positions
+// (walk_windows): lane i holds word i of the window's candidate and
+// opposing bits, and block_search_words and resolve find and apply the
+// next event.  fused_pipeline.cu and packed_pipeline.cu compute a window's
+// words from the stream's bytes in shared memory (mask_word: a row fed
+// through a ring, a packed row resident whole); select_boundaries.cu reads
+// them from packed bitmaps.  W <= 1024, so at most 32 words a block.
 #pragma once
 
 #include <cstdint>
@@ -21,32 +19,67 @@ namespace wblock {
 
 using modp::kFull;
 
-constexpr int kTile = 4096;   // positions staged per tile, a multiple of W
-constexpr int kMaxHalo = 64;  // L - 1 <= 64 bytes read past a tile
+constexpr int kMaxHalo = 64;  // L - 1 <= 64: mask_word<24> takes L <= 65
 constexpr int kBig = 1 << 30;
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kStage = (kTile + kMaxHalo + kThreads - 1) / kThreads;
 constexpr int kWin = 1024;  // positions a search window: 32 words
 
-// Stages row[t0, t0 + kTile + L - 1) into sx, zero past the row end n,
-// every thread with its kStage loads in flight at once.  The caller
-// synchronises before reading sx.
-__device__ __forceinline__ void stage_tile(uint8_t* sx, const uint8_t* row,
-                                           long long t0, long long n, int L,
-                                           int tid) {
-  uint8_t v[kStage];
+__device__ __forceinline__ unsigned low_bits(long long count) {
+  return count >= 32 ? kFull : count <= 0 ? 0u : (1u << count) - 1u;
+}
+
+// Four 0x00/0xff bytes -> four bits (byte j -> bit j)
+__device__ __forceinline__ unsigned byte_bits(uint32_t v) {
+  return ((v & 0x01010101u) * 0x01020408u) >> 24;
+}
+
+// The candidate and opposing words of the 32 positions from p0 (bit q is
+// position p0 + q) of a stream of n bytes whose position p0 is byte v0 of
+// the shared buffer rb: 4 positions a step with byte-wise compares
+// (__vcmpgtu4/__vcmpltu4) of unaligned words, which the lane assembles from
+// aligned 4-byte loads (word index & wrap: a ring of a power-of-two size
+// passes its word mask, a resident buffer -1).  Bit t of (lo, hi) is the
+// pair (p0 + t, p0 + t + 1) continuing a run (increasing, or decreasing); a
+// candidate is L-1 of them in a row.  Positions whose pair or run leaves
+// the stream are not set.  Reads at most 104 bytes from v0, none when
+// p0 >= n - 1.  kG bounds the steps: 10 for L <= 7, 24 for L <= 65.
+template <int kG>
+__device__ __forceinline__ void mask_word(const uint8_t* rb, int v0,
+                                          long long p0, long long n, int L,
+                                          int inc, int wrap, unsigned& cw,
+                                          unsigned& ow) {
+  cw = ow = 0;
+  if (p0 >= n - 1) return;  // no pair starts in the word
+  const uint32_t* r32 = reinterpret_cast<const uint32_t*>(rb);
+  const int sh = (v0 & 3) * 8;
+  const int w0 = v0 >> 2;
+  const int G = (33 + L) >> 2;  // steps covering positions p0 .. p0+29+L
+  uint32_t cur_w = r32[w0 & wrap], nxt_w = r32[(w0 + 1) & wrap];
+  unsigned long long lo = 0;
+  unsigned hi = 0, opp = 0;
 #pragma unroll
-  for (int r = 0; r < kStage; ++r) {
-    const int i = tid + r * kThreads;
-    const long long pos = t0 + i;
-    v[r] = (i < kTile + L - 1 && pos < n) ? row[pos] : 0;
+  for (int j = 0; j < kG; ++j) {
+    if (j < G) {
+      const uint32_t cur = __funnelshift_rc(cur_w, nxt_w, sh);
+      const uint32_t nx = __funnelshift_rc(cur_w, nxt_w, sh + 8);
+      const uint32_t up = __vcmpgtu4(nx, cur), dn = __vcmpltu4(nx, cur);
+      const unsigned run = byte_bits(inc ? up : dn);
+      if (4 * j < 64)
+        lo |= (unsigned long long)run << (4 * j);
+      else
+        hi |= run << (4 * j - 64);
+      if (j < 8) opp |= byte_bits(inc ? dn : up) << (4 * j);
+      cur_w = nxt_w;
+      nxt_w = r32[(w0 + 2 + j) & wrap];
+    }
   }
+  const unsigned long long mid = (lo >> 32) | ((unsigned long long)hi << 32);
+  unsigned cand = kFull;
 #pragma unroll
-  for (int r = 0; r < kStage; ++r) {
-    const int i = tid + r * kThreads;
-    if (i < kTile + kMaxHalo) sx[i] = v[r];
-  }
+  for (int t = 0; t < 4 * kG - 32; ++t)
+    if (t <= L - 2)
+      cand &= t < 32 ? (unsigned)(lo >> t) : (unsigned)(mid >> (t - 32));
+  cw = cand & low_bits(n - L - p0 + 1);  // runs inside the stream
+  ow = opp & low_bits(n - 1 - p0);       // pairs inside the stream
 }
 
 struct BlockHit {
@@ -107,24 +140,6 @@ __device__ __forceinline__ BlockHit block_search_words(unsigned cw,
   kt_rel = __reduce_min_sync(kFull, kt_rel);
   return BlockHit{kc_rel < kBig ? bstart + kc_rel : kBig,
                   kt_rel < kBig ? bstart + kt_rel : kBig, total};
-}
-
-// block_search_words over the block's words in scand/sopp, which start at
-// tile offset rel.
-__device__ __forceinline__ BlockHit block_search(const uint32_t* scand,
-                                                 const uint32_t* sopp,
-                                                 int rel, int W, long long o,
-                                                 long long bstart,
-                                                 long long c, int T,
-                                                 int lane) {
-  unsigned cw = 0, ow = 0;
-  if (lane < (W >= 32 ? W / 32 : 1)) {
-    const unsigned wmask = W >= 32 ? kFull : ((1u << W) - 1u);
-    const int sh = W >= 32 ? 0 : (rel & 31);
-    cw = (scand[(rel >> 5) + lane] >> sh) & wmask;
-    ow = (sopp[(rel >> 5) + lane] >> sh) & wmask;
-  }
-  return block_search_words(cw, ow, o, bstart, c, T, lane);
 }
 
 // The split path's scan parameters: the row length, the padded block range

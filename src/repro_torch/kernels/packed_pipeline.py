@@ -1,12 +1,14 @@
-"""CUDA kernel: segment-packed chunk + fingerprint pipeline, one launch.
+"""CUDA kernels: segment-packed chunk + fingerprint pipeline, one call.
 
 Replaces ``repro/kernels/fused_pipeline.py:packed_pipeline_batch``.  Each
 row of a ``(B, S)`` batch holds several streams back to back; ``ends``
 ``(B, G)`` lists their exclusive ends, nondecreasing, padded with the
-row's payload end.  The kernel (``csrc/packed_pipeline.cu``) is the fused
-kernel's design with the segment clip derived from ``ends``, the ``se``
-register and several events per W-block; it is memory-bound (each byte
-and each end needed once).  Its plain version is the packed split path
+row's payload end.  The kernel (``csrc/packed_pipeline.cu``) walks each
+segment of a row as its own stream, the warps of the row's block in
+parallel (a segment shorter than ``min_size`` is one chunk, no walk), then
+places the segments' bounds by a prefix sum over their counts, and hashes
+every chunk slot in a second launch; it is memory-bound (each byte and
+each end needed once).  Its plain version is the packed split path
 (:func:`packed_pipeline_plain`), as the reference's scheduler composes it:
 ``boundaries_packed_batch`` followed by the batched
 ``chunk_fingerprints`` (the fingerprint is translation invariant, so the
@@ -14,8 +16,8 @@ packed bounds need no correction).
 
 The per-position segment-end operand of the reference's signature is not
 an argument here: it follows from ``ends`` (``core.seqcdc.
-segment_end_positions``), which the plain version computes and the kernel
-derives per tile.
+segment_end_positions``), which the plain version computes; the kernel
+needs only the segments' ends.
 """
 from __future__ import annotations
 
@@ -36,8 +38,8 @@ from .fused_pipeline import kept_fingerprints
 
 KERNEL = Kernel(
     "packed_pipeline",
-    [ctypes.c_void_p] * 7
-    + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong]
+    [ctypes.c_void_p] * 8
+    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
     + [ctypes.c_int] * 9,
     replaces="src/repro/kernels/fused_pipeline.py:621",
 )
@@ -103,9 +105,10 @@ def packed_pipeline_batch(data: torch.Tensor, ends: torch.Tensor,
         raise ValueError(f"expected contiguous int32 (B, G>=1) ends on "
                          f"{dev}, got {ends.dtype} {tuple(ends.shape)} on "
                          f"{ends.device}")
-    W = p.block_width
-    # the split automaton's padded block range (core/automaton.py)
-    cover = (n + p.skip_size + W + W - 1) // W * W
+    # the kernel's scratch a row: G counts, its list of segments of
+    # min_size or more, and each segment's slots (csrc/packed_pipeline.cu)
+    ints = 2 * G + 2 * (n // p.min_size) + 1
+    scratch = torch.empty((B, ints), dtype=torch.int32, device=dev)
     bounds = torch.empty((B, mc), dtype=torch.int32, device=dev)
     counts = torch.empty((B,), dtype=torch.int32, device=dev)
     fps = torch.empty((B, mc, 2), dtype=torch.uint32, device=dev)
@@ -115,8 +118,9 @@ def packed_pipeline_batch(data: torch.Tensor, ends: torch.Tensor,
         KERNEL.launch(
             data.data_ptr(), ends.data_ptr(), pw.data_ptr(),
             bounds.data_ptr(), counts.data_ptr(), fps.data_ptr(),
-            lens.data_ptr(), B, n, cover, G, mc, p.seq_length,
-            int(p.mode == "increasing"), W, p.skip_trigger, p.skip_size,
+            lens.data_ptr(), scratch.data_ptr(), ints, B, n, G, mc,
+            p.seq_length, int(p.mode == "increasing"), p.block_width,
+            p.skip_trigger, p.skip_size,
             p.sub_min_skip, p.max_size,
             stream=torch.cuda.current_stream(dev).cuda_stream,
         )

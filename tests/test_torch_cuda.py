@@ -8,6 +8,8 @@ versions, which the CPU tests hold against the reference, are the oracle
 here, every output compared bit for bit.
 """
 import dataclasses
+import importlib.util
+import os
 
 import numpy as np
 import pytest
@@ -34,6 +36,8 @@ from repro_torch.kernels import seqcdc_masks as kmasks
 from repro_torch.service import DedupService, ShardedDedupService
 
 pytestmark = pytest.mark.cuda
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
 
 P = SeqCDCParams(avg_size=256, seq_length=3, skip_trigger=6, skip_size=32,
                  min_size=64, max_size=512)
@@ -312,18 +316,36 @@ def test_packed_kernel_on_the_cpu_tests_cases(dev, name):
     _equal(got, kpacked.packed_pipeline_plain(x, e, p, max_chunks=mc))
 
 
+def _chip_mix(mix: str, seed: int):
+    """``chip_smoke.py``'s packed phase rows for one segment mix: 8 rows of
+    16 KiB at paper 8 KiB parameters, ``(data, ends, streams)``."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke.packed_rows(np.random.default_rng(seed), mix, 8, 16 << 10)
+
+
 @pytest.mark.parametrize("name,S", [("P", 4096), ("w4", 1500),
-                                    ("paper8k", 16384)])
+                                    ("paper8k", 16384),
+                                    ("chip all-tiny", 16384),
+                                    ("chip 512-2048", 16384),
+                                    ("chip heavy-tail<16KiB", 16384)])
 @pytest.mark.parametrize("short", [1, 3])
 def test_packed_kernel_drops_overflow_at_undersized_max_chunks(dev, name, S,
                                                                 short):
     """Below a true bound on the chunk count the kernel drops emits past
     max_chunks whole, as its plain version and the reference's kernel do:
-    the fullest row keeps ``short`` chunks fewer than it has."""
-    p = PARAMS[name]
-    streams = _packed_cases(np.random.default_rng(S + short), p, S)
-    data, _, ends, _ = _packing_cases.pack(
-        [[seg.tobytes() for seg in row] for row in streams], S)
+    the fullest row keeps ``short`` chunks fewer than it has (also on the
+    three segment mixes ``chip_smoke.py`` times the kernel on)."""
+    if name.startswith("chip "):
+        p = PARAMS["paper8k"]
+        data, ends, _ = _chip_mix(name[5:], S + short)
+    else:
+        p = PARAMS[name]
+        streams = _packed_cases(np.random.default_rng(S + short), p, S)
+        data, _, ends, _ = _packing_cases.pack(
+            [[seg.tobytes() for seg in row] for row in streams], S)
     x = torch.from_numpy(data).to(dev)
     e = torch.from_numpy(ends).to(dev)
     true_mc = S // p.min_size + 2 * ends.shape[1] + 2
@@ -353,6 +375,86 @@ def test_kernels_drop_overflow_at_undersized_max_chunks(dev, name, short):
            select_plain(cand, opp, n, p, max_chunks=mc))
     _equal(kscan.native_scan(x, "seqcdc", params=p, max_chunks=mc),
            kscan.native_scan_plain(x, "seqcdc", params=p, max_chunks=mc))
+
+
+def _packed_against_oracle(dev, p, streams, S, G=None):
+    """The packed kernel on ``streams`` packed into rows of ``S``, each
+    segment's bounds and fingerprints held against the numpy oracle on the
+    segment alone, lengths against the bounds, the rest of the table
+    against the sentinels; returns the kernel's outputs."""
+    data, _, ends, _ = _packing_cases.pack(
+        [[seg.tobytes() for seg in row] for row in streams], S, G)
+    x = torch.from_numpy(data).to(dev)
+    e = torch.from_numpy(ends).to(dev)
+    mc = S // p.min_size + 2 * ends.shape[1] + 2
+    got = kpacked.packed_pipeline_batch(x, e, p, max_chunks=mc)
+    torch.cuda.synchronize()
+    bounds, counts, fps, lens = (t.cpu().numpy() for t in got)
+    for bi, row in enumerate(streams):
+        want, fp_want, off = [], [], 0
+        for seg in row:
+            if seg.size:
+                ob = boundaries_numpy(seg, p)
+                want.extend((ob + off).tolist())
+                fp_want.append(fingerprints_numpy(seg, ob))
+            off += seg.size
+        k = len(want)
+        assert counts[bi] == k
+        assert bounds[bi, :k].tolist() == want
+        assert (bounds[bi, k:] == 1 << 30).all()
+        assert lens[bi, :k].tolist() == np.diff([0] + want).tolist()
+        assert (lens[bi, k:] == 0).all() and (fps[bi, k:] == 0).all()
+        if k:
+            np.testing.assert_array_equal(fps[bi, :k],
+                                          np.concatenate(fp_want))
+    return got, x, e, mc
+
+
+@pytest.mark.parametrize("name,S", [("P", 4096), ("w4", 2048),
+                                    ("dec", 4096), ("paper8k", 65536)])
+def test_packed_kernel_segment_edges(dev, name, S):
+    """Segments at the edges of the segment-parallel scan, against the
+    oracle per segment and the plain version: empty segments (repeated
+    ends) around others, segments shorter than L-1, one segment filling
+    the row, constant-byte segments (max-size cuts only), a segment whose
+    last max-size cut lands exactly on its end, and a row of segments of
+    exactly min_size and min_size - 1."""
+    p = PARAMS[name]
+    rng = np.random.default_rng(S + len(name))
+    r = lambda n: rng.integers(0, 256, n, dtype=np.uint8)
+    z = lambda n: np.zeros(n, np.uint8)
+    c = lambda n, v: np.full(n, v, np.uint8)
+    L, mn, mx = p.seq_length, p.min_size, p.max_size
+    rows = [
+        [z(0), r(100), z(0), z(0), r(mn + 3), z(0), z(0), r(1), z(0)],
+        [r(int(k)) for k in rng.integers(1, max(2, L - 1), 50)] + [r(300)],
+        [r(S)],
+        [c(S, 7)],
+        [c(2 * mx, 3), r(mn), c(mx + 1, 9)],
+        [r(mn), r(mn - 1), r(mn), z(mn - 1), r(mn)],
+    ]
+    for row in rows:
+        assert sum(seg.size for seg in row) <= S, name
+    got, x, e, mc = _packed_against_oracle(dev, p, rows, S)
+    _equal(got, kpacked.packed_pipeline_plain(x, e, p, max_chunks=mc))
+
+
+@pytest.mark.parametrize("name", ["P", "paper8k"])
+def test_packed_kernel_65536_one_byte_segments(dev, name):
+    """A 64 KiB row of 65,536 one-byte streams (G = 65,536: the kernel's
+    scratch no longer fits in shared memory and lies in device memory),
+    beside a row of two long segments around 40,000 empty ones, against
+    the oracle per segment."""
+    p = PARAMS[name]
+    S = 1 << 16
+    rng = np.random.default_rng(5)
+    ones = [rng.integers(0, 256, 1, dtype=np.uint8) for _ in range(S)]
+    empty = np.zeros(0, np.uint8)
+    long_row = ([rng.integers(0, 256, 30000, dtype=np.uint8)]
+                + [empty] * 40000
+                + [rng.integers(0, 256, S - 30000, dtype=np.uint8)])
+    got, *_ = _packed_against_oracle(dev, p, [ones, long_row], S, G=S)
+    assert int(got[1][0]) == S
 
 
 def test_packed_wrapper_rejects_what_the_kernel_does_not_take(dev):
@@ -403,6 +505,29 @@ def test_gear_kernel(dev, n):
         _equal([got], [kgear.gear_hash_parallel(view)])
     if n <= 4096:
         _equal([kgear.gear_hash(x[:n])], [kgear.gear_hash_sequential(x[:n])])
+
+
+#: lengths at the kernel's edges: a lane's 4 positions, a warp's block of
+#: 128, a warp's step of 1024, half and all of a 32-warp CTA's first steps
+#: (16 and 32 KiB), and 2^26 + 7 (persistent CTAs, several steps a warp,
+#: a ragged tail)
+GEAR_LENGTHS = [1, 3, 4, 5, 31, 32, 33, 127, 128, 129, 1023, 1024, 1025,
+                16383, 16384, 16385, 32767, 32768, 32769, (1 << 26) + 7]
+
+
+@pytest.mark.parametrize("n", GEAR_LENGTHS)
+def test_gear_kernel_lengths_and_offsets(dev, n):
+    """The gear kernel against its plain version on an aligned stream and
+    on views off by 1 and 3 bytes (misaligned 4-byte loads), each of n
+    bytes."""
+    host = np.random.default_rng(n + 1).integers(0, 256, n + 3,
+                                                 dtype=np.uint8)
+    x = torch.from_numpy(host).to(dev)
+    for off in (0, 1, 3):
+        view = x[off:off + n]
+        got = kgear.gear_hash(view)
+        torch.cuda.synchronize()
+        _equal([got], [kgear.gear_hash_parallel(view)])
 
 
 @pytest.mark.parametrize("n", [1, 128, 1000, 65536, 70001])

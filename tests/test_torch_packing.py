@@ -18,6 +18,9 @@ each stream what chunking it alone gives:
 
 Every output is an integer: tolerance 0.
 """
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +30,8 @@ import jax.numpy as jnp
 
 import _packing_cases as cases_mod
 
+from repro.core.automaton import max_chunks_for as jmax_chunks_for
+from repro.core.oracle import boundaries_numpy as oracle_boundaries
 from repro.core.params import SeqCDCParams as JParams
 from repro.core.seqcdc import boundaries_packed as jboundaries_packed_row
 from repro.core.seqcdc import boundaries_packed_batch as jboundaries_packed
@@ -60,6 +65,8 @@ def _leave_no_jax_trace():
     yield
     jax.clear_caches()
 
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
 
 PARAMS = {name: JParams(**fields) for name, fields in
           cases_mod.PARAMS.items()}
@@ -120,6 +127,58 @@ def test_boundaries_packed_and_oracle(name):
         p, max_chunks=mc), f"{name} one row")
     oracle = ref.packed_pipeline(data, seg_lens, p, max_chunks=mc)
     _assert_equal(_port_kernel(data, ends, p, mc), oracle, f"{name} oracle")
+
+
+def _chip_mix_operands(mix):
+    """Two rows of ``chip_smoke.py``'s packed phase layout for one segment
+    mix (16 KiB rows, paper 8 KiB parameters), from the script itself."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    S = 16 << 10
+    data, ends, rows = smoke.packed_rows(
+        np.random.default_rng(sum(map(ord, mix))), mix, 2, S)
+    sep = segment_end_positions(torch.from_numpy(ends), S).numpy()
+    streams = [[seg.tobytes() for seg in row] for row in rows]
+    return PAPER, S, data, sep, ends, streams
+
+
+@pytest.mark.parametrize("name", CASES + ("chip all-tiny", "chip 512-2048",
+                                          "chip heavy-tail<16KiB"))
+def test_packed_bounds_are_each_segment_chunked_alone(name):
+    """The two facts the packed kernel's segment-parallel scan rests on,
+    held against the reference: its packed bounds are each segment's own
+    bounds (the oracle on the segment alone) plus the segment's offset,
+    and a segment of l bytes emits at most ``max_chunks_for(l) - 1`` of
+    them, so per-segment slots summing to at most S / min_size + 2G
+    always hold a row's emits.  Also the kernel's shortcut: a segment
+    shorter than min_size is one chunk."""
+    if name.startswith("chip "):
+        p, S, data, sep, ends, streams = _chip_mix_operands(name[5:])
+    else:
+        p, S, streams = _case(name)
+        data, sep, ends, _ = cases_mod.pack(streams, S)
+    G = ends.shape[1]
+    mc = S // p.min_size + 2 * G + 2
+    wb, wc = jboundaries_packed(jnp.asarray(data), jnp.asarray(sep),
+                                jnp.asarray(ends), p, max_chunks=mc)
+    wb, wc = np.asarray(wb), np.asarray(wc)
+    for bi, row in enumerate(streams):
+        alone, off, need = [], 0, 0
+        for seg in row:
+            ob = (oracle_boundaries(np.frombuffer(seg, np.uint8), p)
+                  if seg else np.zeros(0, np.int64))
+            assert len(ob) <= jmax_chunks_for(len(seg), p) - 1
+            if 0 < len(seg) < p.min_size:
+                assert ob.tolist() == [len(seg)]
+            alone.extend((ob + off).tolist())
+            off += len(seg)
+            need += jmax_chunks_for(len(seg), p)
+        need += 2 * (G - len(row))  # the pad entries: empty segments
+        assert need <= S // p.min_size + 2 * G
+        assert int(wc[bi]) == len(alone), f"{name} row {bi}"
+        assert wb[bi, :len(alone)].tolist() == alone, f"{name} row {bi}"
 
 
 @pytest.mark.parametrize("group,tile", [

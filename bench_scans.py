@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the native-scan, select, fused, packed and gear kernels at the
-sizes the paths launch them, on one NVIDIA card.
+"""Time the native-scan, select, fused, packed, gear, masks and fingerprint
+kernels at the sizes the paths launch them, on one NVIDIA card.
 
 Run from the root of a checkout: ``python3 bench_scans.py [--src DIR]
 [--label NAME] [--only GROUPS] [--json FILE]``.  ``--src`` names the
@@ -25,15 +25,28 @@ time, the wrapper's allocations included), after one warm-up call:
   parameters (the sharded service's launched shape), twenty timed calls
   each;
 * the Gear hash (``kernels.gear_hash``) over one 64 MiB stream, ten
-  timed calls.
+  timed calls, and the registry's gear chunker (``make_chunker("gear")``
+  at calibrated 8 KiB knobs, phase 6's call) on its first 16 MiB, twenty
+  calls timed by the host clock (host bytes in, host bounds out);
+* the SeqCDC masks (``kernels.seqcdc_masks``) at paper 8 KiB parameters
+  on 1 MiB x 8 random rows (``chip_smoke.py`` phase 3's shape) and on one
+  64 MiB row (phase 6's seqcdc chunker), twenty and ten timed calls;
+* the fingerprints (``kernels.fingerprint``) over the fused kernel's
+  SeqCDC bounds (paper 8 KiB parameters) on 1 MiB x 8 random rows and on
+  2 MiB x 4, phase 4's widest bucket (objects up to 2 MiB; ``slots=8``
+  capped at 4 rows by the scheduler's 8 MiB batch), twenty timed calls;
+  also its device time with every count 0, the cost of its grid alone
+  (a CTA a slot that reads one count and writes zeros).
 
-The packed and gear rows also give the kernels' device time a call, from
-a ``torch.profiler`` trace (``chip_smoke.device_ms``; the packed one also
-for its scan and hash launches apart): at these sizes a packed call's
-host overhead exceeds its kernels' time.
+The packed, gear, masks and fingerprint rows also give the kernels'
+device time a call, from a ``torch.profiler`` trace
+(``chip_smoke.device_ms``; the packed one also for its scan and hash
+launches apart): at these sizes a call's host overhead can exceed its
+kernels' time.
 
 ``--only`` takes a comma-separated subset of the groups ``select`` (with
-the fused pipeline), ``native``, ``packed`` and ``gear``.
+the fused pipeline), ``native``, ``packed``, ``gear``, ``masks`` and
+``fingerprint``.
 
 Each output's SHA-256 digest is printed, so two trees' outputs can be
 held equal.  ``--sass FILE`` also writes ``cuobjdump -sass`` of the built
@@ -201,22 +214,98 @@ def packed_rows_timed(seed: int) -> dict:
 
 
 def gear_rows(seed: int) -> dict:
+    import time
+
     import numpy as np
     import torch
 
+    from repro_torch.core import make_chunker
+    from repro_torch.core.calibrate import calibrated_kwargs
     from repro_torch.kernels import gear_hash as kgear
 
-    x = torch.from_numpy(np.random.default_rng(seed + 3).integers(
-        0, 256, 64 << 20, dtype=np.uint8)).cuda()
+    host = np.random.default_rng(seed + 3).integers(0, 256, 64 << 20,
+                                                    dtype=np.uint8)
+    x = torch.from_numpy(host).cuda()
     run = lambda: kgear.gear_hash(x)  # noqa: E731
     ms = call_ms(run, 10)
-    return {"gear 64MiB": dict(ms=ms, mean_ms=sum(ms) / len(ms),
-                               device_ms=device_ms(run, 10, "gear_hash_")[0],
-                               digest=digest([run()]))}
+    out = {"gear 64MiB": dict(ms=ms, mean_ms=sum(ms) / len(ms),
+                              device_ms=device_ms(run, 10, "gear_hash_")[0],
+                              digest=digest([run()]))}
+    # the registry's gear chunker as phase 6 calls it (host bytes in, host
+    # bounds out, so the host clock is the call's time)
+    chunker = make_chunker("gear", 8192, device="cuda",
+                           **calibrated_kwargs("gear", 8192))
+    stream = host[: 16 << 20]
+    chunker.chunk(stream)
+    ms = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        bounds = chunker.chunk(stream)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out["gear chunker 16MiB"] = dict(
+        ms=ms, mean_ms=sum(ms) / len(ms),
+        digest=digest([torch.from_numpy(bounds)]))
+    return out
+
+
+def masks_rows(seed: int) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.core.params import paper_params
+    from repro_torch.kernels import seqcdc_masks as kmasks
+
+    p = paper_params(8192)
+    rng = np.random.default_rng(seed + 4)
+    out = {}
+    for label, (B, n, reps) in {"1MiBx8": (8, 1 << 20, 20),
+                                "64MiBx1": (1, 64 << 20, 10)}.items():
+        x = torch.from_numpy(rng.integers(0, 256, (B, n),
+                                          dtype=np.uint8)).cuda()
+        run = lambda: kmasks.seqcdc_masks(  # noqa: E731
+            x, p.seq_length, p.mode)
+        ms = call_ms(run, reps)
+        out[f"masks {label}"] = dict(
+            ms=ms, mean_ms=sum(ms) / len(ms),
+            device_ms=device_ms(run, reps, "seqcdc_masks_kernel")[0],
+            digest=digest(run()))
+    return out
+
+
+def fingerprint_rows(seed: int) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.core.automaton import max_chunks_for
+    from repro_torch.core.params import paper_params
+    from repro_torch.kernels import fingerprint as kfp
+    from repro_torch.kernels import fused_pipeline as kfused
+
+    p = paper_params(8192)
+    rng = np.random.default_rng(seed + 5)
+    out = {}
+    for label, (B, n) in {"1MiBx8": (8, 1 << 20),
+                          "2MiBx4": (4, 2 << 20)}.items():
+        x = torch.from_numpy(rng.integers(0, 256, (B, n),
+                                          dtype=np.uint8)).cuda()
+        mc = max_chunks_for(n, p)
+        b, c = kfused.fused_pipeline_batch(x, p, max_chunks=mc)[:2]
+        run = lambda: kfp.chunk_fingerprints(  # noqa: E731
+            x, b, c, max_chunks=mc)
+        ms = call_ms(run, 20)
+        zero = torch.zeros_like(c)  # every slot past its row's count
+        out[f"fingerprint {label}"] = dict(
+            ms=ms, mean_ms=sum(ms) / len(ms),
+            device_ms=device_ms(run, 20, "fingerprint_kernel")[0],
+            empty_device_ms=device_ms(lambda: kfp.chunk_fingerprints(
+                x, b, zero, max_chunks=mc), 20, "fingerprint_kernel")[0],
+            chunks=int(c.sum()), digest=digest(run()))
+    return out
 
 
 GROUPS = {"select": select_rows, "native": native_rows,
-          "packed": packed_rows_timed, "gear": gear_rows}
+          "packed": packed_rows_timed, "gear": gear_rows,
+          "masks": masks_rows, "fingerprint": fingerprint_rows}
 
 
 def main(argv=None) -> int:
@@ -255,6 +344,9 @@ def main(argv=None) -> int:
                 extra += (f": scan {r['scan_device_ms']:.5f}, hash "
                           f"{r['hash_device_ms']:.5f}")
             extra += ")"
+        if r.get("empty_device_ms") is not None:
+            extra += (f", counts 0: device {r['empty_device_ms']:.5f} ms a "
+                      f"call")
         print(f"{args.label}: {name}: mean {r['mean_ms']:.4f} ms (calls "
               + ", ".join(f"{t:.4f}" for t in r["ms"])
               + f"){extra}; digest {r['digest']}", flush=True)

@@ -19,9 +19,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It drives only
    seven algorithms); at the sizes phase 6 launches them, the native scan
    on one 16 MiB stream for each algorithm (bit-equal to the vectorized
    chunker of its pair, three timed calls, the SM clock sampled during
-   them and cycles a byte) and the select kernel on one 64 MiB SeqCDC row
-   (bit-equal to the fused kernel's bounds) and one 16 MiB gear selector
-   row (bit-equal to ``select_numpy``); every output bit-equal, rows
+   them and cycles a byte), the masks kernel on one 64 MiB row (bit-equal
+   to its plain version) and the select kernel on its bitmaps (bit-equal to
+   the fused kernel's bounds) and on one 16 MiB gear selector row
+   (bit-equal to ``select_numpy``); every output bit-equal, rows
    spot-checked against the numpy oracle, kernel, plain and (block max)
    library times, and the least time the card could take (its bound); the
    plain gather and event automaton steps, once each on a 4 MiB SeqCDC
@@ -666,13 +667,14 @@ LAUNCHED_SEQCDC = 64 << 20
 
 
 def launched_phase(seed: int) -> dict:
-    """The native scan and select kernels at the sizes phase 6 launches
-    them.  Each native algorithm on one 16 MiB stream as its ``_seq``
+    """The native scan, masks and select kernels at the sizes phase 6
+    launches them.  Each native algorithm on one 16 MiB stream as its ``_seq``
     chunker calls it (calibrated 8 KiB knobs), held against the bounds of
     the vectorized chunker of its pair, then three timed calls with the SM
-    clock sampled during them; the select kernel on one 64 MiB SeqCDC row
-    (paper 8 KiB parameters, the masks kernel's bitmaps) held against the
-    fused kernel's bounds, and on one 16 MiB gear selector row held against
+    clock sampled during them; the masks kernel on one 64 MiB row (paper 8
+    KiB parameters) held against its plain version, then ten traced calls;
+    the select kernel on that row's bitmaps held against the fused kernel's
+    bounds, and on one 16 MiB gear selector row held against
     ``select_numpy``."""
     import numpy as np
     import torch
@@ -722,6 +724,18 @@ def launched_phase(seed: int) -> dict:
     p = paper_params(8192)
     x = stream[None]
     cand, opp = kmasks.seqcdc_masks(x, p.seq_length, p.mode)
+    want = kmasks.seqcdc_masks_plain(x, p.seq_length, p.mode)
+    torch.cuda.synchronize()
+    if max_abs_err((cand, opp), want):
+        raise AssertionError("seqcdc_masks on a 64 MiB row differs from its "
+                             "plain version")
+    bms, by = bound_ms(3 * LAUNCHED_SEQCDC, p.seq_length * LAUNCHED_SEQCDC)
+    out["seqcdc_masks seqcdc row"] = timed(dict(
+        shape=f"1x{LAUNCHED_SEQCDC} SeqCDC", chunks=None, max_abs_err=0,
+        bound_ms=bms, bound_by=by,
+        **kernel_times(lambda: kmasks.seqcdc_masks(x, p.seq_length, p.mode),
+                       10, "seqcdc_masks_kernel")))
+    del want
     mc = max_chunks_for(LAUNCHED_SEQCDC, p)
     got = kselect.select_boundaries(cand, opp, LAUNCHED_SEQCDC, p,
                                     max_chunks=mc)
@@ -1515,10 +1529,14 @@ def main(argv=None) -> int:
                 f"{t:.2f}" for t in r["calls_ms"]) + " ms"
         check = ("bit-equal to its pair's vectorized chunker"
                  if name.startswith("native") else
+                 "bit-equal to its plain version"
+                 if name.startswith("seqcdc_masks") else
                  "bit-equal to the fused kernel's bounds"
                  if "seqcdc" in name else "bit-equal to select_numpy")
-        log(f"kernel {name} at its launched size ({r['shape']}, "
-            f"{r['chunks']} chunks): {check}, {r['ms']:.4f} ms "
+        chunks = (f", {r['chunks']} chunks" if r["chunks"] is not None
+                  else "")
+        log(f"kernel {name} at its launched size ({r['shape']}"
+            f"{chunks}): {check}, {r['ms']:.4f} ms "
             f"({r['ms_source']}){clock}, bound {r['bound_ms']:.6f} ms "
             f"({r['bound_by']})")
     st = reg["steps"]
@@ -1701,6 +1719,9 @@ def main(argv=None) -> int:
         select_boundaries.KERNEL: {
             r["shape"]: r["ms"] for name, r in launched.items()
             if name.startswith("select")},
+        seqcdc_masks.KERNEL: {
+            r["shape"]: r["ms"] for name, r in launched.items()
+            if name.startswith("seqcdc_masks")},
     }
     rows = []
     for k in KERNELS:

@@ -51,7 +51,11 @@ def _pow_table_np(r: int, size: int = MAX_CHUNK) -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def pow_tables(device: str, dtype: torch.dtype = torch.int64) -> torch.Tensor:
     """``(2, MAX_CHUNK)`` ``r^e mod p`` for (R1, R2) on ``device``.  Every
-    entry is below 2^31, so int32 holds it exactly (the CUDA kernels' form)."""
+    entry is below 2^31, so int32 holds it exactly (the CUDA kernels' form).
+
+    One cached tensor a (device, dtype): the kernel wrappers call this on
+    every launch and copy nothing after the first.  Callers treat it as
+    read-only."""
     t = np.stack([_pow_table_np(R1), _pow_table_np(R2)]).astype(np.int64)
     return torch.from_numpy(t).to(device=device, dtype=dtype).contiguous()
 

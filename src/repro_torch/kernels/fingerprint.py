@@ -1,14 +1,17 @@
 """CUDA kernel: per-chunk 62-bit fingerprints.
 
 Replaces ``repro/kernels/fingerprint.py:fingerprint_pallas``.  The kernel
-(``csrc/fingerprint.cu``) runs one warp per chunk slot and sums
-``b_i * r^(e-1-i)`` against the reference's power table, which stays in
-L2; it is memory-bound, each byte read once.  Its plain version is
+(``csrc/fingerprint.cu``) runs one CTA per chunk slot and cuts the chunk
+into 64-byte pieces, each summed against constant weights ``r^(63-q)`` and
+scaled by one factor of :func:`piece_factors` (every 64th power); the
+chunk's ragged ends take the reference's power table byte by byte.  It is
+memory-bound, each byte read once.  Its plain version is
 ``dedup.fingerprint.chunk_fingerprints_torch``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -21,9 +24,20 @@ from ._build import Kernel
 
 KERNEL = Kernel(
     "fingerprint",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int],
+    [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int],
     replaces="src/repro/kernels/fingerprint.py:122",
 )
+
+#: bytes a piece of the kernel (``kPiece`` in ``csrc/fingerprint.cu``)
+PIECE = 64
+
+
+@functools.lru_cache(maxsize=None)
+def piece_factors(device: str) -> torch.Tensor:
+    """``(2, MAX_CHUNK // 64)`` int32 ``r^(64 k) mod p`` for (R1, R2) on
+    ``device``: the kernel's factor a 64-byte piece.  One cached tensor a
+    device; read-only."""
+    return pow_tables(device, torch.int32)[:, ::PIECE].contiguous()
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple):
@@ -61,10 +75,12 @@ def chunk_fingerprints(data: torch.Tensor, bounds: torch.Tensor,
     if B * mc == 0:
         return fps, lens
     pw = pow_tables(str(dev), torch.int32)
+    pw64 = piece_factors(str(dev))
     with torch.cuda.device(dev):
         KERNEL.launch(
             data.data_ptr(), bounds.data_ptr(), counts.data_ptr(),
-            pw.data_ptr(), fps.data_ptr(), lens.data_ptr(), B, S, mc,
+            pw.data_ptr(), pw64.data_ptr(), fps.data_ptr(), lens.data_ptr(),
+            B, S, mc,
             stream=torch.cuda.current_stream(dev).cuda_stream,
         )
     return fps, lens

@@ -53,6 +53,15 @@ def gear_table(seed: int = 0x9E3779B1) -> np.ndarray:
     return _gear_table_np(seed)
 
 
+@functools.lru_cache(maxsize=16)
+def _device_table(device: str, words: bytes) -> torch.Tensor:
+    """A 256-entry Gear table (its uint32 words as bytes) on ``device`` as
+    int32, the kernel's form: one cached tensor a (device, table), so a
+    call copies no table to the card; read-only."""
+    t = np.frombuffer(words, dtype=np.int32).copy()
+    return torch.from_numpy(t).to(device)
+
+
 def _gear_values(data: torch.Tensor, table: np.ndarray | None):
     t = gear_table() if table is None else np.asarray(table, np.uint32)
     t = torch.from_numpy(t.astype(np.int64)).to(data.device)
@@ -100,7 +109,7 @@ def gear_hash(data: torch.Tensor,
                          f"{tuple(data.shape)}")
     x = data.contiguous()
     t = gear_table() if table is None else np.asarray(table, np.uint32)
-    t = torch.from_numpy(t.view(np.int32).copy()).to(x.device)
+    t = _device_table(str(x.device), t.tobytes())
     out = torch.empty(x.shape, dtype=torch.uint32, device=x.device)
     if x.numel() == 0:
         return out

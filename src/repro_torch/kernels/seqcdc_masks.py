@@ -3,7 +3,10 @@
 Replaces ``repro/kernels/seqcdc_masks.py:seqcdc_masks_pallas``.  The
 kernel (``csrc/seqcdc_masks.cu``) is memory-bound: 1 byte read and 2
 written per position, so its least time on an H100 is ``3 * B * S`` bytes
-at 3.35 TB/s.  Its plain version is ``core.masks.seqcdc_masks``.
+at 3.35 TB/s.  Up to ``seq_length`` 49 a thread takes 16 positions as bit
+masks (the candidate run by log-doubling over a 64-bit window); longer
+runs take a second kernel, one thread per 4 positions.  Its plain version
+is ``core.masks.seqcdc_masks``.
 """
 from __future__ import annotations
 
@@ -42,6 +45,8 @@ def seqcdc_masks(data: torch.Tensor, seq_length: int,
         )
     if mode not in ("increasing", "decreasing"):
         raise ValueError(mode)
+    if seq_length < 2:
+        raise ValueError(f"seq_length must be at least 2, got {seq_length}")
     x = data.contiguous()
     B, S = (1, x.shape[0]) if x.ndim == 1 else x.shape
     cand = torch.empty_like(x, dtype=torch.bool)

@@ -155,6 +155,80 @@ def test_mask_kernel_wrapper_matches_pallas(n, rng):
     np.testing.assert_array_equal(o1.numpy(), np.asarray(wo))
 
 
+def _shift_zero(w: torch.Tensor, c: int) -> torch.Tensor:
+    """``w >> c`` on bit windows stored as bool columns (bit 0 first)."""
+    out = torch.zeros_like(w)
+    if c < w.shape[1]:
+        out[:, : w.shape[1] - c] = w[:, c:]
+    return out
+
+
+def _run_and(w: torch.Tensor, n: int) -> torch.Tensor:
+    """Bit q of the result is the AND of bits q..q+n-1 of ``w``, by
+    log-doubling then one last shift: csrc/seqcdc_masks.cu ``run_and``."""
+    c = 1
+    while 2 * c <= n:
+        w = w & _shift_zero(w, c)
+        c *= 2
+    if c < n:
+        w = w & _shift_zero(w, n - c)
+    return w
+
+
+def _masks_by_windows(d: np.ndarray, L: int, mode: str, m: int):
+    """The masks kernel's arithmetic in torch: the (B, S) batch as one flat
+    stream starting m bytes past a 16-byte boundary; block t holds flat
+    bytes [16t - m, 16t - m + 16) (zero outside the stream) and gives 16
+    forward and 16 opposing pair bits; output lane t's window is the next
+    five blocks' forward bits shifted down by m, its candidates the
+    log-doubled AND of L - 1 window bits, its opposing bits blocks t and t+1
+    shifted by m; row tails are zeroed by position mod S.  The kernel's
+    window is 64 bits (L - 1 <= 48); a longer L takes as many blocks as it
+    needs here."""
+    B, S = d.shape
+    N = B * S
+    T = -(-N // 16)  # output lanes
+    ahead = max(4, -(-(15 + L - 1) // 16))  # blocks a window reads
+    buf = torch.zeros(16 * (T + ahead + 2), dtype=torch.int16)
+    buf[m: m + N] = torch.from_numpy(d.reshape(-1).astype(np.int16))
+    gt = buf[1:] > buf[:-1]
+    lt = buf[1:] < buf[:-1]
+    fwd, opp = (gt, lt) if mode == "increasing" else (lt, gt)
+    blocks = T + ahead + 1
+    F = fwd[: 16 * blocks].view(blocks, 16)  # F[t, j]: pair at 16t - m + j
+    O = opp[: 16 * blocks].view(blocks, 16)
+    cat = torch.cat([F[k: k + T] for k in range(ahead + 1)], dim=1)
+    width = 64 if L - 1 <= 48 else 16 * ahead
+    win = cat[:, m: m + width]
+    cand = _run_and(win, L - 1)[:, :16]
+    o = torch.cat([O[:T], O[1: T + 1]], dim=1)[:, m: m + 16]
+    k = torch.arange(16 * T).view(T, 16)
+    r = k % S
+    cand = (cand & (r + L <= S)).reshape(-1)[:N].view(B, S)
+    o = (o & (r + 2 <= S)).reshape(-1)[:N].view(B, S)
+    return cand, o
+
+
+@pytest.mark.parametrize("L", [2, 5, 16, 17, 18, 33, 49, 64])
+@pytest.mark.parametrize("mode", ["increasing", "decreasing"])
+def test_mask_kernel_bit_windows_match_pallas(L, mode, rng):
+    """The identities the masks kernel rests on (a flat stream with
+    row-tail masks, blocks aligned to the input's memory with the window
+    shifted by the offset, the log-doubled AND run) give the Pallas
+    kernel's bitmaps (interpret mode), row by row, at rows shorter and
+    longer than a block and at offsets 0, 3 and 13 from 16 bytes."""
+    for S in (7, 700):
+        d = adversarial_rows(rng, S)
+        want = [seqcdc_masks_pallas(jnp.asarray(row), L, mode,
+                                    interpret=True) for row in d]
+        for m in (0, 3, 13):
+            cand, opp = _masks_by_windows(d, L, mode, m)
+            for i, (wc, wo) in enumerate(want):
+                np.testing.assert_array_equal(cand[i].numpy(),
+                                              np.asarray(wc))
+                np.testing.assert_array_equal(opp[i].numpy(), np.asarray(wo))
+
+
 # -- phase 2: the automaton through boundaries_batch -----------------------------
 
 def _assert_batch_parity(d: np.ndarray, p, mc: int | None = None):

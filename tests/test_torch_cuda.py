@@ -92,6 +92,99 @@ def test_masks_kernel(dev, n, L, mode):
            kmasks.seqcdc_masks_plain(x[0], L, mode))
 
 
+def _offset_view(dev, host: np.ndarray, off: int, rng) -> torch.Tensor:
+    """``host`` (B, n) on the card as a view that starts ``off`` bytes past
+    a 16-byte boundary, random bytes before and after it."""
+    flat = rng.integers(0, 256, off + host.size + 32, dtype=np.uint8)
+    flat[off: off + host.size] = host.ravel()
+    return torch.from_numpy(flat).to(dev)[off: off + host.size].view(
+        host.shape)
+
+
+@pytest.mark.parametrize("L", [2, 5, 16, 17, 18, 33, 49, 64])
+@pytest.mark.parametrize("n", [15, 16, 17, 31, 32, 33, 511, 512, 513, 4099,
+                               70001])
+def test_masks_kernel_windows_offsets_and_long_runs(dev, L, n):
+    """Runs up to the 64-bit window's 48 pairs and past it (L = 64 takes
+    the second kernel), rows shorter and longer than a block, a warp and a
+    CTA's span, batches of 1 and 5 rows starting 0, 1 and 3 bytes off 16:
+    random, constant, both ramps and a 4-value row."""
+    rng = np.random.default_rng(100 * n + L)
+    idx = np.arange(n)
+    host = np.stack([rng.integers(0, 256, n, dtype=np.uint8),
+                     np.full(n, 0x5A, np.uint8),
+                     (idx % 256).astype(np.uint8),
+                     (255 - idx % 256).astype(np.uint8),
+                     rng.integers(0, 4, n, dtype=np.uint8)])
+    for B in (1, 5):
+        for off in (0, 1, 3):
+            x = _offset_view(dev, host[:B], off, rng)
+            for mode in ("increasing", "decreasing"):
+                _equal(kmasks.seqcdc_masks(x, L, mode),
+                       kmasks.seqcdc_masks_plain(x, L, mode))
+
+
+def _fingerprint_cases(rng):
+    """(host, bounds, counts, mc): chunks of 1-47 bytes (bounds at every
+    residue mod 16) beside a count=0 row; a 65,536-byte chunk, one of
+    200,000 (past the clamp) and a 5-byte one; an undersized table."""
+    cuts = np.cumsum(rng.integers(1, 48, 700))
+    assert set(cuts % 16) == set(range(16))
+    n = int(cuts[-1])
+    b = np.full((2, len(cuts) + 2), 1 << 30, np.int32)
+    b[0, : len(cuts)] = cuts
+    yield (rng.integers(0, 256, (2, n), dtype=np.uint8), b,
+           np.array([len(cuts), 0]), len(cuts) + 2)
+    n = 65536 + 200_000 + 5
+    yield (rng.integers(0, 256, (1, n), dtype=np.uint8),
+           np.array([[65536, 265536, n, 1 << 30]], np.int32),
+           np.array([3]), 4)
+    yield (np.full((1, n), 0xFF, np.uint8),
+           np.array([[65536, 265536, n, 1 << 30]], np.int32),
+           np.array([3]), 4)
+    yield (rng.integers(0, 256, (3, 9000), dtype=np.uint8),
+           np.array([[1000, 9000], [4000, 8000], [70, 1 << 30]], np.int32),
+           np.array([2, 2, 0]), 2)
+
+
+@pytest.mark.parametrize("off", [0, 1, 3])
+def test_fingerprint_kernel_pieces_ends_and_clamp(dev, off):
+    """The kernel's 16-byte pieces against the plain version: chunk ends
+    at every residue mod 16, chunks shorter than a piece, a 64 KiB chunk
+    and one past the clamp, count=0 rows and an undersized table, with
+    rows 0, 1 and 3 bytes off 16."""
+    rng = np.random.default_rng(off)
+    for host, bounds, counts, mc in _fingerprint_cases(rng):
+        x = _offset_view(dev, host, off, rng)
+        b = torch.from_numpy(bounds).to(dev)
+        c = torch.from_numpy(counts.astype(np.int32)).to(dev)
+        got = kfp.chunk_fingerprints(x, b, c, max_chunks=mc)
+        want = kfp.chunk_fingerprints_plain(x, b, c, max_chunks=mc)
+        torch.cuda.synchronize()
+        _equal(got, want)
+
+
+def test_fingerprint_kernel_on_seqcdc_bounds_at_1mib_x8(dev):
+    """Phase 3's shape: 8 random 1 MiB rows over their SeqCDC bounds
+    (paper 8 KiB parameters), every row against fingerprints_numpy."""
+    p = PARAMS["paper8k"]
+    host = np.random.default_rng(8).integers(0, 256, (8, 1 << 20),
+                                             dtype=np.uint8)
+    x = torch.from_numpy(host).to(dev)
+    mc = max_chunks_for(host.shape[1], p)
+    b, c = kfused.fused_pipeline_batch(x, p, max_chunks=mc)[:2]
+    fps, lens = kfp.chunk_fingerprints(x, b, c, max_chunks=mc)
+    torch.cuda.synchronize()
+    bounds, counts = b.cpu().numpy(), c.cpu().numpy()
+    fps = fps.cpu().numpy()
+    for r in range(8):
+        ob = bounds[r, : counts[r]]
+        assert ob.tolist() == boundaries_numpy(host[r], p).tolist()
+        np.testing.assert_array_equal(fps[r, : counts[r]],
+                                      fingerprints_numpy(host[r], ob))
+        assert not fps[r, counts[r]:].any()
+
+
 @pytest.mark.parametrize("name", sorted(PARAMS))
 @pytest.mark.parametrize("n", [1, 64, 5000, 40000])
 def test_fused_and_fingerprint_kernels(dev, name, n):

@@ -30,7 +30,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It drives only
    its only path; the flash
    attention kernel at llama3.2-1b's serving shapes (1 x 2048 and 4096
    tokens, 32 query and 8 KV heads of width 64, causal, bfloat16 and
-   float32) and one small ragged case each for the full mask and a local
+   float32), at phase 9's training shape (a microbatch of 2 x 2048,
+   bfloat16) and one small ragged case each for the full mask and a local
    window, with its error beside the stated tolerance, kernel, plain and
    SDPA times and its bound, and the count of tensor-core instructions
    (``HMMA``/``HGMMA``) in the built flash library's bfloat16 and float32
@@ -72,12 +73,40 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It drives only
    prompt's last-token logits on the flash route against the materialised
    route (plain torch), in bfloat16 and in float32 with TF32 off, within
    the stated tolerance and with the same argmax;
-8. the ``kernels`` JSON line, then the result line.
+8. the scenarios: the four catalog scenarios at the quick budget through
+   ``DedupService(device="cuda")`` at ``bench_scenarios.py``'s settings
+   (``bench_params``, zlib, fingerprints on, 8 slots, packing off), every
+   object restored SHA-verified, dedup and compressed ratios equal to
+   ``BENCH_quick.json``'s to the last digit; again at the full budget for
+   ingest and restore MB/s (recorded, not gated: the median of repeated
+   runs, each a new service, until each window holds 1.5 s); the
+   all-tiny occupancy draw through the scheduler, packing off and on,
+   equal to its pins;
+9. the dedup data pipeline and training: ``DedupIngest`` (avg 8192, 1 MiB
+   segments x 8) over ``load_dataset("DEB", 64)``, MB/s and savings, the
+   first 8 MiB's unique bytes (SHA-256) equal to the port's CPU run, the
+   MB/s the median of passes repeated until they fill 2 s; then
+   ``Trainer`` at the published llama3.2-1b configuration (16 layers, bf16,
+   remat full, microbatch 4), random weights from the seed, AdamW, 4
+   steps of 8 x 2048 tokens of the ingest's unique bytes: step ms,
+   tokens/s, peak GB, loss and grad norm a step (finite), and the flash
+   kernel's launches (each layer's forward and its remat recompute, the
+   backward recomputing the plain loop), and one more step traced for
+   its device time by kernel group; then the restart check at the
+   same widths with the depth cut to 8 layers, under deterministic
+   algorithms, in a child process of this script that alone has
+   ``CUBLAS_WORKSPACE_CONFIG=:4096:8``: 4 steps with a checkpoint every 2
+   through the CDC store (SeqCDC at avg 1 MiB on the card), once unbroken
+   and once resumed from step 2's checkpoint, final parameters and
+   optimizer state bit-equal, save and restore MB/s and the store's dedup
+   savings;
+10. the ``kernels`` JSON line, then the result line.
 
-The launch counts are set to 0 before the block-max op in phase 3 and
-before phases 4, 5, 6 and 7, and read after each; every kernel must launch
-in one of them, and each phase must launch the kernels of its own path.
-The ``kernels`` line sums them.
+The launch counts are set to 0 before the block-max op in phase 3, before
+phases 4, 5, 6, 7 and 8, and before phase 9's ingest and its training
+run, and read after each; every kernel must launch in one of them, and
+each phase must launch the kernels of its own path.  The ``kernels`` line
+sums them.
 
 It exits non-zero, with no result line, without a CUDA card, outside a
 checkout of the repo, or when any phase fails.
@@ -797,10 +826,12 @@ def block_max_path(seed: int, n: int, kernels) -> dict:
 
 #: (label, B, S, H, KV, hd, dtype, causal, window): the serving shapes of
 #: llama3.2-1b (32 query and 8 KV heads of width 64) at the two prompt
-#: lengths that take the flash route, and one small ragged case each for
-#: the full (non-causal) mask and a local window
+#: lengths that take the flash route, phase 9's training shape (batch 8
+#: in microbatches of 4 gives 2 rows of 2048), and one small ragged case
+#: each for the full (non-causal) mask and a local window
 FLASH_CASES = [
     ("S2048 bf16", 1, 2048, 32, 8, 64, "bfloat16", True, 0),
+    ("S2048 bf16 B2", 2, 2048, 32, 8, 64, "bfloat16", True, 0),
     ("S4096 bf16", 1, 4096, 32, 8, 64, "bfloat16", True, 0),
     ("S2048 f32", 1, 2048, 32, 8, 64, "float32", True, 0),
     ("S4096 f32", 1, 4096, 32, 8, 64, "float32", True, 0),
@@ -1420,11 +1451,491 @@ def serving_phase(seed: int, kernels) -> dict:
         busy_kernels_per_step=kernels / n_busy)
 
 
+# -- phase 8: the scenarios through the service -----------------------------
+
+#: ``BENCH_quick.json``'s scenario rows (results 25-28): dedup and
+#: compressed ratios at the quick budget, ``bench_scenarios.py``'s settings
+SCENARIO_RATIOS = {
+    "dataset_revisions": (2.7341425166358384, 7.719705489251712),
+    "backup_snapshots": (2.895766562398641, 4.386469361774329),
+    "lm_text": (1.6187743840612376, 4.071229115351285),
+    "container_images": (2.2393782438748313, 3.9257803259661643),
+}
+#: ``BENCH_quick.json`` results 11 and 15 (``tests/test_occupancy.py``):
+#: the all-tiny draw's occupancy, packing off and on
+OCCUPANCY = {"off": 0.03356202260073905, "segments": 0.8951437356588724}
+#: the budget the throughput is taken at (12-84 MB a corpus), and the
+#: seconds each of its ingest and restore windows must hold: a run is
+#: repeated, each time through a new service, until both are reached (at
+#: least 3 runs, at most 25), and the median run's MB/s is reported
+SCENARIO_TIMED_BUDGET = "full"
+SCENARIO_WINDOW_S = 1.5
+
+
+def scenario_run(name: str, corpus) -> dict:
+    """``corpus`` of scenario ``name`` through ``DedupService(device=
+    "cuda")`` at ``bench_scenarios.py``'s settings (``bench_params``, zlib,
+    fingerprints on, 8 slots, packing off; the port's fused pipeline),
+    every object restored SHA-verified."""
+    import torch
+
+    from repro_torch.scenarios import bench_params
+    from repro_torch.service import DedupService
+
+    budget = corpus.budget
+    total = corpus.logical_bytes
+    svc = DedupService(params=bench_params(name, budget), device="cuda",
+                       slots=8, packing_impl="off", codec="zlib")
+    t0 = time.perf_counter()
+    for obj_name, data in corpus.objects:
+        svc.submit(obj_name, data)
+    svc.flush()
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for obj_name, data in corpus.objects:
+        if svc.get(obj_name) != data.tobytes():  # SHA-256 verified
+            raise AssertionError(f"{name}/{obj_name}: restore differs")
+    restore_s = time.perf_counter() - t0
+    st = svc.stats()
+    return dict(budget=budget, bytes=total, objects=len(corpus.objects),
+                ingest_s=ingest_s, restore_s=restore_s,
+                ingest_mb_s=total / ingest_s / 1e6,
+                restore_mb_s=total / restore_s / 1e6,
+                dedup_ratio=st.dedup_ratio,
+                compressed_ratio=st.compressed_ratio,
+                chunks=st.total_chunks, unique_chunks=st.unique_chunks,
+                in_band=corpus.expected.check_ratio(st.dedup_ratio))
+
+
+def scenario_timed(name: str, budget: str) -> dict:
+    """``scenario_run`` repeated on one corpus until its ingest and its
+    restore windows each hold SCENARIO_WINDOW_S: the median run's MB/s,
+    the range, the runs and the windows; every run's ratios equal."""
+    import statistics
+
+    from repro_torch.scenarios import corpus_digest, generate
+
+    corpus = generate(name, budget)
+    runs = []
+    while len(runs) < 25 and (len(runs) < 3 or min(
+            sum(r[k] for r in runs) for k in ("ingest_s", "restore_s"))
+            < SCENARIO_WINDOW_S):
+        runs.append(scenario_run(name, corpus))
+    ratios = {(r["dedup_ratio"], r["compressed_ratio"]) for r in runs}
+    if len(ratios) != 1:
+        raise AssertionError(f"{name} {budget}: ratios differ between "
+                             f"runs: {sorted(ratios)}")
+    out = dict(runs[0], digest=corpus_digest(corpus), runs=len(runs))
+    for k in ("ingest", "restore"):
+        mb_s = [r[f"{k}_mb_s"] for r in runs]
+        out.update({f"{k}_mb_s": statistics.median(mb_s),
+                    f"{k}_mb_s_range": (min(mb_s), max(mb_s)),
+                    f"{k}_window_s": sum(r[f"{k}_s"] for r in runs)})
+    return out
+
+
+def all_tiny_occupancy(packing_impl: str) -> dict:
+    """``bench_scheduler_occupancy.py``'s all-tiny draw at the quick
+    budget (2 MiB of 100-999 B streams from seed 17) through the port's
+    scheduler on the card, fingerprints on (the port's default; the
+    occupancy, a property of batching, is the same either way)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.params import derived_params
+    from repro_torch.service import ChunkScheduler
+
+    rng = np.random.default_rng(17)
+    lengths, acc = [], 0
+    while acc < 2 << 20:
+        n = int(rng.integers(100, 1000))
+        lengths.append(n)
+        acc += n
+    sched = ChunkScheduler(derived_params(8192), device="cuda", slots=8,
+                           packing_impl=packing_impl)
+    payload = rng.integers(0, 256, int(sum(lengths)), dtype=np.uint8)
+    t0 = time.perf_counter()
+    off = 0
+    for n in lengths:
+        sched.submit(payload[off:off + n])
+        off += n
+    if len(sched.drain()) != len(lengths):
+        raise AssertionError("the scheduler lost streams")
+    torch.cuda.synchronize()
+    st = sched.stats
+    return dict(occupancy=st.occupancy, streams=len(lengths),
+                dispatches=st.dispatches, packed_streams=st.packed_streams,
+                s=time.perf_counter() - t0)
+
+
+def scenario_phase(kernels) -> dict:
+    """The four scenarios at the quick budget through the service on the
+    card (their ratios must equal ``BENCH_quick.json``'s), again at
+    SCENARIO_TIMED_BUDGET for throughput (``scenario_timed``), then the
+    all-tiny occupancy rerun, packing off and on; the launch counts set to
+    0 just before and read just after."""
+    from repro_torch.scenarios import corpus_digest, generate
+
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    quick = {}
+    for name in SCENARIO_RATIOS:
+        corpus = generate(name, "quick")
+        quick[name] = dict(scenario_run(name, corpus),
+                           digest=corpus_digest(corpus))
+    timed_runs = {name: scenario_timed(name, SCENARIO_TIMED_BUDGET)
+                  for name in SCENARIO_RATIOS}
+    occ = {mode: all_tiny_occupancy(mode) for mode in OCCUPANCY}
+    launches = {k.name: k.launches for k in kernels}
+    for name, (dedup, compressed) in SCENARIO_RATIOS.items():
+        r = quick[name]
+        if (r["dedup_ratio"], r["compressed_ratio"]) != (dedup, compressed):
+            raise AssertionError(
+                f"{name}: ratios {r['dedup_ratio']!r}, "
+                f"{r['compressed_ratio']!r}, not BENCH_quick.json's "
+                f"{dedup!r}, {compressed!r}")
+    for name, r in {**quick, **{f"{n} {SCENARIO_TIMED_BUDGET}": r for n, r
+                                in timed_runs.items()}}.items():
+        if not r["in_band"]:
+            raise AssertionError(f"{name}: dedup ratio {r['dedup_ratio']} "
+                                 f"outside the scenario's contract band")
+    for mode, want in OCCUPANCY.items():
+        if occ[mode]["occupancy"] != want:
+            raise AssertionError(f"all-tiny occupancy, packing {mode}: "
+                                 f"{occ[mode]['occupancy']!r}, not {want!r}")
+    return dict(quick=quick, timed=timed_runs, occupancy=occ,
+                launches=launches, s=time.perf_counter() - t0)
+
+
+# -- phase 9: the dedup data pipeline and training at full width -------------
+
+#: DedupIngest on the DEB-like corpus: MiB, the prefix held against the
+#: port's CPU run, and the seconds its timing window must hold (the pass
+#: repeated, each a new DedupIngest, the median pass's MB/s reported)
+INGEST_MB = 64
+INGEST_CHECK_MB = 8
+INGEST_WINDOW_S = 2.0
+TRAIN_STEPS = 4
+TRAIN_BATCH = 8
+TRAIN_SEQ = 2048
+#: the restart check: llama3.2-1b's widths, its depth cut to this many
+#: layers (the 128,256 x 2048 embedding stays whole), 4 steps with a
+#: checkpoint every 2; 8 of 16 layers keeps phase 9 under 4 minutes (each
+#: layer adds 0.61 GB of state to each of 4 saves and a restore)
+RESTART_LAYERS = 8
+RESTART_STEPS = 4
+RESTART_EVERY = 2
+#: the restart check's checkpoint chunks: avg 1 MiB (the store's default
+#: is 64 KiB).  The store writes a file a unique chunk; at 64 KiB a state
+#: of several GB is tens of thousands of files a save, and the file count,
+#: not the chunking, sets the save time
+CHECKPOINT_AVG = 1 << 20
+#: the restart check runs in a child process of this script (so that
+#: CUBLAS_WORKSPACE_CONFIG, which cuBLAS reads once, holds for it alone);
+#: the seconds it may take
+RESTART_TIMEOUT_S = 600
+
+
+def ingest_run(corpus, device: str):
+    """Unique bytes of ``DedupIngest`` (avg 8192, 1 MiB segments x 8) on
+    ``corpus``: (unique chunks, savings, seconds)."""
+    import torch
+
+    from repro_torch.data import DedupIngest, PipelineConfig
+
+    ing = DedupIngest(PipelineConfig(avg_chunk=8192, segment_bytes=1 << 20,
+                                     batch_segments=8), device=device)
+    t0 = time.perf_counter()
+    chunks = list(ing.unique_bytes(corpus))
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return chunks, ing.savings, time.perf_counter() - t0
+
+
+def sha256_of(chunks) -> str:
+    """SHA-256 of the chunks' bytes, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for u in chunks:
+        h.update(u.tobytes())
+    return h.hexdigest()
+
+
+#: device kernels of a traced training step, by name: matrix products
+#: (cuBLAS/CUTLASS), the flash kernel, the rest (elementwise, reductions,
+#: the plain attention recompute's softmax, the optimizer)
+STEP_KERNEL_GROUPS = (("matmul", ("gemm", "xmma", "nvjet", "cutlass")),
+                      ("flash", ("flash_attn",)))
+
+
+def traced_step(trainer, params, opt_state, step: int) -> dict:
+    """One more training step traced with ``torch.profiler``: its wall
+    ms, the device ms by kernel group, and the device's busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = trainer.batch_at(step)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = trainer.train_step(params, opt_state, batch)
+        float(out[2]["loss"])
+        wall = time.perf_counter() - t0
+    del out
+    groups = {name: 0.0 for name, _ in STEP_KERNEL_GROUPS}
+    groups["other"] = 0.0
+    kernels = 0
+    top = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0.0) or getattr(
+            ev, "self_cuda_time_total", 0.0)
+        if us <= 0:
+            continue
+        kernels += ev.count
+        name = next((g for g, keys in STEP_KERNEL_GROUPS
+                     if any(k in ev.key for k in keys)), "other")
+        groups[name] += us / 1e3
+        top.append((us / 1e3, ev.count, ev.key))
+    device = sum(groups.values())
+    return dict(wall_ms=wall * 1e3, device_ms=device, groups_ms=groups,
+                kernels=kernels, busy_share=device / (wall * 1e3),
+                top=sorted(top, reverse=True)[:10])
+
+
+def training_phase(seed: int, kernels) -> dict:
+    """(a) ``DedupIngest`` on the card over ``load_dataset("DEB", 64)``,
+    its first 8 MiB's unique bytes held against the CPU's, then timed
+    over repeated passes; (b) ``Trainer`` at the published llama3.2-1b
+    configuration (bf16, remat full, microbatch 4), random weights from
+    ``seed``, AdamW, 4 steps of 8 x 2048 tokens on the ingest's unique
+    bytes; (c) ``restart_check`` in a child process.  The launch counts
+    are set to 0 just before (a)'s first pass and (b) and read just after
+    each."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch._tree import leaves
+    from repro_torch.configs import get_config
+    from repro_torch.data import LoaderConfig, TokenLoader, load_dataset
+    from repro_torch.kernels import flash_attn
+    from repro_torch.train import LoopConfig, OptConfig, Trainer
+
+    out = {}
+    t_phase = time.perf_counter()
+    # (a) the dedup data pipeline
+    corpus = load_dataset("DEB", INGEST_MB)
+    for k in kernels:
+        k.launches = 0
+    chunks, savings, s = ingest_run(corpus, "cuda")
+    out["ingest_launches"] = {k.name: k.launches for k in kernels}
+    unique = np.concatenate(chunks)
+    digest = sha256_of(chunks)
+    passes = [s]
+    while sum(passes) < INGEST_WINDOW_S and len(passes) < 200:
+        passes.append(ingest_run(corpus, "cuda")[2])
+    head = corpus[:INGEST_CHECK_MB << 20]
+    card_head = ingest_run(head, "cuda")
+    cpu_head = ingest_run(head, "cpu")
+    mb_s = [corpus.size / t / 1e6 for t in passes]
+    out["ingest"] = dict(
+        bytes=corpus.size, passes=len(passes), window_s=sum(passes),
+        mb_s=statistics.median(mb_s), mb_s_range=(min(mb_s), max(mb_s)),
+        first_pass_s=s, savings=savings,
+        unique_bytes=int(unique.size), sha256=digest,
+        head_sha256=sha256_of(card_head[0]),
+        head_cpu_sha256=sha256_of(cpu_head[0]),
+        head_savings=(card_head[1], cpu_head[1]), cpu_head_s=cpu_head[2])
+    if (out["ingest"]["head_sha256"] != out["ingest"]["head_cpu_sha256"]
+            or card_head[1] != cpu_head[1]):
+        raise AssertionError(f"DedupIngest on the card and on the CPU "
+                             f"differ over the first {INGEST_CHECK_MB} MiB: "
+                             f"{out['ingest']}")
+    del chunks, card_head, cpu_head
+
+    # (b) Trainer at the published configuration
+    cfg = get_config("llama3.2-1b")
+    loader = TokenLoader(unique, LoaderConfig(batch_size=TRAIN_BATCH,
+                                              seq_len=TRAIN_SEQ))
+    opt = OptConfig(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    trainer = Trainer(cfg, opt, LoopConfig(total_steps=TRAIN_STEPS,
+                                           log_every=0), loader, None,
+                      device="cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    params, opt_state = trainer.run(
+        torch.Generator(device="cuda").manual_seed(seed), steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    out["train_launches"] = {k.name: k.launches for k in kernels}
+    n_params = sum(t.numel() for t in leaves(params))
+    out["train_trace"] = traced_step(trainer, params, opt_state,
+                                     TRAIN_STEPS)
+    del params, opt_state
+    hist = trainer.history
+    remat_passes = 2 if cfg.remat != "none" else 1
+    want_flash = (TRAIN_STEPS * max(cfg.microbatch, 1) * cfg.n_layers
+                  * remat_passes)
+    out["train"] = dict(
+        params=n_params, steps=hist, s=train_s,
+        step_ms=[h["dt"] * 1e3 for h in hist],
+        tokens_per_s=[TRAIN_BATCH * TRAIN_SEQ / h["dt"] for h in hist],
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        flash_launches=out["train_launches"][flash_attn.KERNEL.name],
+        flash_launches_expected=want_flash)
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+               for h in hist) or len(hist) != TRAIN_STEPS:
+        raise AssertionError(f"training steps not finite: {hist}")
+    if out["train"]["flash_launches"] != want_flash:
+        raise AssertionError(
+            f"flash kernel launched {out['train']['flash_launches']} times "
+            f"in {TRAIN_STEPS} steps, not {want_flash} ({cfg.n_layers} "
+            f"layers x {cfg.microbatch} microbatches x {remat_passes})")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (c) restart bit-determinism through the CDC checkpoint store
+    out["restart"] = restart_in_child(seed, unique)
+    out["s"] = time.perf_counter() - t_phase
+    return out
+
+
+def restart_in_child(seed: int, unique) -> dict:
+    """``restart_check`` in a child process of this script with
+    CUBLAS_WORKSPACE_CONFIG=:4096:8 (the deterministic cuBLAS workspace;
+    cuBLAS reads it once, so the earlier phases keep the default).  The
+    loader's tokens go through a file; the child's result comes back
+    through another."""
+    import numpy as np
+
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(os.path.join(tmp, "unique.npy"), unique)
+        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+             "--restart-check", tmp], env=env, capture_output=True,
+            text=True, timeout=RESTART_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise AssertionError(
+                f"the restart check exited {proc.returncode}:\n"
+                f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        with open(os.path.join(tmp, "restart.json")) as f:
+            out = json.load(f)
+    if out["first_step"] != RESTART_EVERY or not out["bit_equal"]:
+        raise AssertionError(f"the resumed run is not the unbroken one: "
+                             f"{out}")
+    return out
+
+
+def stopwatch(fn, seconds: list):
+    """``fn``, appending each call's seconds to ``seconds``."""
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
+        got = fn(*args, **kwargs)
+        seconds.append(time.perf_counter() - t0)
+        return got
+    return call
+
+
+def restart_check(seed: int, unique) -> dict:
+    """Restart bit-determinism on the card: llama3.2-1b's widths at
+    RESTART_LAYERS layers, RESTART_STEPS steps with a checkpoint every
+    RESTART_EVERY through the CDC store, once unbroken and once stopped at
+    step 2 and resumed from its checkpoint, under deterministic
+    algorithms; the final parameters and optimizer state must be
+    bit-equal.  Also each save's and the restore's seconds, and the
+    store's chunker once on the largest leaf.  Runs in the child process
+    that ``restart_in_child`` starts."""
+    import warnings
+
+    import torch
+
+    from repro_torch._tree import leaves
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core.chunker import make_chunker
+    from repro_torch.data import LoaderConfig, TokenLoader
+    from repro_torch.train import LoopConfig, OptConfig, Trainer
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    loader = TokenLoader(unique, LoaderConfig(batch_size=TRAIN_BATCH,
+                                              seq_len=TRAIN_SEQ))
+    rcfg = get_config("llama3.2-1b").replace(n_layers=RESTART_LAYERS)
+    ropt = OptConfig(lr=3e-4, warmup_steps=1, total_steps=RESTART_STEPS)
+    save_s, restore_s = [], []
+
+    def trainer_at(root):
+        ckpt = CheckpointManager(root, avg_chunk=CHECKPOINT_AVG,
+                                 device="cuda")
+        ckpt.save = stopwatch(ckpt.save, save_s)
+        return Trainer(rcfg, ropt, LoopConfig(
+            total_steps=RESTART_STEPS, ckpt_every=RESTART_EVERY,
+            log_every=0), loader, ckpt, device="cuda")
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        # one store at a time on disk: each holds about 2 x the state
+        with tempfile.TemporaryDirectory() as root:
+            t_full = trainer_at(root)
+            p_full, o_full = t_full.run(gen())
+            full = [t.cpu() for t in leaves((p_full, o_full))]
+            del p_full, o_full
+        with tempfile.TemporaryDirectory() as root:
+            trainer_at(root).run(gen(), steps=RESTART_EVERY)  # "crash"
+            t_res = trainer_at(root)
+            t_res.ckpt.restore = stopwatch(t_res.ckpt.restore, restore_s)
+            p_res, o_res = t_res.run(gen())
+            resumed = [t.cpu() for t in leaves((p_res, o_res))]
+            del p_res, o_res
+            savings = t_res.ckpt.dedup_savings
+    restart_s = time.perf_counter() - t0
+    equal = len(full) == len(resumed) and all(
+        torch.equal(a, b) for a, b in zip(full, resumed))
+    state_bytes = sum(t.numel() * t.element_size() for t in full)
+    # the chunker alone, on the largest leaf's bytes (host copy included)
+    big = max(full, key=lambda t: t.numel() * t.element_size())
+    view = big.reshape(-1).view(torch.uint8).numpy()
+    chunker = make_chunker("seqcdc", CHECKPOINT_AVG, device="cuda")
+    chunker.chunk(view)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    chunker.chunk(view)
+    torch.cuda.synchronize()
+    chunk_s = time.perf_counter() - t1
+    return dict(
+        layers=RESTART_LAYERS, first_step=t_res.history[0]["step"],
+        losses_full=[h["loss"] for h in t_full.history],
+        losses_resumed=[h["loss"] for h in t_res.history],
+        bit_equal=equal, s=restart_s, save_s=save_s, restore_s=restore_s,
+        save_mb_s=len(save_s) * state_bytes / sum(save_s) / 1e6,
+        restore_mb_s=len(restore_s) * state_bytes / sum(restore_s) / 1e6,
+        state_bytes=state_bytes, dedup_savings=savings,
+        chunk_leaf_bytes=view.size, chunk_s=chunk_s,
+        deterministic_warnings=sorted({
+            str(w.message).splitlines()[0] for w in warned
+            if "determinis" in str(w.message)}))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", default=None,
                     help="also write every measured number to this file")
+    ap.add_argument("--restart-check", metavar="DIR", default=None,
+                    help="run only phase 9's restart check on the tokens in "
+                         "DIR/unique.npy and write DIR/restart.json (phase 9 "
+                         "starts the script so, in a child process)")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -1438,6 +1949,14 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False: this run "
               "needs an NVIDIA card", file=sys.stderr)
         return 2
+    if args.restart_check:
+        import numpy as np
+
+        unique = np.load(os.path.join(args.restart_check, "unique.npy"))
+        out = restart_check(args.seed, unique)
+        with open(os.path.join(args.restart_check, "restart.json"), "w") as f:
+            json.dump(out, f)
+        return 0
 
     # 1. the card
     card = subprocess.run(
@@ -1684,13 +2203,104 @@ def main(argv=None) -> int:
         raise AssertionError(
             f"flash kernel launched {sv['launches'][flash_attn.KERNEL.name]} "
             f"times while serving, not {want_flash}")
+    # 8. the scenarios through the service on the card
+    sc = scenario_phase(KERNELS)
+    for label, runs in (("quick", sc["quick"]),
+                        (SCENARIO_TIMED_BUDGET, sc["timed"])):
+        for name, r in runs.items():
+            rate = "" if label == "quick" else (
+                f"; {r['runs']} runs, median (range) ingest "
+                f"{r['ingest_mb_s']:.2f} MB/s ({r['ingest_mb_s_range'][0]:.2f}"
+                f"-{r['ingest_mb_s_range'][1]:.2f}) over a "
+                f"{r['ingest_window_s']:.2f} s window, restore "
+                f"{r['restore_mb_s']:.2f} MB/s ({r['restore_mb_s_range'][0]:.2f}"
+                f"-{r['restore_mb_s_range'][1]:.2f}) over "
+                f"{r['restore_window_s']:.2f} s")
+            log(f"scenario {name} ({label} budget, {r['objects']} objects, "
+                f"{r['bytes']} bytes, corpus sha256 {r['digest'][:16]}): "
+                f"dedup ratio {r['dedup_ratio']!r}, "
+                f"compressed ratio {r['compressed_ratio']!r}, chunks "
+                f"{r['chunks']} ({r['unique_chunks']} unique){rate}")
+    log("scenario ratios at the quick budget equal BENCH_quick.json's")
+    for mode, r in sc["occupancy"].items():
+        log(f"all-tiny occupancy, packing {mode}: {r['occupancy']!r} "
+            f"({r['streams']} streams, {r['dispatches']} dispatches, "
+            f"{r['packed_streams']} packed, {r['s']:.2f} s); pin "
+            f"{OCCUPANCY[mode]!r}")
+    log(f"scenarios: {sc['s']:.1f} s; launches {sc['launches']}")
+    path8 = (fused_pipeline.KERNEL, packed_pipeline.KERNEL)
+    missing = [k.name for k in path8 if sc["launches"][k.name] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched by the scenario "
+                             f"phase: {missing}")
+
+    # 9. the dedup data pipeline and training at full llama3.2-1b width
+    tr = training_phase(args.seed, KERNELS)
+    ing = tr["ingest"]
+    log(f"DedupIngest (DEB-like corpus, {ing['bytes']} bytes, avg 8192, "
+        f"1 MiB segments x 8): median {ing['mb_s']:.2f} MB/s (range "
+        f"{ing['mb_s_range'][0]:.2f}-{ing['mb_s_range'][1]:.2f}) over "
+        f"{ing['passes']} passes in a {ing['window_s']:.2f} s window, "
+        f"savings {ing['savings']:.4f}, {ing['unique_bytes']} unique bytes; "
+        f"the first {INGEST_CHECK_MB} MiB's unique bytes sha256 "
+        f"{ing['head_sha256'][:16]} on the card and on the CPU "
+        f"({ing['cpu_head_s']:.2f} s there); launches {tr['ingest_launches']}")
+    path9a = (seqcdc_masks.KERNEL, select_boundaries.KERNEL,
+              fingerprint.KERNEL)
+    missing = [k.name for k in path9a if tr["ingest_launches"][k.name] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched by DedupIngest: "
+                             f"{missing}")
+    t9 = tr["train"]
+    log(f"training: llama3.2-1b full width and depth, {t9['params']} "
+        f"parameters, bf16, remat full, microbatch 4, AdamW, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} steps in "
+        f"{t9['s']:.2f} s (init included), peak {t9['peak_gb']:.2f} GB")
+    for h, tok_s in zip(t9["steps"], t9["tokens_per_s"]):
+        log(f"training step {h['step']}: {h['dt'] * 1e3:.1f} ms, "
+            f"{tok_s:.0f} tokens/s, loss {h['loss']:.4f}, grad norm "
+            f"{h['grad_norm']:.4f}, lr {h['lr']:.3g}")
+    tt = tr["train_trace"]
+    log(f"training: one more step traced: {tt['wall_ms']:.1f} ms, device "
+        f"{tt['device_ms']:.1f} ms in {tt['kernels']} kernels (busy share "
+        f"{tt['busy_share']:.4f}): " + ", ".join(
+            f"{g} {v:.1f} ms" for g, v in tt["groups_ms"].items()))
+    for ms, count, name in tt["top"]:
+        log(f"training: traced step kernel {ms:.1f} ms in {count} launches: "
+            f"{name[:120]}")
+    log(f"training: flash launches {t9['flash_launches']} (expected "
+        f"{t9['flash_launches_expected']}: forward and remat recompute); "
+        f"launches {tr['train_launches']}")
+    rs = tr["restart"]
+    log(f"restart: {rs['layers']} layers at full width, {RESTART_STEPS} "
+        f"steps, a checkpoint every {RESTART_EVERY} (SeqCDC chunks of avg "
+        f"{CHECKPOINT_AVG} bytes on the card), deterministic "
+        f"algorithms: resumed at step {rs['first_step']}, final parameters "
+        f"and optimizer state bit-equal to the unbroken run "
+        f"({rs['s']:.1f} s); losses {rs['losses_full']} / "
+        f"{rs['losses_resumed']}")
+    log(f"restart: state {rs['state_bytes']} bytes; save "
+        f"{rs['save_mb_s']:.2f} MB/s over {len(rs['save_s'])} saves ("
+        + ", ".join(f"{t:.2f}" for t in rs["save_s"])
+        + f" s), restore {rs['restore_mb_s']:.2f} MB/s ("
+        + ", ".join(f"{t:.2f}" for t in rs["restore_s"])
+        + f" s); the store's chunker alone on the largest leaf "
+        f"({rs['chunk_leaf_bytes']} bytes, host copy included) "
+        f"{rs['chunk_leaf_bytes'] / rs['chunk_s'] / 1e6:.2f} MB/s; "
+        f"checkpoint dedup savings {rs['dedup_savings']:.4f}; "
+        f"determinism warnings {rs['deterministic_warnings']} (a child "
+        f"process with CUBLAS_WORKSPACE_CONFIG=:4096:8)")
+    log(f"phase 9: {tr['s']:.1f} s")
+    if t9["flash_launches"] == 0:
+        raise AssertionError("training never launched the flash kernel")
+
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith(("jax.", "repro."))
               or m == "repro"]
     if leaked:
         raise AssertionError(f"the port imported {leaked[:5]}")
 
-    # 8. the kernels line and the result
+    # 10. the kernels line and the result
     row_of = {
         packed_pipeline.KERNEL: ("16KiBx8 packed all-tiny",
                                  packed["all-tiny"]),
@@ -1731,7 +2341,9 @@ def main(argv=None) -> int:
             if k.name in measured[s]])
         launches = (path3[k.name] + svc["launches"][k.name]
                     + sh["launches"][k.name] + rg["launches"][k.name]
-                    + sv["launches"][k.name])
+                    + sv["launches"][k.name] + sc["launches"][k.name]
+                    + tr["ingest_launches"][k.name]
+                    + tr["train_launches"][k.name])
         if launches == 0:
             raise AssertionError(f"kernel {k.name} never launched")
         rows.append(dict(
@@ -1749,7 +2361,7 @@ def main(argv=None) -> int:
         with open(args.json, "w") as f:
             json.dump(dict(card=card, build_s=build_s, kernels=measured,
                            service=svc, sharded=sh, registry=rg,
-                           serving=sv), f,
+                           serving=sv, scenarios=sc, training=tr), f,
                       indent=1, default=float)
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,8 @@ float32.  At the serving shapes it is bound by operations; the bound is in
 :func:`flash_attention_plain` is its plain version: the block loop of the
 reference's ``_flash_attention`` in torch, every tile upcast to float32 as
 the Pallas kernel does, fully masked tiles above the diagonal skipped.
+The kernel has no backward: a call that needs a gradient goes through
+:class:`FlashAttention`, whose backward recomputes the plain version.
 """
 from __future__ import annotations
 
@@ -113,16 +115,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.transpose(1, 2).to(q.dtype)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    scale: float | None = None, causal: bool = True,
-                    window: int = 0) -> torch.Tensor:
-    """Flash attention of q ``(B,S,H,hd)`` over k, v ``(B,S,KV,hd)``.
-
-    CPU tensors take :func:`flash_attention_plain` at its default tiles;
-    CUDA tensors launch the kernel (or raise)."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale=scale, causal=causal,
-                                     window=window)
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale,
+            causal: bool, window: int) -> torch.Tensor:
+    """The kernel on CUDA tensors (or a raise); no autograd."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check(q, k, v, window)
@@ -151,3 +146,60 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       int(q.dtype == torch.bfloat16),
                       stream=torch.cuda.current_stream(q.device).cuda_stream)
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with an exact backward.
+
+    Forward: the kernel on CUDA tensors, the plain version on CPU ones.
+    Backward: :func:`flash_attention_plain` recomputed on detached q, k, v
+    under ``torch.enable_grad()`` at the caller's tiles, and its
+    vector-Jacobian product returned.  That is exactly the gradient of the
+    plain block loop, the function the reference trains through
+    (``repro/models/attention.py`` ``_flash_attention``, a differentiable
+    ``lax.scan``; the JAX package has no backward kernel to port).  Only a
+    call that needs a gradient comes here, so serving, which needs none,
+    launches the kernel as before and its numbers do not move.  Neither
+    the kernel nor the recompute uses atomics: the route is deterministic.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window, q_block, kv_block):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = dict(scale=scale, causal=causal, window=window,
+                        q_block=q_block, kv_block=kv_block)
+        if q.device.type == "cpu":
+            return flash_attention_plain(q, k, v, **ctx.args)
+        return _launch(q, k, v, scale, causal, window)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = (t.detach().requires_grad_(True)
+                   for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = flash_attention_plain(q, k, v, **ctx.args)
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), grad_out)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float | None = None, causal: bool = True,
+                    window: int = 0, q_block: int = 64,
+                    kv_block: int = 64) -> torch.Tensor:
+    """Flash attention of q ``(B,S,H,hd)`` over k, v ``(B,S,KV,hd)``.
+
+    CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch
+    the kernel (or raise).  A call that needs a gradient goes through
+    :class:`FlashAttention`, whose backward recomputes the plain version
+    at tiles ``(q_block, kv_block)`` (the CPU forward uses them too; the
+    kernel needs none)."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, scale, causal, window, q_block,
+                                    kv_block)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, scale=scale, causal=causal,
+                                     window=window, q_block=q_block,
+                                     kv_block=kv_block)
+    return _launch(q, k, v, scale, causal, window)

@@ -13,5 +13,6 @@ from .lm import (  # noqa: F401
     init_caches,
     init_params,
     lm_template,
+    loss_and_metrics,
     prefill_step,
 )

@@ -103,14 +103,16 @@ def _flash_attention(q, k, v, cfg, scale, *, window: int = 0):
 
     The reference's two nested ``lax.scan``s; here the flash kernel on a
     CUDA tensor (one launch, GQA by indexing) and its plain block loop on a
-    CPU tensor.  Neither needs the reference's tile sizes; its asserts on
-    them are kept."""
+    CPU tensor, at the reference's tiles.  When a gradient is needed the
+    backward recomputes the plain loop at those tiles
+    (``kernels/flash_attn.py`` ``FlashAttention``)."""
     B, S, H, hd = q.shape
     qb = min(cfg.attn_q_block, S)
     kvb = min(cfg.attn_kv_block or S, S)
     assert S % qb == 0 and S % kvb == 0, (S, qb, kvb)
     return flash_attn.flash_attention(q, k, v, scale=scale, causal=True,
-                                      window=window)
+                                      window=window, q_block=qb,
+                                      kv_block=kvb)
 
 
 def causal_attention(q, k, v, cfg, *, window: int = 0):

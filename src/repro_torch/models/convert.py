@@ -1,10 +1,13 @@
-"""Carry a parameter tree of the reference across into the port.
+"""Carry a parameter tree (and optimizer state) of the reference across into
+the port.
 
 ``params_from_jax`` takes the reference package's LM parameters as numpy
 arrays (``jax.tree.map(np.asarray, params)``: dicts and lists of arrays,
 bfloat16 ones as ``ml_dtypes`` arrays) and returns the port's tree of
 tensors, checked leaf by leaf against :func:`lm.lm_template`'s shapes.
-It imports neither jax nor the reference: only the arrays cross.
+:func:`opt_state_from_jax` carries the reference's optimizer state across
+the same way, so both packages can train from one state.  It imports
+neither jax nor the reference: only the arrays cross.
 """
 from __future__ import annotations
 
@@ -46,3 +49,20 @@ def params_from_jax(cfg, tree, device="cuda", dtype: torch.dtype | None = None):
                 enumerate(zip(t, node))]
 
     return build(lm.lm_template(cfg), tree, "params")
+
+
+def opt_state_from_jax(cfg, state, device="cuda"):
+    """The port's :class:`~repro_torch.train.optim.OptState` from the
+    reference's (numpy leaves: ``mu`` and ``nu`` trees like the parameters,
+    in the moments' dtype, float32 or bfloat16; ``count`` a 0-d int32)."""
+    from repro_torch._tree import leaves
+    from repro_torch.train.optim import OptState
+
+    mu, nu, count = state
+    dt = (torch.bfloat16 if str(np.asarray(leaves(mu)[0]).dtype) == "bfloat16"
+          else torch.float32)
+    return OptState(
+        params_from_jax(cfg, mu, device, dt),
+        params_from_jax(cfg, nu, device, dt),
+        torch.tensor(int(np.asarray(count)), dtype=torch.int32,
+                     device=device))

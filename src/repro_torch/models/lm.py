@@ -1,8 +1,8 @@
 """Top-level language model: embed -> block stack -> norm -> logits.
 
 The port of ``repro/models/lm.py`` for the ``tokens`` input mode (the
-``embeddings`` and ``mixed`` modes and ``loss_and_metrics`` wait for later
-slices).  Parameters are a plain tree of tensors shaped by
+``embeddings`` and ``mixed`` modes wait for later slices), with the
+training loss :func:`loss_and_metrics`.  Parameters are a plain tree of tensors shaped by
 :func:`lm_template`, the reference's layout (``segments`` a list of
 stacked per-segment dicts, ``final_norm``, ``embed``); :func:`init_params`
 makes them from a seed on the card unless asked for another device, and
@@ -80,6 +80,32 @@ def forward(cfg, params: Params, batch: Dict[str, torch.Tensor]):
     x = embed_inputs(cfg, params, batch)
     x, _, _ = tfm.forward_stack(cfg, params["segments"], x, _positions(x))
     return _head(cfg, params, x)
+
+
+def loss_and_metrics(cfg, params: Params, batch: Dict[str, torch.Tensor]):
+    """Next-token cross entropy (f32 reductions) + MoE aux loss.
+
+    ``batch["labels"]`` is (B, S) int with -1 = masked (padding, image
+    positions).  Returns (loss, metrics dict), 0-d float32 tensors.
+    """
+    x = embed_inputs(cfg, params, batch)
+    x, _, aux = tfm.forward_stack(cfg, params["segments"], x, _positions(x))
+    logits = _head(cfg, params, x)
+
+    labels = batch["labels"]
+    mask = (labels >= 0).to(torch.float32)
+    lab = labels.clamp_min(0).to(torch.int64)
+    # max-shifted logsumexp in float32, the shift outside the gradient
+    logits32 = logits.to(torch.float32)
+    m = logits32.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(logits32 - m).sum(dim=-1)) + m[..., 0]
+    tgt = torch.gather(logits32, -1, lab[..., None])[..., 0]
+    nll = (lse - tgt) * mask
+    denom = mask.sum().clamp_min(1.0)
+    ce = nll.sum() / denom
+    aux32 = aux.to(torch.float32)
+    loss = ce + cfg.moe_aux_coef * aux32
+    return loss, {"loss": loss, "ce": ce, "aux": aux32, "tokens": mask.sum()}
 
 
 # ---------------------------------------------------------------------------

@@ -7,14 +7,18 @@ where the reference scans over the stack, the port loops over it in
 Python, and decode caches come back stacked ``(L, B, S_c, KV, hd)`` as the
 reference's scan stacks them.  Other block kinds (MoE, MLA, mLSTM, sLSTM,
 RG-LRU, hybrid local attention) raise ``NotImplementedError``.
-``cfg.remat``, ``cfg.fsdp``, ``cfg.microbatch`` and ``cfg.scan_layers``
-are training and lowering knobs with no effect here.
+``cfg.remat`` checkpoints each block of :func:`forward_stack` as the
+reference's ``_maybe_remat`` does: ``"full"`` recomputes the whole block
+in the backward, ``"dots"`` keeps the outputs of its matrix products
+without a batch dimension and recomputes the rest.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from . import attention as attn_mod
 from .layers import mlp_apply, mlp_template, norm_template, rmsnorm, stack_template
@@ -137,9 +141,48 @@ def _layer(tree, li: int):
 
 
 def _layers(seg_params, n: int):
-    """The per-layer parameter trees of a segment of ``n`` layers."""
-    return [seg_params] if n == 1 else [_layer(seg_params, li)
-                                        for li in range(n)]
+    """The per-layer parameter trees of a segment of ``n`` layers.
+
+    Each stacked leaf is split with ``unbind``, whose backward stacks the
+    layers' gradients once; indexing a layer out instead would write a
+    zero gradient of the whole stack for every layer and add them up."""
+    if n == 1:
+        return [seg_params]
+
+    def split(tree):
+        if isinstance(tree, dict):
+            parts = {k: split(v) for k, v in tree.items()}
+            return [{k: parts[k][li] for k in tree} for li in range(n)]
+        return tree.unbind(0)
+
+    return split(seg_params)
+
+
+#: matrix products without a batch dimension: the outputs ``"dots"`` keeps
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"`` (the reference's
+    ``checkpoint_dots_with_no_batch_dims``)."""
+    if op in _DOTS:
+        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, cfg):
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(torch_checkpoint.checkpoint, fn,
+                                 use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            torch_checkpoint.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                torch_checkpoint.create_selective_checkpoint_contexts,
+                _dots_policy))
+    raise ValueError(cfg.remat)
 
 
 def forward_stack(cfg, seg_params, x, positions, states=None):
@@ -147,8 +190,9 @@ def forward_stack(cfg, seg_params, x, positions, states=None):
     aux_total = torch.zeros((), dtype=x.dtype, device=x.device)
     new_states = []
     for (kind, n, _), p in zip(stack_templates(cfg), seg_params):
+        block = _maybe_remat(functools.partial(block_forward, kind, cfg), cfg)
         for pl in _layers(p, n):
-            x, _, aux = block_forward(kind, cfg, pl, x, positions)
+            x, _, aux = block(pl, x, positions)
             aux_total = aux_total + aux
         new_states.append(None)  # dense blocks carry no sequence state
     return x, new_states, aux_total

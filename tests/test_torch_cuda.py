@@ -1032,3 +1032,109 @@ def test_reduced_model_and_engine_on_the_card_match_the_cpu(dev, no_tf32):
             eng.submit(pr)
         out[str(device)] = eng.run()
     assert out["cpu"] == out[str(dev)]
+
+
+def test_flash_autograd_route_gradient_equals_plain_at_llama_shapes(dev):
+    """At llama3.2-1b's training shapes (a microbatch of 2 rows of 2048,
+    as batch 8 in microbatches of 4 gives, 32 query and 8 KV heads of 64,
+    bf16, the config's 1024-token tiles) a flash call that needs a
+    gradient launches the kernel once for the forward and returns the
+    plain loop's gradient: q, k, v gradients within the kernel's
+    elementwise ``TOLERANCE`` of the plain version's under autograd (the
+    same recompute, so in practice equal), the forward within it too.
+    Without a gradient the same call launches the kernel and gives the
+    kernel's output bit for bit."""
+    from repro_torch.kernels import flash_attn as kflash
+
+    tiles = dict(q_block=1024, kv_block=1024)
+    q, k, v = _flash_inputs(21, 2, 2048, 32, 8, 64, torch.bfloat16, dev)
+    cot = _flash_inputs(22, 2, 2048, 32, 8, 64, torch.bfloat16, dev)[0]
+    kflash.KERNEL.launches = 0
+    plain_out = kflash.flash_attention(q, k, v, **tiles)
+    assert kflash.KERNEL.launches == 1 and plain_out.grad_fn is None
+
+    grads = []
+    for route in ("kernel", "plain"):
+        qa, ka, va = (t.clone().requires_grad_(True) for t in (q, k, v))
+        if route == "kernel":
+            out = kflash.flash_attention(qa, ka, va, **tiles)
+            assert kflash.KERNEL.launches == 2
+            assert torch.equal(out.detach(), plain_out)
+        else:
+            out = kflash.flash_attention_plain(qa, ka, va, **tiles)
+            want_out = out.detach()
+        out.backward(cot)
+        grads.append((qa.grad, ka.grad, va.grad))
+    torch.cuda.synchronize()
+    assert kflash.KERNEL.launches == 2  # the backward launches no kernel
+    np.testing.assert_allclose(plain_out.float().cpu().numpy(),
+                               want_out.float().cpu().numpy(),
+                               **kflash.TOLERANCE[torch.bfloat16])
+    for got, want, name in zip(*grads, "qkv"):
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(),
+                                   **kflash.TOLERANCE[torch.bfloat16],
+                                   err_msg=f"d{name}")
+
+
+def test_dedup_ingest_on_the_card_equals_the_cpu(dev):
+    """``DedupIngest`` on the card runs the masks, select and fingerprint
+    kernels and yields the CPU run's unique bytes (its plain versions),
+    token batches and savings."""
+    from repro_torch.data import DedupIngest, PipelineConfig
+    from repro_torch.data.corpus import snapshot_series
+
+    snaps = list(snapshot_series(base_bytes=1 << 20, snapshots=3,
+                                 edit_rate=2e-5, seed=4))
+    corpus = np.concatenate(snaps + [snaps[0][:70_000]])
+    cfg = PipelineConfig(avg_chunk=8192, segment_bytes=1 << 18,
+                         batch_segments=8, seq_len=2047, batch_size=2)
+    for k in (kmasks.KERNEL, kselect.KERNEL, kfp.KERNEL):
+        k.launches = 0
+    got = DedupIngest(cfg, device=dev)
+    want = DedupIngest(cfg, device="cpu")
+    g = list(got.unique_bytes(corpus))
+    assert all(k.launches > 0 for k in (kmasks.KERNEL, kselect.KERNEL,
+                                        kfp.KERNEL))
+    w = list(want.unique_bytes(corpus))
+    assert len(g) == len(w)
+    for a, b in zip(g, w):
+        np.testing.assert_array_equal(a, b)
+    assert got.savings == want.savings > 0.2  # 0.3021 on the card
+    tb = list(DedupIngest(cfg, device=dev).token_batches(corpus))
+    tw = list(DedupIngest(cfg, device="cpu").token_batches(corpus))
+    assert len(tb) == len(tw) > 0
+    for a, b in zip(tb, tw):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_checkpoint_roundtrip_on_the_card(dev, tmp_path):
+    """A tree of card tensors (float32, bfloat16, int32, a NamedTuple)
+    saved with the chunker's kernels restores onto the card bit-equal, and
+    the manifest is the one a CPU manager (plain versions) writes."""
+    from repro_torch._tree import leaves
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.train.optim import OptState
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    w = torch.randn((512, 300), generator=g, device=dev)
+    tree = {"params": {"w": w, "e": w.to(torch.bfloat16)[:, :77],
+                       "i": torch.arange(1000, dtype=torch.int32, device=dev)},
+            "opt": OptState({"w": w * 0.5}, {"w": w * w},
+                            torch.tensor(3, dtype=torch.int32, device=dev))}
+    kmasks.KERNEL.launches = kselect.KERNEL.launches = 0
+    mgr = CheckpointManager(str(tmp_path / "card"), avg_chunk=8192,
+                            device=dev)
+    mgr.save(2, tree, {"next_step": 3})
+    assert kmasks.KERNEL.launches > 0 and kselect.KERNEL.launches > 0
+    step, out, extra = mgr.restore_on_device(tree, dev)
+    assert (step, extra) == (2, {"next_step": 3})
+    for a, b in zip(leaves(tree), leaves(out)):
+        assert b.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a, b)
+    CheckpointManager(str(tmp_path / "cpu"), avg_chunk=8192,
+                      device="cpu").save(2, tree, {"next_step": 3})
+    name = "manifest-00000002.json"
+    assert (tmp_path / "card" / name).read_bytes() == (
+        tmp_path / "cpu" / name).read_bytes()

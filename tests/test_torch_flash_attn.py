@@ -142,6 +142,59 @@ def test_ragged_lengths_and_blocks_agree(causal, window):
                                atol=2e-5)
 
 
+@pytest.mark.parametrize("window", [0, 24])
+@pytest.mark.parametrize("kv_heads", [4, 2])
+def test_autograd_route_gradient_equals_reference_grad(window, kv_heads):
+    """A flash call that needs a gradient goes through ``FlashAttention``
+    (forward: the kernel on the card, the plain loop here; backward: the
+    plain loop recomputed): its q, k, v gradients equal ``jax.vjp`` of the
+    reference's ``_flash_attention`` under one cotangent.  Both configs
+    set ``attn_kv_block=32``, so the 128-token sequence takes the flash
+    route (tiles 64 x 32).  Float32 tolerance: atol 1e-5 on gradients of
+    magnitude up to about 1, the two summing in different orders."""
+    from repro_torch.configs import get_reduced as port_reduced
+    from repro_torch.models.attention import _flash_attention as p_flash
+
+    B, S, H, hd = 2, 128, 4, 16
+    cfg = get_reduced("llama3.2-1b").replace(
+        n_heads=H, n_kv_heads=kv_heads, head_dim=hd, attn_kv_block=32)
+    pcfg = port_reduced("llama3.2-1b").replace(
+        n_heads=H, n_kv_heads=kv_heads, head_dim=hd, attn_kv_block=32)
+    assert S > cfg.attn_kv_block and (cfg.attn_q_block, pcfg.attn_q_block) \
+        == (64, 64)
+    q, k, v = _qkv(6, B, S, H, kv_heads, hd, std=0.5)
+    cot = np.random.default_rng(7).standard_normal((B, S, H, hd)).astype(
+        np.float32)
+    scale = 1.0 / hd**0.5
+    want_out, vjp = jax.vjp(
+        lambda a, b, c: j_flash(a, b, c, cfg, scale, window=window),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(cot))
+
+    tq, tk, tv = (t.requires_grad_(True) for t in _t(q, k, v))
+    out = p_flash(tq, tk, tv, pcfg, scale, window=window)
+    assert out.grad_fn is not None and "FlashAttention" in type(
+        out.grad_fn).__name__
+    out.backward(torch.from_numpy(cot))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out),
+                               rtol=2e-5, atol=2e-5)
+    for got, w, name in zip((tq.grad, tk.grad, tv.grad), want, "qkv"):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=0,
+                                   atol=1e-5, err_msg=f"d{name}")
+
+
+def test_no_grad_call_bypasses_the_autograd_route():
+    """Without a gradient (serving) the wrapper returns the plain version
+    (the kernel on the card) directly, with no graph attached."""
+    q, k, v = _t(*_qkv(8, 1, 64, 4, 2, 16))
+    out = kflash.flash_attention(q, k, v)
+    assert out.grad_fn is None
+    qg = q.clone().requires_grad_(True)
+    with torch.no_grad():
+        assert kflash.flash_attention(qg, k, v).grad_fn is None
+    assert torch.equal(kflash.flash_attention(qg, k, v).detach(), out)
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     q, k, v = _t(*_qkv(5, 1, 8, 4, 3, 16))
     with pytest.raises(ValueError, match="multiple"):

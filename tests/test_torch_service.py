@@ -244,6 +244,21 @@ def test_port_imports_no_jax_and_no_repro():
         "max_slots=2, cache_len=64, max_new_tokens=3), device='cpu')\n"
         "eng.submit(np.arange(32) % 256)\n"
         "assert len(eng.run()[0]) == 3\n"
+        "import tempfile, torch\n"
+        "from repro_torch.scenarios import generate, corpus_digest\n"
+        "assert len(corpus_digest(generate('lm_text', 'tiny'))) == 64\n"
+        "from repro_torch.data import DedupIngest, PipelineConfig\n"
+        "ing = DedupIngest(PipelineConfig(avg_chunk=256, segment_bytes=2048, "
+        "batch_segments=2), p, device='cpu')\n"
+        "n = sum(len(u) for u in ing.unique_bytes(np.tile(d[:2048], 4)))\n"
+        "assert (n, ing.savings) == (2048, 0.75), (n, ing.savings)\n"
+        "from repro_torch.checkpoint import CheckpointManager\n"
+        "from repro_torch.train import OptConfig, opt_init\n"
+        "ck = CheckpointManager(tempfile.mkdtemp(), avg_chunk=4096, "
+        "device='cpu')\n"
+        "w = {'w': torch.ones(64, 64)}\n"
+        "ck.save(1, {'params': w, 'opt': opt_init(OptConfig(), w)})\n"
+        "assert ck.restore(tree_like={'params': w})[0] == 1\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
         "m.startswith('repro.')]\n"

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the native-scan, select, fused, packed, gear, masks and fingerprint
-kernels at the sizes the paths launch them, on one NVIDIA card.
+"""Time the native-scan, select, fused, packed, gear, masks, fingerprint and
+recurrent-family kernels at the sizes the paths launch them, on one
+NVIDIA card.
 
 Run from the root of a checkout: ``python3 bench_scans.py [--src DIR]
 [--label NAME] [--only GROUPS] [--json FILE]``.  ``--src`` names the
@@ -36,7 +37,14 @@ time, the wrapper's allocations included), after one warm-up call:
   2 MiB x 4, phase 4's widest bucket (objects up to 2 MiB; ``slots=8``
   capped at 4 rows by the scheduler's 8 MiB batch), twenty timed calls;
   also its device time with every count 0, the cost of its grid alone
-  (a CTA a slot that reads one count and writes zeros).
+  (a CTA a slot that reads one count and writes zeros);
+* the recurrent families' kernels at ``chip_smoke.py`` phase 3's cases,
+  the shapes phase 10 launches them: the RG-LRU's linear scan (1 x 4,096
+  and 1 x 32,768 x 2,560), the mLSTM's chunk carry (16 and 128 chunks of
+  4 heads of 384), the sLSTM's recurrence (4,096 and 32,768 steps at D
+  768, bfloat16) and flash at recurrentgemma-2b's head width 256 (4,096
+  tokens, 10 heads over 1 KV head, window 2048), with their device time
+  a call.
 
 The packed, gear, masks and fingerprint rows also give the kernels'
 device time a call, from a ``torch.profiler`` trace
@@ -45,8 +53,8 @@ launches apart): at these sizes a call's host overhead can exceed its
 kernels' time.
 
 ``--only`` takes a comma-separated subset of the groups ``select`` (with
-the fused pipeline), ``native``, ``packed``, ``gear``, ``masks`` and
-``fingerprint``.
+the fused pipeline), ``native``, ``packed``, ``gear``, ``masks``,
+``fingerprint`` and ``recurrent``.
 
 Each output's SHA-256 digest is printed, so two trees' outputs can be
 held equal.  ``--sass FILE`` also writes ``cuobjdump -sass`` of the built
@@ -63,8 +71,12 @@ import subprocess
 import sys
 
 from chip_smoke import (
+    FLASH_CASES,
+    LINEAR_SCAN_CASES,
+    MLSTM_SCAN_CASES,
     PACKED_MIXES,
     SCAN_ALGOS,
+    SLSTM_SCAN_CASES,
     device_ms,
     packed_rows,
     scan_kwargs,
@@ -303,9 +315,74 @@ def fingerprint_rows(seed: int) -> dict:
     return out
 
 
+def recurrent_rows(seed: int) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attn as kflash
+    from repro_torch.kernels import linear_scan as kscan
+    from repro_torch.kernels import mlstm_scan as kmlstm
+    from repro_torch.kernels import slstm_scan as kslstm
+
+    rng = np.random.default_rng(seed + 6)
+
+    def f32(shape, lo=None, hi=None, std=1.0):
+        x = (rng.uniform(lo, hi, shape) if lo is not None
+             else rng.standard_normal(shape) * std)
+        return torch.from_numpy(x.astype(np.float32)).cuda()
+
+    def row(run, reps, kernel):
+        ms = call_ms(run, reps)
+        got = run()
+        if torch.is_tensor(got):
+            flat = [got]
+        elif isinstance(got[1], tuple):  # (hs, state)
+            flat = [got[0], *got[1]]
+        else:
+            flat = list(got)
+        return dict(ms=ms, mean_ms=sum(ms) / len(ms),
+                    device_ms=device_ms(run, reps, kernel)[0],
+                    digest=digest(flat))
+
+    out = {}
+    for label, B, T, N in LINEAR_SCAN_CASES:
+        a, b, h0 = (f32((B, T, N), 0.0, 0.95), f32((B, T, N), std=0.5),
+                    f32((B, N)))
+        out[f"linear_scan {label}"] = row(
+            lambda: kscan.linear_scan(a, b, h0), 5, "linear_scan_kernel")
+    for label, B, nc, H, hd in MLSTM_SCAN_CASES:
+        ins = (-f32((B, nc, H), 0.0, 80.0), f32((B, nc, H)),
+               f32((B, nc, H, hd, hd)), f32((B, nc, H, hd)),
+               torch.zeros((B, H, hd, hd), device="cuda"),
+               torch.zeros((B, H, hd), device="cuda"),
+               torch.full((B, H), -1e30, device="cuda"))
+        out[f"mlstm_scan {label}"] = row(
+            lambda: kmlstm.mlstm_scan(*ins), 10, "mlstm_scan_kernel")
+    for label, B, S, H, hd in SLSTM_SCAN_CASES:
+        D = H * hd
+        xg = f32((B, S, 4, D), std=0.5).to(torch.bfloat16)
+        r = f32((4, H, hd, hd), std=0.02).to(torch.bfloat16)
+        st = kslstm.SLSTMState(*(torch.zeros((B, D), device="cuda")
+                                 for _ in range(3)),
+                               torch.full((B, D), -1e30, device="cuda"))
+        out[f"slstm_scan {label}"] = row(
+            lambda: kslstm.slstm_scan(xg, r, st), 3, "slstm_scan_kernel")
+    for label, B, S, H, KV, hd, dt, causal, window in FLASH_CASES:
+        if hd != 256:
+            continue
+        q, k, v = (f32(shape, std=0.5).to(getattr(torch, dt))
+                   for shape in ((B, S, H, hd), (B, S, KV, hd),
+                                 (B, S, KV, hd)))
+        out[f"flash_attn {label}"] = row(
+            lambda: kflash.flash_attention(q, k, v, causal=causal,
+                                           window=window), 20, "flash_attn_")
+    return out
+
+
 GROUPS = {"select": select_rows, "native": native_rows,
           "packed": packed_rows_timed, "gear": gear_rows,
-          "masks": masks_rows, "fingerprint": fingerprint_rows}
+          "masks": masks_rows, "fingerprint": fingerprint_rows,
+          "recurrent": recurrent_rows}
 
 
 def main(argv=None) -> int:

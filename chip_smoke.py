@@ -31,9 +31,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It drives only
    attention kernel at llama3.2-1b's serving shapes (1 x 2048 and 4096
    tokens, 32 query and 8 KV heads of width 64, causal, bfloat16 and
    float32), at phase 9's training shape (a microbatch of 2 x 2048,
-   bfloat16) and one small ragged case each for the full mask and a local
-   window, with its error beside the stated tolerance, kernel, plain and
-   SDPA times and its bound, and the count of tensor-core instructions
+   bfloat16), at recurrentgemma-2b's local MQA (4,096 tokens, 10 query
+   heads and 1 KV head of width 256, window 2048, bfloat16) and one small
+   ragged case each for the full mask and a local window, with its error
+   beside the stated tolerance, kernel, plain and SDPA times (the window
+   as a boolean mask) and its bound; the recurrent families' three scans
+   at the shapes phase 10 launches them, each within its stated
+   tolerance of its plain version, with kernel, plain and bound times: the
+   RG-LRU's linear scan at 1 x 4,096 and 1 x 32,768 x 2,560 from a
+   non-zero h0, the mLSTM's chunk carry over 16 and 128 chunks of 4 heads
+   of 384, the sLSTM's recurrence over 4,096 and 32,768 steps at D 768
+   (bfloat16); and the count of tensor-core instructions
    (``HMMA``/``HGMMA``) in the built flash library's bfloat16 and float32
    kernels, from ``cuobjdump -sass``; the fused kernel also on two
    adversarial 1 MiB x 8 batches (constant bytes, where only max-size cuts
@@ -100,13 +108,31 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It drives only
    and once resumed from step 2's checkpoint, final parameters and
    optimizer state bit-equal, save and restore MB/s and the store's dedup
    savings;
-10. the ``kernels`` JSON line, then the result line.
+10. the recurrent and hybrid families served at their published size,
+   ``recurrentgemma-2b`` (3.55 B parameters: RG-LRU blocks and local MQA)
+   and ``xlstm-125m`` (mLSTM and sLSTM), random bfloat16 weights from the
+   seed: ``Engine`` with 4 slots and a 32,832-token cache, 7 requests of
+   32768, 8192, 4096, 2048, 1024, 512 and 37 prompt tokens, 32 new each;
+   prefill ms per prompt, decode tokens/s, peak memory, the device's busy
+   share over the decode-only steps, the launches of flash and of the
+   three scans (exactly those the prefills make), and the decode state's
+   bytes a slot (equal at the cache length and at twice it); then the
+   decode-equals-forward gate at one pattern period of layers (3 and 6)
+   at full width: an 8,192-token prefill and 8 greedy decode steps
+   against one ``forward`` over the same tokens, logits within the
+   tolerance between routes and the greedy tokens the forward's argmax
+   (or near-ties within twice the routes' difference);
+11. the ``kernels`` JSON line, then the result line.
 
-The launch counts are set to 0 before the block-max op in phase 3, before
-phases 4, 5, 6, 7 and 8, and before phase 9's ingest and its training
-run, and read after each; every kernel must launch in one of them, and
-each phase must launch the kernels of its own path.  The ``kernels`` line
-sums them.
+Phases 7 and 10 count, in the traced replay of their decode steps, the
+kernel launches the host issued against the kernels the trace recorded,
+and print both beside the busy share where they differ (the share is then
+a lower bound).  The launch counts are set to 0 before the block-max op
+in phase 3, before phases 4, 5, 6, 7 and 8, before phase 9's ingest and
+its training run, and before each of phase 10's two serving runs, and
+read after each; every kernel must launch in one of them, and each phase
+must launch the kernels of its own path.  The ``kernels`` line sums
+them.
 
 It exits non-zero, with no result line, without a CUDA card, outside a
 checkout of the repo, or when any phase fails.
@@ -827,14 +853,18 @@ def block_max_path(seed: int, n: int, kernels) -> dict:
 #: (label, B, S, H, KV, hd, dtype, causal, window): the serving shapes of
 #: llama3.2-1b (32 query and 8 KV heads of width 64) at the two prompt
 #: lengths that take the flash route, phase 9's training shape (batch 8
-#: in microbatches of 4 gives 2 rows of 2048), and one small ragged case
-#: each for the full (non-causal) mask and a local window
+#: in microbatches of 4 gives 2 rows of 2048), recurrentgemma-2b's local
+#: MQA (10 query heads and 1 KV head of width 256, window 2048) at a
+#: 4,096-token prompt, and one small ragged case each for the full
+#: (non-causal) mask and a local window
 FLASH_CASES = [
     ("S2048 bf16", 1, 2048, 32, 8, 64, "bfloat16", True, 0),
     ("S2048 bf16 B2", 2, 2048, 32, 8, 64, "bfloat16", True, 0),
     ("S4096 bf16", 1, 4096, 32, 8, 64, "bfloat16", True, 0),
     ("S2048 f32", 1, 2048, 32, 8, 64, "float32", True, 0),
     ("S4096 f32", 1, 4096, 32, 8, 64, "float32", True, 0),
+    ("S4096 hd256 window 2048 bf16", 1, 4096, 10, 1, 256, "bfloat16", True,
+     2048),
     ("S96 hd16 full", 2, 96, 4, 2, 16, "float32", False, 0),
     ("S96 hd16 window 24", 2, 96, 4, 2, 16, "float32", True, 24),
 ]
@@ -922,6 +952,148 @@ def flash_phase(seed: int) -> dict:
                 q, k, v, **kw, **blk), 3),
             library_ms=library_ms,
         ))
+    return out
+
+
+# -- phase 3, the recurrent families' scans -------------------------------------
+
+#: (label, B, T, N): the RG-LRU's scan (kernel A) at recurrentgemma-2b's
+#: LRU width for a 4,096- and a 32,768-token prompt, from a non-zero h0
+LINEAR_SCAN_CASES = [("T4096", 1, 4096, 2560), ("T32768", 1, 32768, 2560)]
+#: (label, B, nc, H, hd): the mLSTM's chunk carry (kernel B) at
+#: xlstm-125m's width (4 heads of 1536 / 4 = 384, chunks of 256 tokens):
+#: a 4,096- and a 32,768-token prompt's chunks
+MLSTM_SCAN_CASES = [("16 chunks", 1, 16, 4, 384),
+                    ("128 chunks", 1, 128, 4, 384)]
+#: (label, B, S, H, hd): the sLSTM's recurrence (kernel D) at xlstm-125m's
+#: width (D 768, 4 heads of 192), bfloat16 gate inputs and weights
+SLSTM_SCAN_CASES = [("S4096", 1, 4096, 4, 192), ("S32768", 1, 32768, 4, 192)]
+
+
+def float_err(name: str, got, want, tol: dict) -> tuple[float, float]:
+    """The largest ``|got - want|`` over paired float outputs and the
+    largest share of the elementwise tolerance ``atol + rtol |want|`` it
+    uses; raises when an output is not finite or a share is above 1."""
+    import torch
+
+    err = worst = 0.0
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        if tuple(g.shape) != tuple(w.shape) or not bool(
+                torch.isfinite(g).all()):
+            raise AssertionError(f"{name}: shape {tuple(g.shape)} vs "
+                                 f"{tuple(w.shape)}, or not finite")
+        d = (g - w).abs()
+        err = max(err, float(d.max()))
+        worst = max(worst, float((d / (tol["atol"] + tol["rtol"] * w.abs()))
+                                 .max()))
+    if not worst <= 1.0:
+        raise AssertionError(f"{name}: max_abs_err {err}, {worst:.3f} of the "
+                             f"tolerance {tol}")
+    return err, worst
+
+
+def scan_phase(seed: int) -> dict:
+    """The recurrent families' three scans against their plain versions at
+    the shapes phase 10 launches them, with kernel, plain and bound times
+    (no single PyTorch call computes any of them: ``library_ms`` None)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import linear_scan as kscan
+    from repro_torch.kernels import mlstm_scan as kmlstm
+    from repro_torch.kernels import slstm_scan as kslstm
+
+    def f32(rng, shape, lo=None, hi=None, std=1.0):
+        x = (rng.uniform(lo, hi, shape) if lo is not None
+             else rng.standard_normal(shape) * std)
+        return torch.from_numpy(x.astype(np.float32)).cuda()
+
+    out = {}
+    for label, B, T, N in LINEAR_SCAN_CASES:
+        rng = np.random.default_rng(seed + T)
+        a, b = f32(rng, (B, T, N), 0.0, 0.95), f32(rng, (B, T, N), std=0.5)
+        h0 = f32(rng, (B, N))
+        err, worst = float_err(f"linear_scan {label}",
+                               kscan.linear_scan(a, b, h0),
+                               kscan.linear_scan_plain(a, b, h0),
+                               kscan.TOLERANCE)
+        bms, by = bound_ms(4 * (3 * B * T * N + 2 * B * N), 2 * B * T * N)
+        out[f"linear_scan {label}"] = timed(dict(
+            max_abs_err=err, tol_used=worst, tolerance=kscan.TOLERANCE,
+            bound_ms=bms, bound_by=by, library_ms=None,
+            shape=f"{B}x{T}x{N} float32, h0 non-zero",
+            **kernel_times(lambda: kscan.linear_scan(a, b, h0), 5,
+                           "linear_scan_kernel"),
+            plain_ms=cuda_ms(lambda: kscan.linear_scan_plain(a, b, h0), 3)))
+        del a, b
+    for label, B, nc, H, hd in MLSTM_SCAN_CASES:
+        rng = np.random.default_rng(seed + nc)
+        ins = (-f32(rng, (B, nc, H), 0.0, 80.0), f32(rng, (B, nc, H)),
+               f32(rng, (B, nc, H, hd, hd)), f32(rng, (B, nc, H, hd)),
+               torch.zeros((B, H, hd, hd), device="cuda"),
+               torch.zeros((B, H, hd), device="cuda"),
+               torch.full((B, H), -1e30, device="cuda"))
+        err, worst = float_err(f"mlstm_scan {label}", kmlstm.mlstm_scan(*ins),
+                               kmlstm.mlstm_scan_plain(*ins),
+                               kmlstm.TOLERANCE)
+        entries = B * H * (hd * hd + hd)
+        # read: the chunk sums, btot and mc, the state; written: the state
+        # at every chunk start and after the last
+        nbytes = 4 * (2 * entries * nc + 3 * B * nc * H + 2 * entries
+                      + 2 * B * H)
+        bms, by = bound_ms(nbytes, 5 * entries * nc)
+        out[f"mlstm_scan {label}"] = timed(dict(
+            max_abs_err=err, tol_used=worst, tolerance=kmlstm.TOLERANCE,
+            bound_ms=bms, bound_by=by, library_ms=None,
+            shape=f"{B}x{nc} chunks x{H} heads of {hd} float32",
+            **kernel_times(lambda: kmlstm.mlstm_scan(*ins), 10,
+                           "mlstm_scan_kernel"),
+            plain_ms=cuda_ms(lambda: kmlstm.mlstm_scan_plain(*ins), 3)))
+        del ins
+    for label, B, S, H, hd in SLSTM_SCAN_CASES:
+        rng = np.random.default_rng(seed + S)
+        D = H * hd
+        xg = f32(rng, (B, S, 4, D), std=0.5).to(torch.bfloat16)
+        r = f32(rng, (4, H, hd, hd), std=0.02).to(torch.bfloat16)
+        st = kslstm.SLSTMState(*(torch.zeros((B, D), device="cuda")
+                                 for _ in range(3)),
+                               torch.full((B, D), -1e30, device="cuda"))
+        got = kslstm.slstm_scan(xg, r, st)
+        t0 = time.perf_counter()
+        want = kslstm.slstm_scan_plain(xg, r, st)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3  # one call, host clock
+        # held to the plain version in float64, as accurately as the plain
+        # version in float32 (kslstm.ACCURACY: no fixed tolerance holds
+        # between two float32 forms over thousands of steps)
+        want64 = kslstm.slstm_scan_plain(
+            xg.double(), r.double(),
+            kslstm.SLSTMState(*(t.double() for t in st)))
+        worst = kslstm.accuracy_ratio(got, want, want64)
+        outs = list(zip([got[0], *got[1]], [want[0], *want[1]],
+                        [want64[0], *want64[1]]))
+        err = max(float((g.float() - w).abs().max()) for g, w, _ in outs)
+        own = {name: float((w.double() - w64).abs().max()) for name, (
+            _, w, w64) in zip(("hs", "h", "c", "n", "m"), outs)}
+        if not worst <= 1.0 or not all(bool(torch.isfinite(g).all())
+                                       for g, _, _ in outs):
+            raise AssertionError(f"slstm_scan {label}: {worst:.3f} of its "
+                                 f"accuracy bound; the float32 plain "
+                                 f"version's own error {own}")
+        nbytes = xg.numel() * 2 + r.numel() * 2 + 4 * (8 * B * D + B * S * D)
+        bms, by = bound_ms(nbytes, B * S * (8 * D * hd + 20 * D))
+        out[f"slstm_scan {label}"] = timed(dict(
+            max_abs_err=err, tol_used=worst, plain_f32_err=own,
+            tolerance=f"error against the plain version in float64 at most "
+                      f"{kslstm.ACCURACY:g} x the float32 plain version's "
+                      f"own + {kslstm.TOLERANCE['atol']:g}",
+            bound_ms=bms, bound_by=by, library_ms=None, plain_ms=plain_ms,
+            shape=f"{B}x{S}, D {D}, {H} heads of {hd}, bfloat16 gates and "
+                  f"weights",
+            **kernel_times(lambda: kslstm.slstm_scan(xg, r, st), 2,
+                           "slstm_scan_kernel")))
+        del xg, got, want, want64
     return out
 
 
@@ -1298,35 +1470,56 @@ SERVE_CACHE = 4160
 LOGITS_TOL = {"bfloat16": 0.25, "float32": 1e-4}
 
 
-def serving_phase(seed: int, kernels) -> dict:
-    """``Engine`` with random bfloat16 weights at full llama3.2-1b width:
-    8 requests of SERVE_PROMPTS tokens, 32 new tokens each, greedy, on 4
-    slots; the launch counts set to 0 just before and read just after.
-    Then the device's busy share over the run's first decode-only steps,
-    and one 2048-token prompt's last-token logits on the flash route
-    against the materialised route, in bfloat16 and in float32."""
-    import numpy as np
+#: the host-side calls that launch a kernel, as the profiler's CPU trace
+#: records them (the CUDA runtime API's and the lower-level API's)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+
+
+def traced_device(prof) -> dict:
+    """From a trace of CPU and CUDA activity: the device's busy time (every
+    kernel, copy and fill it recorded), the kernels it recorded, and the
+    kernel launches the host issued (its launch calls)."""
+    from torch.autograd import DeviceType
+
+    us = kernels = launches = 0
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            us += ev.time_range.elapsed_us()
+            if not ev.name.startswith(("Memcpy", "Memset")):
+                kernels += 1
+        elif ev.name in LAUNCH_CALLS:
+            launches += 1
+    return dict(device_us=us, kernels=kernels, launches=launches)
+
+
+def share_note(t: dict) -> str:
+    """How far a traced busy share can be trusted: the launches the host
+    issued against the kernels the trace recorded (the profiler misses
+    launches late in a long process)."""
+    if t["kernels"] == t["launches"]:
+        return f"all {t['launches']} launches traced"
+    if t["kernels"] < t["launches"]:
+        return (f"a lower bound: the trace recorded {t['kernels']} of the "
+                f"{t['launches']} kernels the host launched")
+    return (f"{t['kernels']} kernels traced against {t['launches']} launch "
+            f"calls recorded: the host trace missed some calls")
+
+
+def serve_checked(cfg, params, scfg, prompts, kernels, warm) -> dict:
+    """``Engine`` over ``prompts`` after a warm-up on the ``warm`` prompts
+    (cuBLAS, the allocator, the kernels' first launches), the launch counts
+    set to 0 just before the run and read just after; every request must
+    finish with its new tokens in range and every logit finite.  Then the
+    device's busy share over the run's decode-only steps after the first
+    (until the next admission): their device time traced in a replay of
+    the same requests (greedy, so the same steps) over their seconds in the
+    untraced run, with the launches the host issued in the traced steps
+    against the kernels the trace recorded."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import get_config
-    from repro_torch.models import lm
-    from repro_torch.models.layers import template_map
     from repro_torch.serve import Engine, ServeConfig
-
-    cfg = get_config("llama3.2-1b")
-    t0 = time.perf_counter()
-    params = lm.init_params(
-        cfg, torch.Generator(device="cuda").manual_seed(seed))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    leaves = []
-    template_map(leaves.append, lm.lm_template(cfg))
-    n_params = sum(math.prod(t.shape) for t in leaves)
-    rng = np.random.default_rng(seed + 7)
-    prompts = [rng.integers(0, cfg.vocab_size, n) for n in SERVE_PROMPTS]
-    scfg = ServeConfig(max_slots=SERVE_SLOTS, cache_len=SERVE_CACHE,
-                       max_new_tokens=SERVE_NEW)
 
     class CheckedEngine(Engine):
         """Keeps every sampled step's logits' finiteness on the card, and
@@ -1347,12 +1540,14 @@ def serving_phase(seed: int, kernels) -> dict:
             self.steps.append((len(self.stats.prefill) > n,
                                self.stats.decode_s - s_))
 
-    # cuBLAS and allocator warm-up on the shortest prompt (no flash route)
-    warm = Engine(cfg, params, ServeConfig(max_slots=SERVE_SLOTS,
-                                           cache_len=256, max_new_tokens=2))
-    warm.submit(prompts[-1])
-    warm.run()
-    del warm
+    w = Engine(cfg, params, ServeConfig(max_slots=scfg.max_slots,
+                                        cache_len=scfg.cache_len,
+                                        max_new_tokens=2))
+    for p in warm:
+        w.submit(p)
+    w.run()
+    del w
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     eng = CheckedEngine(cfg, params, scfg)
     for p in prompts:
@@ -1367,19 +1562,16 @@ def serving_phase(seed: int, kernels) -> dict:
     launches = {k.name: k.launches for k in kernels}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if sorted(out) != list(range(len(prompts))):
-        raise AssertionError(f"requests {sorted(out)} finished, not all 8")
+        raise AssertionError(f"requests {sorted(out)} finished, not all "
+                             f"{len(prompts)}")
     for rid, toks in out.items():
-        if len(toks) != SERVE_NEW or not all(
+        if len(toks) != scfg.max_new_tokens or not all(
                 0 <= t < cfg.vocab_size for t in toks):
             raise AssertionError(f"request {rid}: {len(toks)} tokens, "
                                  f"range {min(toks)}-{max(toks)}")
     if not bool(torch.stack(eng.finite).all()):
         raise AssertionError("non-finite logits while serving")
     st = eng.stats
-    # the device's busy share over the steps after the first that admit
-    # nothing (4 slots decoding at 2,050-4,127 tokens of context): their
-    # device time traced in a replay of the same requests (greedy, so the
-    # same steps), over their seconds in the untraced run above
     n_busy = next(i for i, (admitted, _) in enumerate(eng.steps[1:], 1)
                   if admitted) - 1
     busy_s = sum(s_ for _, s_ in eng.steps[1:1 + n_busy])
@@ -1387,22 +1579,75 @@ def serving_phase(seed: int, kernels) -> dict:
     replay = Engine(cfg, params, scfg)
     for p in prompts:
         replay.submit(p)
-    replay.step()  # the first four prefills and the first decode step
+    replay.step()  # the first prefills and the first decode step
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         for _ in range(n_busy):
             replay.step()
         torch.cuda.synchronize()
-    if len(replay.stats.prefill) != SERVE_SLOTS:
+    if len(replay.stats.prefill) != min(scfg.max_slots, len(prompts)):
         raise AssertionError("the traced replay steps admitted requests")
     del replay
-    device_us = kernels = 0
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", 0.0) or getattr(
-            ev, "self_cuda_time_total", 0.0)
-        if us > 0:
-            device_us += us
-            kernels += ev.count
+    tr = traced_device(prof)
+    prefill = {}
+    for n, s_ in st.prefill:
+        prefill.setdefault(n, []).append(s_ * 1e3)
+    return dict(
+        out=out, wall_s=wall_s, launches=launches, peak_gb=peak_gb,
+        tokens=sum(map(len, out.values())), prefill_ms=prefill,
+        prefill_tok_s=sum(n for n, _ in st.prefill)
+        / sum(s_ for _, s_ in st.prefill),
+        decode_steps=st.decode_steps, decode_s=st.decode_s,
+        decode_tokens=st.decode_tokens,
+        decode_tok_s=st.decode_tokens / st.decode_s,
+        decode_ms_per_step=st.decode_s / st.decode_steps * 1e3,
+        busy_steps=n_busy, busy_s=busy_s,
+        busy_share=tr["device_us"] / 1e6 / busy_s,
+        busy_note=share_note(tr), busy_traced=tr,
+        busy_device_ms_per_step=tr["device_us"] / 1e3 / n_busy,
+        busy_step_ms=busy_s / n_busy * 1e3,
+        busy_kernels_per_step=tr["kernels"] / n_busy,
+        busy_launches_per_step=tr["launches"] / n_busy)
+
+
+def n_params_of(cfg) -> int:
+    from repro_torch.models import lm
+    from repro_torch.models.layers import template_map
+
+    leaves = []
+    template_map(leaves.append, lm.lm_template(cfg))
+    return sum(math.prod(t.shape) for t in leaves)
+
+
+def serving_phase(seed: int, kernels) -> dict:
+    """``Engine`` with random bfloat16 weights at full llama3.2-1b width:
+    8 requests of SERVE_PROMPTS tokens, 32 new tokens each, greedy, on 4
+    slots, and the device's busy share over the run's decode-only steps
+    (``serve_checked``: 4 slots decoding at 2,050-4,127 tokens of
+    context).  Then one 2048-token prompt's last-token logits on the flash
+    route against the materialised route, in bfloat16 and in float32."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeConfig
+
+    cfg = get_config("llama3.2-1b")
+    t0 = time.perf_counter()
+    params = lm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 7)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in SERVE_PROMPTS]
+    scfg = ServeConfig(max_slots=SERVE_SLOTS, cache_len=SERVE_CACHE,
+                       max_new_tokens=SERVE_NEW)
+    # the warm-up on the shortest prompt (no flash route)
+    res = serve_checked(cfg, params, scfg, prompts, kernels,
+                        warm=prompts[-1:])
+    del res["out"]
 
     # flash route against the materialised route on one 2048-token prompt
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1432,23 +1677,8 @@ def serving_phase(seed: int, kernels) -> dict:
             if logits[dt]["argmax"][0] != logits[dt]["argmax"][1]:
                 raise AssertionError(f"{dt} argmax differs: {logits[dt]}")
             del p, a, b
-    prefill = {}
-    for n, s_ in st.prefill:
-        prefill.setdefault(n, []).append(s_ * 1e3)
-    return dict(
-        params=n_params, init_s=init_s, wall_s=wall_s, launches=launches,
-        tokens=sum(map(len, out.values())), prefill_ms=prefill,
-        prefill_tok_s=sum(n for n, _ in st.prefill)
-        / sum(s_ for _, s_ in st.prefill),
-        decode_steps=st.decode_steps, decode_s=st.decode_s,
-        decode_tokens=st.decode_tokens,
-        decode_tok_s=st.decode_tokens / st.decode_s,
-        decode_ms_per_step=st.decode_s / st.decode_steps * 1e3,
-        peak_gb=peak_gb, logits=logits, busy_steps=n_busy,
-        busy_s=busy_s, busy_share=device_us / 1e6 / busy_s,
-        busy_device_ms_per_step=device_us / 1e3 / n_busy,
-        busy_step_ms=busy_s / n_busy * 1e3,
-        busy_kernels_per_step=kernels / n_busy)
+    return dict(params=n_params_of(cfg), init_s=init_s, logits=logits,
+                **res)
 
 
 # -- phase 8: the scenarios through the service -----------------------------
@@ -1927,6 +2157,163 @@ def restart_check(seed: int, unique) -> dict:
             if "determinis" in str(w.message)}))
 
 
+# -- phase 10: the recurrent and hybrid families served at full width --------
+
+RECURRENT_ARCHS = ("recurrentgemma-2b", "xlstm-125m")
+#: prompt lengths of phase 10's requests, in submission order: those above
+#: 1024 tokens are multiples of 1024 (the reference's tile assert), and
+#: 32,768 is the long-context case these constant-state architectures
+#: exist for
+RECURRENT_PROMPTS = (32768, 8192, 4096, 2048, 1024, 512, 37)
+#: the engine's cache length: holds the longest prompt and its new tokens
+#: (only attention caches depend on it, and the hybrid's is the 2048-token
+#: window)
+RECURRENT_CACHE = 32768 + 64
+#: the decode-equals-forward gate: one pattern period of layers at full
+#: width, an 8,192-token prefill, then 8 greedy decode steps
+GATE_LAYERS = {"recurrentgemma-2b": 3, "xlstm-125m": 6}
+GATE_PROMPT = 8192
+GATE_STEPS = 8
+
+
+def expected_launches(cfg, prompts) -> dict:
+    """The scan and flash launches that prefilling ``prompts`` makes: flash
+    once an attention layer for a prompt above ``attn_kv_block``, the
+    RG-LRU and sLSTM scans once a layer, the mLSTM carry once a layer (twice
+    for a ragged prompt: the whole chunks, then the tail)."""
+    from repro_torch.models.transformer import layer_kinds
+
+    kinds = layer_kinds(cfg)
+
+    def n(kind):
+        return kinds.count(kind)
+
+    flash = sum(bool(cfg.attn_kv_block) and S > cfg.attn_kv_block
+                for S in prompts)
+    mlstm = sum(1 if S % min(cfg.mlstm_chunk, S) == 0 else 2
+                for S in prompts)
+    return {"flash_attn": flash * n("attn"),
+            "linear_scan": len(prompts) * n("rglru"),
+            "mlstm_scan": mlstm * n("mlstm"),
+            "slstm_scan": len(prompts) * n("slstm")}
+
+
+def state_bytes_per_slot(cfg, cache_len: int) -> int:
+    """Bytes of one slot's decode state (every layer's cache) at
+    ``cache_len``, from the caches' shapes and types alone."""
+    from repro_torch._tree import leaves
+    from repro_torch.models import lm
+
+    caches = lm.init_caches(cfg, 1, cache_len, device="meta")
+    return sum(t.numel() * t.element_size() for t in leaves(caches))
+
+
+def decode_gate(seed: int, arch: str) -> dict:
+    """One pattern period of ``arch`` at full width (random bf16 weights):
+    an 8,192-token prefill and 8 greedy decode steps, against one
+    ``forward`` over the prompt and the tokens decoded (8,200 tokens; the
+    hybrid's attention on the materialised route in query blocks that
+    divide 8,200, as the tile assert asks).  At each of the 9 positions the
+    two routes' logits must agree within the phase 7 tolerance between
+    routes (``LOGITS_TOL``), and the greedy token must be the forward's
+    argmax, or, where it is not, a near-tie: within twice that position's
+    difference between the routes of the forward's own maximum."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    cfg = get_config(arch).replace(n_layers=GATE_LAYERS[arch])
+    params = lm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(seed + 1))
+    rng = np.random.default_rng(seed + 11)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, GATE_PROMPT),
+                             device="cuda")[None]
+    with torch.inference_mode():
+        lg, caches = lm.prefill_step(cfg, params, {"tokens": prompt},
+                                     GATE_PROMPT + GATE_STEPS + 1)
+        dec = [lg[0].float()]
+        for i in range(GATE_STEPS):
+            tok = dec[-1].argmax().reshape(1, 1)
+            lg, caches = lm.decode_step(cfg, params, caches, tok,
+                                        GATE_PROMPT + i)
+            dec.append(lg[0].float())
+        toks = torch.stack([d.argmax() for d in dec])
+        seq = torch.cat([prompt, toks[None, :-1]], 1)
+        S = seq.shape[1]
+        qb = max(d for d in range(1, 1025) if S % d == 0)
+        fcfg = cfg.replace(attn_kv_block=0, attn_q_block=qb)
+        full = lm.forward(fcfg, params, {"tokens": seq})[0, GATE_PROMPT - 1:]
+        full = full.float()
+    tol = LOGITS_TOL["bfloat16"]
+    steps = []
+    for i, d in enumerate(dec):
+        f = full[i]
+        err = float((d - f).abs().max())
+        t_dec, t_fwd = int(d.argmax()), int(f.argmax())
+        margin = float(f[t_fwd] - f[t_dec])
+        top2 = torch.topk(f, 2).values
+        steps.append(dict(max_abs_err=err, token=t_dec, forward=t_fwd,
+                          margin=margin, top2_gap=float(top2[0] - top2[1])))
+        if not (err <= tol and (t_dec == t_fwd or margin <= 2 * err)):
+            raise AssertionError(f"{arch} decode vs forward at position "
+                                 f"{GATE_PROMPT - 1 + i}: {steps[-1]} "
+                                 f"(tolerance {tol})")
+    del params, caches, full
+    return dict(layers=cfg.n_layers, q_block=qb, steps=steps,
+                equal=sum(s["token"] == s["forward"] for s in steps),
+                max_abs_err=max(s["max_abs_err"] for s in steps),
+                tolerance=tol)
+
+
+def recurrent_serving_phase(seed: int, arch: str, kernels) -> dict:
+    """``Engine`` at ``arch``'s published size (random bf16 weights): 7
+    requests of RECURRENT_PROMPTS tokens, 32 new tokens each, greedy, on 4
+    slots, the busy share over the decode-only steps (``serve_checked``),
+    the launches of the flash and scan kernels against those the prefills
+    must make, the decode state's bytes a slot at two cache lengths, then
+    the decode-equals-forward gate."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeConfig
+
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = lm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 10)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in RECURRENT_PROMPTS]
+    scfg = ServeConfig(max_slots=SERVE_SLOTS, cache_len=RECURRENT_CACHE,
+                       max_new_tokens=SERVE_NEW)
+    # the warm-up on the shortest prompt and a 2048-token one (every kernel
+    # of the path, and the flash route)
+    res = serve_checked(cfg, params, scfg, prompts, kernels,
+                        warm=[prompts[-1], prompts[3]])
+    del res["out"], params
+    want = expected_launches(cfg, RECURRENT_PROMPTS)
+    got = {k: res["launches"][k] for k in want}
+    if got != want:
+        raise AssertionError(f"{arch}: launches {got}, the prefills make "
+                             f"{want}")
+    state = {n: state_bytes_per_slot(cfg, n)
+             for n in (RECURRENT_CACHE, 2 * RECURRENT_CACHE)}
+    if len(set(state.values())) != 1:
+        raise AssertionError(f"{arch}: the decode state grows with the "
+                             f"cache length: {state}")
+    torch.cuda.empty_cache()
+    gate = decode_gate(seed, arch)
+    return dict(arch=arch, params=n_params_of(cfg), init_s=init_s,
+                expected_launches=want,
+                state_bytes_per_slot=state[RECURRENT_CACHE],
+                gate=gate, **res)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2075,6 +2462,19 @@ def main(argv=None) -> int:
             f"call), plain {r['plain_ms']:.4f} ms, SDPA {lib}, bound "
             f"{r['bound_ms']:.6f} ms ({r['bound_by']}: {r['gflop']:.2f} "
             f"GFLOP, {r['mbytes']:.2f} MB)")
+    scans = scan_phase(args.seed)
+    measured["scans"] = scans
+    for name, r in scans.items():
+        drift = ("" if "plain_f32_err" not in r else
+                 "; the float32 plain version's own error against float64 "
+                 + ", ".join(f"{k} {v:.3g}"
+                             for k, v in r["plain_f32_err"].items()))
+        log(f"kernel {name} ({r['shape']}): max_abs_err "
+            f"{r['max_abs_err']:.3g} (tolerance {r['tolerance']}, "
+            f"{r['tol_used']:.3f} of it used{drift}), {r['ms']:.4f} ms "
+            f"({r['ms_source']}; {r['call_ms']:.4f} ms per call), plain "
+            f"{r['plain_ms']:.4f} ms, no library call, bound "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']})")
     from repro_torch.kernels import flash_attn as kflash
 
     sass = tensor_core_sass(kflash.KERNEL)
@@ -2093,10 +2493,13 @@ def main(argv=None) -> int:
         flash_attn,
         fused_pipeline,
         gear_hash,
+        linear_scan,
+        mlstm_scan,
         native_scan,
         packed_pipeline,
         select_boundaries,
         seqcdc_masks,
+        slstm_scan,
     )
 
     # block_max is on no chunker's path (nor the reference's): its path is
@@ -2182,12 +2585,13 @@ def main(argv=None) -> int:
         f"({sv['decode_tokens']} tokens in {sv['decode_steps']} steps, "
         f"{sv['decode_ms_per_step']:.3f} ms a step); launches "
         f"{sv['launches']}")
-    log(f"serving: device busy share {sv['busy_share']:.4f} over the "
-        f"run's {sv['busy_steps']} decode-only steps after the first (4 "
-        f"slots, 2,050-4,127 tokens of context; {sv['busy_step_ms']:.3f} "
-        f"ms a step untraced, {sv['busy_device_ms_per_step']:.3f} device "
-        f"ms and {sv['busy_kernels_per_step']:.1f} kernels a step traced "
-        f"in a replay)")
+    log(f"serving: device busy share {sv['busy_share']:.4f} "
+        f"({sv['busy_note']}) over the run's {sv['busy_steps']} "
+        f"decode-only steps after the first (4 slots, 2,050-4,127 tokens "
+        f"of context; {sv['busy_step_ms']:.3f} ms a step untraced, "
+        f"{sv['busy_device_ms_per_step']:.3f} device ms, "
+        f"{sv['busy_kernels_per_step']:.1f} kernels traced and "
+        f"{sv['busy_launches_per_step']:.1f} launched a step in a replay)")
     for dt, r in sv["logits"].items():
         log(f"serving: 2048-token last-token logits, flash vs materialised "
             f"route, {dt}: max_abs_err {r['max_abs_err']:.4g} (tolerance "
@@ -2294,13 +2698,51 @@ def main(argv=None) -> int:
     if t9["flash_launches"] == 0:
         raise AssertionError("training never launched the flash kernel")
 
+    # 10. the recurrent and hybrid families served at full width
+    rec = {}
+    for arch in RECURRENT_ARCHS:
+        r = rec[arch] = recurrent_serving_phase(args.seed, arch, KERNELS)
+        log(f"serving {arch}: published size, {r['params']} parameters "
+            f"(bf16, init {r['init_s']:.2f} s), {len(RECURRENT_PROMPTS)} "
+            f"requests on {SERVE_SLOTS} slots, cache {RECURRENT_CACHE}, "
+            f"{r['tokens']} tokens in {r['wall_s']:.3f} s, peak "
+            f"{r['peak_gb']:.2f} GB")
+        log(f"serving {arch}: prefill ms by prompt length: " + ", ".join(
+            f"{n}: " + "/".join(f"{t:.2f}" for t in ts)
+            for n, ts in r["prefill_ms"].items())
+            + f"; prefill {r['prefill_tok_s']:.1f} prompt tokens/s")
+        log(f"serving {arch}: decode {r['decode_tok_s']:.2f} tokens/s "
+            f"({r['decode_tokens']} tokens in {r['decode_steps']} steps, "
+            f"{r['decode_ms_per_step']:.3f} ms a step); launches of flash "
+            f"and the scans {r['expected_launches']} (as the prefills must "
+            f"make them); decode state {r['state_bytes_per_slot']} bytes a "
+            f"slot at cache {RECURRENT_CACHE} and at twice it")
+        log(f"serving {arch}: device busy share {r['busy_share']:.4f} "
+            f"({r['busy_note']}) over the run's {r['busy_steps']} "
+            f"decode-only steps after the first ({r['busy_step_ms']:.3f} ms "
+            f"a step untraced, {r['busy_device_ms_per_step']:.3f} device "
+            f"ms, {r['busy_kernels_per_step']:.1f} kernels traced and "
+            f"{r['busy_launches_per_step']:.1f} launched a step in a "
+            f"replay)")
+        g = r["gate"]
+        log(f"serving {arch}: decode equals forward at {g['layers']} layers "
+            f"(one pattern period), full width: {GATE_PROMPT}-token prefill "
+            f"and {GATE_STEPS} greedy steps, argmax equal at {g['equal']} of "
+            f"{len(g['steps'])} positions"
+            + ("" if g["equal"] == len(g["steps"]) else " (near-ties elsewhere)")
+            + f", max_abs_err "
+            f"{g['max_abs_err']:.4g} (tolerance {g['tolerance']}); forward "
+            f"attention in query blocks of {g['q_block']}; the forward's "
+            f"top-2 gaps " + ", ".join(f"{st['top2_gap']:.4f}"
+                                       for st in g["steps"]))
+
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith(("jax.", "repro."))
               or m == "repro"]
     if leaked:
         raise AssertionError(f"the port imported {leaked[:5]}")
 
-    # 10. the kernels line and the result
+    # 11. the kernels line and the result
     row_of = {
         packed_pipeline.KERNEL: ("16KiBx8 packed all-tiny",
                                  packed["all-tiny"]),
@@ -2309,6 +2751,12 @@ def main(argv=None) -> int:
         native_scan.KERNEL: (reg["native_scan"]["seqcdc"]["shape"],
                              reg["native_scan"]["seqcdc"]),
         flash_attn.KERNEL: (fl["S4096 bf16"]["shape"], fl["S4096 bf16"]),
+        linear_scan.KERNEL: (scans["linear_scan T4096"]["shape"],
+                             scans["linear_scan T4096"]),
+        mlstm_scan.KERNEL: (scans["mlstm_scan 16 chunks"]["shape"],
+                            scans["mlstm_scan 16 chunks"]),
+        slstm_scan.KERNEL: (scans["slstm_scan S4096"]["shape"],
+                            scans["slstm_scan S4096"]),
     }
     errs = {
         packed_pipeline.KERNEL: [m["max_abs_err"] for m in packed.values()],
@@ -2320,6 +2768,10 @@ def main(argv=None) -> int:
         flash_attn.KERNEL: [m["max_abs_err"] for m in fl.values()],
         fused_pipeline.KERNEL: [m["max_abs_err"]
                                 for m in adversarial.values()],
+        **{k: [m["max_abs_err"] for name, m in scans.items()
+               if name.startswith(k.name)]
+           for k in (linear_scan.KERNEL, mlstm_scan.KERNEL,
+                     slstm_scan.KERNEL)},
     }
     # the times at the sizes phase 6 launches them (no plain time there:
     # the plain versions are Python loops)
@@ -2332,6 +2784,13 @@ def main(argv=None) -> int:
         seqcdc_masks.KERNEL: {
             r["shape"]: r["ms"] for name, r in launched.items()
             if name.startswith("seqcdc_masks")},
+        flash_attn.KERNEL: {
+            fl["S4096 hd256 window 2048 bf16"]["shape"]:
+                fl["S4096 hd256 window 2048 bf16"]["ms"]},
+        **{k: {r["shape"]: r["ms"] for name, r in scans.items()
+               if name.startswith(k.name)}
+           for k in (linear_scan.KERNEL, mlstm_scan.KERNEL,
+                     slstm_scan.KERNEL)},
     }
     rows = []
     for k in KERNELS:
@@ -2343,7 +2802,8 @@ def main(argv=None) -> int:
                     + sh["launches"][k.name] + rg["launches"][k.name]
                     + sv["launches"][k.name] + sc["launches"][k.name]
                     + tr["ingest_launches"][k.name]
-                    + tr["train_launches"][k.name])
+                    + tr["train_launches"][k.name]
+                    + sum(r["launches"][k.name] for r in rec.values()))
         if launches == 0:
             raise AssertionError(f"kernel {k.name} never launched")
         rows.append(dict(
@@ -2361,7 +2821,8 @@ def main(argv=None) -> int:
         with open(args.json, "w") as f:
             json.dump(dict(card=card, build_s=build_s, kernels=measured,
                            service=svc, sharded=sh, registry=rg,
-                           serving=sv, scenarios=sc, training=tr), f,
+                           serving=sv, scenarios=sc, training=tr,
+                           recurrent=rec), f,
                       indent=1, default=float)
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,11 @@
 
 ``get_config(name)`` returns the exact public configuration and
 ``get_reduced(name)`` the family-preserving smoke variant the CPU tests
-use, as in the reference's ``repro/configs``.  The port runs the dense
-block kind only, so it registers ``llama3.2-1b`` alone; any other name
-raises a ``KeyError`` that points at the module queue in ROADMAP.md.
+use, as in the reference's ``repro/configs``.  The port runs the dense,
+hybrid (RG-LRU and local attention) and SSM (mLSTM, sLSTM) block kinds, so
+it registers ``llama3.2-1b``, ``recurrentgemma-2b`` and ``xlstm-125m``; any
+other name raises a ``KeyError`` that points at the module queue in
+ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ from .base import (  # noqa: F401
 
 _MODULES: Dict[str, str] = {
     "llama3.2-1b": "llama32_1b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+    "xlstm-125m": "xlstm_125m",
 }
 
 ARCHS = tuple(_MODULES)
@@ -33,7 +37,7 @@ def _module(name: str):
     except KeyError:
         raise KeyError(
             f"arch {name!r} is not ported: the port serves {list(_MODULES)}; "
-            f"the other families (MoE, MLA, SSM, RG-LRU, hybrid) wait in "
+            f"the other families (MoE, MLA) wait in "
             f"ROADMAP.md's module queue (LM substrate)") from None
     return importlib.import_module(f"{__name__}.{mod}")
 

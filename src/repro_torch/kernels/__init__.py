@@ -18,7 +18,11 @@ plain torch version only for tensors on the CPU:
 * ``native_scan`` — the per-byte native CDC scans (the ``_seq`` chunkers
   and ``boundaries_sequential``), one thread's serial loop per stream;
 * ``flash_attn`` — causal (or full) flash attention forward with grouped
-  KV heads, the LM serving path's prefill attention.
+  KV heads, the LM serving path's prefill attention;
+* ``linear_scan`` — the diagonal linear recurrence of the RG-LRU's prefill;
+* ``mlstm_scan`` — the mLSTM's carry of its matrix state from chunk to
+  chunk;
+* ``slstm_scan`` — the sLSTM's recurrence over a sequence.
 
 Importing this package builds nothing and needs no card.
 """
@@ -30,19 +34,25 @@ from . import (
     flash_attn,
     fused_pipeline,
     gear_hash,
+    linear_scan,
+    mlstm_scan,
     native_scan,
     packed_pipeline,
     select_boundaries,
     seqcdc_masks,
+    slstm_scan,
 )
 
 #: every kernel of the port, in the order of the TPU kernels they replace
 #: (1-6), then the two device forms of the reference's lax.scans, then
-#: TPU kernel 7, flash attention (the LM serving path's)
+#: TPU kernel 7, flash attention (the LM serving path's), then the device
+#: forms of the recurrent families' scans
 KERNELS = (seqcdc_masks.KERNEL, fingerprint.KERNEL, fused_pipeline.KERNEL,
            packed_pipeline.KERNEL, gear_hash.KERNEL, extremum.KERNEL,
-           select_boundaries.KERNEL, native_scan.KERNEL, flash_attn.KERNEL)
+           select_boundaries.KERNEL, native_scan.KERNEL, flash_attn.KERNEL,
+           linear_scan.KERNEL, mlstm_scan.KERNEL, slstm_scan.KERNEL)
 
 __all__ = ["KERNELS", "extremum", "fingerprint", "flash_attn",
-           "fused_pipeline", "gear_hash", "native_scan", "packed_pipeline",
-           "select_boundaries", "seqcdc_masks"]
+           "fused_pipeline", "gear_hash", "linear_scan", "mlstm_scan",
+           "native_scan", "packed_pipeline", "select_boundaries",
+           "seqcdc_masks", "slstm_scan"]

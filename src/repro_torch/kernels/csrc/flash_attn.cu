@@ -42,6 +42,15 @@
 // tolerance at long S.  That costs half again the tensor work of a single
 // bf16 P.V; what bounds this design is mma.sync's rate (below wgmma's) and
 // the softmax between the two products, which 4 warps do not hide.
+// At hd 256 (RecurrentGemma's heads) one warp's float32 accumulators for
+// 16 rows x 256 columns would take 128 registers a lane before the score
+// tile, and the build spilled; so the CTA has 8 warps, two sets of 4 that
+// split hd in halves for P.V (64 registers of accumulators a lane), each
+// set computing the whole score tile and softmax for its rows (Q.K^T, a
+// third of the tensor work, done twice), and each k-step's Q fragment is
+// read from shared memory instead of held in registers.  The tiles take
+// 165 KB of shared memory (Q and two stages of K and V, opted in above
+// 48 KB), one CTA an SM.
 //
 // float32 inputs (flash_attn_f32_kernel): float32 multiply-adds on the
 // CUDA cores, no TF32 anywhere (its 2e-5 tolerance holds only in full
@@ -56,7 +65,9 @@
 // output accumulator in registers.  Score dot products read float4s along
 // hd (rows padded to hd+4 floats: conflict-free); P goes through shared
 // memory for the P.V product.  It is bound by shared-memory reads (three
-// 16-byte loads for 32 multiply-adds).
+// 16-byte loads for 32 multiply-adds).  At hd 256 its tiles take 211 KB of
+// shared memory and its loops are not unrolled (the accumulators fill the
+// registers).
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,6 +107,9 @@ flash_attn_f32_kernel(const float* __restrict__ q,
   constexpr int kCols = D / 8;  // output columns a thread
   constexpr int kVec = kCols < 4 ? kCols : 4;
   constexpr int kGroups = kCols / kVec;
+  // loop unrolling: 2 up to hd 128; 1 at hd 256, whose 4 x 32 float32
+  // accumulators leave no registers for a second iteration's loads
+  constexpr int kUnroll = D > 128 ? 1 : 2;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* Ks = Qs + kBQ * kQS;
@@ -151,7 +165,7 @@ flash_attn_f32_kernel(const float* __restrict__ q,
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-#pragma unroll 2
+#pragma unroll(kUnroll)
     for (int d = 0; d < D; d += 4) {
       float4 qv[4], kv[8];
 #pragma unroll
@@ -212,7 +226,7 @@ flash_attn_f32_kernel(const float* __restrict__ q,
 
     // acc += P . V over the tile's keys; output column of acc[i][gi*kVec+e]
     // is gi*8*kVec + c*kVec + e
-#pragma unroll 2
+#pragma unroll(kUnroll)
     for (int j = 0; j < kBK; j += 4) {
       float4 pv[4];
 #pragma unroll
@@ -276,6 +290,10 @@ struct Bf16Tile {
   static constexpr int kElems = kBQ * kStride;  // one 64-row tile
   // Q, then two stages of (K, V)
   static constexpr size_t kSmemBytes = 5 * (size_t)kElems * sizeof(bf16);
+  // groups of output columns: at hd 256 two sets of 4 warps split hd for
+  // P.V (each set computes the whole score tile for its 16-row groups)
+  static constexpr int kColGroups = D > 128 ? 2 : 1;
+  static constexpr int kCTA = kThreads * kColGroups;  // threads a CTA
 };
 static_assert(kBQ == kBK, "one tile shape for Q, K and V");
 
@@ -343,7 +361,7 @@ __device__ __forceinline__ void load_tile(bf16* tile, const bf16* g,
                                           int tid) {
   constexpr int kChunks = D / 8;  // 16-byte chunks a row
 #pragma unroll
-  for (int i = tid; i < kBK * kChunks; i += kThreads) {
+  for (int i = tid; i < kBK * kChunks; i += Bf16Tile<D>::kCTA) {
     const int r = i / kChunks, c = i % kChunks, pos = row0 + r;
     const bool ok = pos < S;
     cp_async16(smem_addr(tile + r * Bf16Tile<D>::kStride + c * 8),
@@ -352,7 +370,7 @@ __device__ __forceinline__ void load_tile(bf16* tile, const bf16* g,
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Bf16Tile<D>::kCTA)
 flash_attn_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ out,
                        int S, int H, int KV, float scale, int causal,
@@ -360,8 +378,13 @@ flash_attn_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   using Tile = Bf16Tile<D>;
   constexpr int kStride = Tile::kStride;
   constexpr int kKD = D / 16;   // k-steps of Q.K^T along hd
-  constexpr int kND = D / 8;    // 8-wide column blocks of the output
+  constexpr int kGroups = Tile::kColGroups;
+  constexpr int kCols = D / kGroups;  // output columns a warp
+  constexpr int kND = kCols / 8;      // 8-wide column blocks of those
   constexpr int kNK = kBK / 8;  // 8-wide key blocks of a score tile
+  // Q's A fragments stay in registers up to hd 128 (kKD x 4 words); at hd
+  // 256 each k-step reads its Q fragment from shared memory instead
+  constexpr bool kQRegs = D <= 128;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
   auto Ks = [&](int st) { return Qs + (1 + 2 * st) * Tile::kElems; };
@@ -369,6 +392,9 @@ flash_attn_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int quad_row = lane >> 2, quad_col = 2 * (lane & 3);
+  // the warp's 16-row group and its first output column
+  const int wrow = kGroups == 1 ? warp : warp % 4;
+  const int col0 = kGroups == 1 ? 0 : (warp / 4) * kCols;
   const int h = blockIdx.x, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;
   const int g = h / (H / KV);
@@ -390,8 +416,8 @@ flash_attn_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_commit();
 
   // this thread's rows of the warp's 16: quad_row and quad_row + 8
-  const int row0 = q0 + 16 * warp + quad_row, row1 = row0 + 8;
-  uint32_t qf[kKD][4];
+  const int row0 = q0 + 16 * wrow + quad_row, row1 = row0 + 8;
+  uint32_t qf[kQRegs ? kKD : 1][4];
   float o[kND][4];
 #pragma unroll
   for (int nd = 0; nd < kND; ++nd)
@@ -413,12 +439,15 @@ flash_attn_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (it == 0) {  // A fragments of Q: (rows 0-7 | 8-15) x (k 0-7 | 8-15)
+    if constexpr (kQRegs) {
+      if (it == 0) {  // A fragments of Q: (rows 0-7 | 8-15) x (k 0-7 | 8-15)
 #pragma unroll
-      for (int kk = 0; kk < kKD; ++kk)
-        ldsm_x4(smem_addr(Qs + (16 * warp + (lmat & 1) * 8 + lrow) * kStride +
-                          kk * 16 + (lmat >> 1) * 8),
-                qf[kk]);
+        for (int kk = 0; kk < kKD; ++kk)
+          ldsm_x4(smem_addr(Qs + (16 * wrow + (lmat & 1) * 8 + lrow) *
+                                     kStride +
+                            kk * 16 + (lmat >> 1) * 8),
+                  qf[kk]);
+      }
     }
 
     // S = Q.K^T: B fragments of 16 keys x 16 hd per ldmatrix x4
@@ -428,17 +457,38 @@ flash_attn_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
     const bf16* kt = Ks(st);
+    if constexpr (kQRegs) {
 #pragma unroll
-    for (int kk = 0; kk < kKD; ++kk)
+      for (int kk = 0; kk < kKD; ++kk)
 #pragma unroll
-      for (int nb2 = 0; nb2 < kNK / 2; ++nb2) {
-        uint32_t r[4];
-        ldsm_x4(smem_addr(kt + (16 * nb2 + (lmat >> 1) * 8 + lrow) * kStride +
-                          16 * kk + (lmat & 1) * 8),
-                r);
-        mma_bf16(s[2 * nb2], qf[kk], r[0], r[1]);
-        mma_bf16(s[2 * nb2 + 1], qf[kk], r[2], r[3]);
+        for (int nb2 = 0; nb2 < kNK / 2; ++nb2) {
+          uint32_t r[4];
+          ldsm_x4(smem_addr(kt + (16 * nb2 + (lmat >> 1) * 8 + lrow) *
+                                     kStride +
+                            16 * kk + (lmat & 1) * 8),
+                  r);
+          mma_bf16(s[2 * nb2], qf[kk], r[0], r[1]);
+          mma_bf16(s[2 * nb2 + 1], qf[kk], r[2], r[3]);
+        }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < kKD; ++kk) {
+        uint32_t qa[4];
+        ldsm_x4(smem_addr(Qs + (16 * wrow + (lmat & 1) * 8 + lrow) * kStride +
+                          kk * 16 + (lmat >> 1) * 8),
+                qa);
+#pragma unroll
+        for (int nb2 = 0; nb2 < kNK / 2; ++nb2) {
+          uint32_t r[4];
+          ldsm_x4(smem_addr(kt + (16 * nb2 + (lmat >> 1) * 8 + lrow) *
+                                     kStride +
+                            16 * kk + (lmat & 1) * 8),
+                  r);
+          mma_bf16(s[2 * nb2], qa, r[0], r[1]);
+          mma_bf16(s[2 * nb2 + 1], qa, r[2], r[3]);
+        }
       }
+    }
 
     // scale, mask (-inf: weight exactly 0), running max over the quad
     const bool masked = k0 + kBK > S || (causal && k0 + kBK - 1 > q0) ||
@@ -500,7 +550,7 @@ flash_attn_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         uint32_t r[4];  // (keys 0-7 | 8-15) x (hd 0-7 | 8-15), transposed
         ldsm_x4_trans(smem_addr(vt + (16 * j + (lmat & 1) * 8 + lrow) *
                                          kStride +
-                                16 * nd2 + (lmat >> 1) * 8),
+                                col0 + 16 * nd2 + (lmat >> 1) * 8),
                       r);
         mma_bf16(o[2 * nd2], hi, r[0], r[1]);
         mma_bf16(o[2 * nd2], lo, r[0], r[1]);
@@ -521,7 +571,7 @@ flash_attn_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < 2; ++i) {
     const int qpos = i ? row1 : row0;
     if (qpos >= S) continue;
-    bf16* orow = ob + (long long)qpos * qstride + quad_col;
+    bf16* orow = ob + (long long)qpos * qstride + col0 + quad_col;
 #pragma unroll
     for (int nd = 0; nd < kND; ++nd)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * nd) =
@@ -540,7 +590,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
   if (err != cudaSuccess) return static_cast<int>(err);
   // query tiles slowest, so each head's longest causal rows start first
   const dim3 grid(H, B, (S + kBQ - 1) / kBQ);
-  flash_attn_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_attn_bf16_kernel<D><<<grid, Bf16Tile<D>::kCTA, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), S, H, KV, scale,
       causal, window);
@@ -578,7 +628,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 // q, out: (B,S,H,hd) contiguous; k, v: (B,S,KV,hd) contiguous; all of one
 // type (bf16 != 0: bfloat16, else float32), bfloat16 pointers 16-byte
-// aligned.  hd in {16, 32, 64, 128}.
+// aligned.  hd in {16, 32, 64, 128, 256}.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  void* out, int B, int S, int H, int KV,
                                  int hd, float scale, int causal, int window,
@@ -604,6 +654,9 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                         bf16, st);
     case 128:
       return launch<128>(q, k, v, out, B, S, H, KV, scale, causal, window,
+                         bf16, st);
+    case 256:
+      return launch<256>(q, k, v, out, B, S, H, KV, scale, causal, window,
                          bf16, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

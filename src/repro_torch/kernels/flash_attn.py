@@ -6,7 +6,7 @@ _flash_attention``: both compute softmax attention with an online-softmax
 ``(m, l, acc)`` state in float32.  The kernel (``csrc/flash_attn.cu``)
 takes q ``(B,S,H,hd)`` and k, v ``(B,S,KV,hd)`` with H a multiple of KV
 (grouped-query attention by indexing the KV head ``h // (H/KV)``, not by
-repeating K/V), float32 or bfloat16, ``hd`` in 16/32/64/128, the causal
+repeating K/V), float32 or bfloat16, ``hd`` in 16/32/64/128/256, the causal
 mask or none, and an optional local ``window``.  bfloat16 inputs run on
 the tensor cores (``mma.sync``, float32 accumulation, P split into two
 bfloat16 halves against V), float32 inputs on the CUDA cores in full
@@ -35,7 +35,7 @@ KERNEL = Kernel(
 )
 
 #: head widths the kernel is instantiated for
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 #: ``|got - want| <= atol + rtol * |want|`` between two forms that compute
 #: in float32 and differ in summation order only (the kernel, its plain
 #: version, the reference's Pallas kernel): atol in float32; in bfloat16

@@ -4,8 +4,9 @@
       --requests 8 --max-new 32 [--device cpu]
 
 The port of ``repro/launch/serve.py``: the same flags and the same reduced
-configuration, random weights from seed 0, on the card unless ``--device``
-says otherwise.
+configuration of any registered ``--arch`` (``llama3.2-1b``,
+``recurrentgemma-2b``, ``xlstm-125m``), random weights from seed 0, on the
+card unless ``--device`` says otherwise.
 """
 from __future__ import annotations
 

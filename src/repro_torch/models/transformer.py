@@ -1,12 +1,14 @@
 """Model assembly: blocks, run-length layer segments, the layer stack.
 
-The port of ``repro/models/transformer.py`` for the ``dense`` block kind.
-Layers are segmented into runs of one kind as in the reference, and a
-segment of more than one layer keeps its parameters stacked ``(L, ...)``;
-where the reference scans over the stack, the port loops over it in
-Python, and decode caches come back stacked ``(L, B, S_c, KV, hd)`` as the
-reference's scan stacks them.  Other block kinds (MoE, MLA, mLSTM, sLSTM,
-RG-LRU, hybrid local attention) raise ``NotImplementedError``.
+The port of ``repro/models/transformer.py`` for the block kinds ``dense``,
+``attn`` (the hybrid family's local-window attention), ``rglru`` (the
+RG-LRU), ``mlstm`` and ``slstm``.  Layers are segmented into runs of one
+kind as in the reference, and a segment of more than one layer keeps its
+parameters stacked ``(L, ...)``; where the reference scans over the stack,
+the port loops over it in Python, and decode caches (attention KV caches,
+the recurrent kinds' states) come back stacked along a leading layer dim
+as the reference's scan stacks them.  The MoE and MLA kinds (``moe``,
+``mla_dense``, ``mla_moe``) raise ``NotImplementedError``.
 ``cfg.remat`` checkpoints each block of :func:`forward_stack` as the
 reference's ``_maybe_remat`` does: ``"full"`` recomputes the whole block
 in the backward, ``"dots"`` keeps the outputs of its matrix products
@@ -21,10 +23,15 @@ import torch
 from torch.utils import checkpoint as torch_checkpoint
 
 from . import attention as attn_mod
+from . import rglru as rglru_mod
+from . import ssm as ssm_mod
 from .layers import mlp_apply, mlp_template, norm_template, rmsnorm, stack_template
 
 #: the block kinds the port runs
-PORTED_KINDS = ("dense",)
+PORTED_KINDS = ("dense", "attn", "rglru", "mlstm", "slstm")
+#: the kinds whose decode state is a recurrence's (not a KV cache): their
+#: prefill state is the decode cache, and a decode step returns a new one
+RECURRENT_KINDS = ("rglru", "mlstm", "slstm")
 
 
 def _unported(kind: str):
@@ -56,15 +63,26 @@ def segments(cfg) -> List[Tuple[str, int]]:
 
 
 def block_template(kind: str, cfg) -> Dict[str, Any]:
-    if kind != "dense":
-        raise _unported(kind)
     d = cfg.d_model
-    return {
-        "ln1": norm_template(d),
-        "attn": attn_mod.attn_template(cfg),
-        "ln2": norm_template(d),
-        "mlp": mlp_template(d, cfg.d_ff),
-    }
+    if kind in ("dense", "attn"):
+        return {
+            "ln1": norm_template(d),
+            "attn": attn_mod.attn_template(cfg),
+            "ln2": norm_template(d),
+            "mlp": mlp_template(d, cfg.d_ff),
+        }
+    if kind == "mlstm":
+        return {"ln": norm_template(d), "cell": ssm_mod.mlstm_template(cfg)}
+    if kind == "slstm":
+        return {"ln": norm_template(d), "cell": ssm_mod.slstm_template(cfg)}
+    if kind == "rglru":
+        return {
+            "ln1": norm_template(d),
+            "rec": rglru_mod.rglru_template(cfg),
+            "ln2": norm_template(d),
+            "mlp": mlp_template(d, cfg.d_ff),
+        }
+    raise _unported(kind)
 
 
 def stack_templates(cfg) -> List[Tuple[str, int, Any]]:
@@ -81,9 +99,21 @@ def stack_templates(cfg) -> List[Tuple[str, int, Any]]:
 def init_block_cache(kind: str, cfg, batch: int, cache_len: int, dtype,
                      device="cuda"):
     """Decode state of one layer of the given kind."""
-    if kind != "dense":
-        raise _unported(kind)
-    return attn_mod.init_cache(cfg, batch, cache_len, dtype, device)
+    if kind == "dense":
+        return attn_mod.init_cache(cfg, batch, cache_len, dtype, device)
+    if kind == "attn":  # hybrid local window: a rolling buffer
+        win = min(cfg.window_size, cache_len) or cache_len
+        return attn_mod.init_cache(cfg, batch, win, dtype, device)
+    if kind == "mlstm":
+        du = int(cfg.d_model * cfg.mlstm_proj_factor)
+        return ssm_mod.mlstm_init_state(batch, cfg.n_heads,
+                                        du // cfg.n_heads, device=device)
+    if kind == "slstm":
+        return ssm_mod.slstm_init_state(batch, cfg.d_model, device=device)
+    if kind == "rglru":
+        return rglru_mod.rglru_init_state(batch, cfg.lru_width,
+                                          cfg.conv_width, device=device)
+    raise _unported(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -91,39 +121,72 @@ def init_block_cache(kind: str, cfg, batch: int, cache_len: int, dtype,
 # ---------------------------------------------------------------------------
 
 
+def _recurrent_block(kind: str, cfg, p, x, state, decode: bool):
+    """A recurrent kind's block over a sequence (or one decode step): norm,
+    the cell, the residual, and the RG-LRU block's MLP.  Returns (x, new
+    state)."""
+    if kind == "rglru":
+        out, st = rglru_mod.rglru_block(
+            p["rec"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, state=state,
+            decode=decode)
+        x = x + out
+        y = rmsnorm(x, p["ln2"], cfg.norm_eps)
+        return x + mlp_apply(p["mlp"], y, cfg.act), st
+    cell = ssm_mod.mlstm_block if kind == "mlstm" else ssm_mod.slstm_block
+    out, st = cell(p["cell"], rmsnorm(x, p["ln"], cfg.norm_eps), cfg,
+                   state=state, decode=decode)
+    return x + out, st
+
+
 def block_forward(kind: str, cfg, p, x, positions, state=None):
     """Full-sequence pass.  Returns (x, new_state_or_None, aux)."""
-    if kind != "dense":
-        raise _unported(kind)
     aux = torch.zeros((), dtype=x.dtype, device=x.device)
-    h = attn_mod.attention(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps),
-                           cfg, positions)
-    x = x + h
-    y = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], y, cfg.act), None, aux
+    if kind in ("dense", "attn"):
+        win = cfg.window_size if kind == "attn" else 0
+        h = attn_mod.attention(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps),
+                               cfg, positions, window=win)
+        x = x + h
+        y = rmsnorm(x, p["ln2"], cfg.norm_eps)
+        return x + mlp_apply(p["mlp"], y, cfg.act), None, aux
+    if kind in RECURRENT_KINDS:
+        x, st = _recurrent_block(kind, cfg, p, x, state, decode=False)
+        return x, st, aux
+    raise _unported(kind)
 
 
 def block_prefill(kind: str, cfg, p, x, positions, cache_len: int):
-    """Full-sequence pass that also produces the decode cache: (x, cache)."""
-    if kind != "dense":
-        raise _unported(kind)
-    h, cache = attn_mod.prefill_attention(
-        p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, positions,
-        cache_len)
-    x = x + h
-    y = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], y, cfg.act), cache
+    """Full-sequence pass that also produces the decode cache: (x, cache).
+
+    Attention caches are filled at slots [0, S) (rolling for the local
+    window); the recurrent kinds return their final state."""
+    if kind in ("dense", "attn"):
+        win = cfg.window_size if kind == "attn" else 0
+        h, cache = attn_mod.prefill_attention(
+            p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, positions,
+            cache_len, window=win)
+        x = x + h
+        y = rmsnorm(x, p["ln2"], cfg.norm_eps)
+        return x + mlp_apply(p["mlp"], y, cfg.act), cache
+    if kind in RECURRENT_KINDS:  # the forward state IS the decode cache
+        x, st, _ = block_forward(kind, cfg, p, x, positions, state=None)
+        return x, st
+    raise _unported(kind)
 
 
 def block_decode(kind: str, cfg, p, x, cache, pos):
-    """Single-token pass (the cache is updated in place): (x, cache)."""
-    if kind != "dense":
-        raise _unported(kind)
-    h, cache = attn_mod.decode_attention(
-        p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, cache, pos)
-    x = x + h
-    y = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], y, cfg.act), cache
+    """Single-token pass: (x, cache).  An attention cache is updated in
+    place and returned; a recurrent kind returns its new state."""
+    if kind in ("dense", "attn"):
+        win = cfg.window_size if kind == "attn" else 0
+        h, cache = attn_mod.decode_attention(
+            p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, cache, pos,
+            window=win)
+        x = x + h
+        y = rmsnorm(x, p["ln2"], cfg.norm_eps)
+        return x + mlp_apply(p["mlp"], y, cfg.act), cache
+    if kind in RECURRENT_KINDS:
+        return _recurrent_block(kind, cfg, p, x, cache, decode=True)
+    raise _unported(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -185,16 +248,35 @@ def _maybe_remat(fn, cfg):
     raise ValueError(cfg.remat)
 
 
+def _stacked(states, n: int):
+    """One segment's per-layer states as one tree, stacked along a leading
+    layer dim where n > 1 (None for kinds that carry none)."""
+    if states[0] is None:
+        return None
+    if n == 1:
+        return states[0]
+    return type(states[0])(*(torch.stack(parts) for parts in zip(*states)))
+
+
 def forward_stack(cfg, seg_params, x, positions, states=None):
-    """Run all segments over a full sequence: (x, new_states, aux_total)."""
+    """Run all segments over a full sequence: (x, new_states, aux_total).
+
+    ``states``: optional per-segment states of the recurrent kinds (stacked
+    where n > 1), the initial state of each layer; the new ones come back
+    in the same structure (None for the attention kinds)."""
     aux_total = torch.zeros((), dtype=x.dtype, device=x.device)
     new_states = []
-    for (kind, n, _), p in zip(stack_templates(cfg), seg_params):
+    for si, ((kind, n, _), p) in enumerate(zip(stack_templates(cfg),
+                                               seg_params)):
+        st_in = states[si] if states is not None else None
         block = _maybe_remat(functools.partial(block_forward, kind, cfg), cfg)
-        for pl in _layers(p, n):
-            x, _, aux = block(pl, x, positions)
+        sts = []
+        for li, pl in enumerate(_layers(p, n)):
+            sl = st_in if st_in is None or n == 1 else _layer(st_in, li)
+            x, st, aux = block(pl, x, positions, sl)
             aux_total = aux_total + aux
-        new_states.append(None)  # dense blocks carry no sequence state
+            sts.append(st)
+        new_states.append(_stacked(sts, n))
     return x, new_states, aux_total
 
 
@@ -208,19 +290,22 @@ def prefill_stack(cfg, seg_params, x, positions, cache_len: int):
         for pl in _layers(p, n):
             x, c = block_prefill(kind, cfg, pl, x, positions, cache_len)
             cs.append(c)
-        caches.append(cs[0] if n == 1 else type(cs[0])(
-            *(torch.stack(parts) for parts in zip(*cs))))
+        caches.append(_stacked(cs, n))
     return x, caches
 
 
 def decode_stack(cfg, seg_params, x, caches, pos):
     """Single-token pass through all segments: (x, caches), the caches
-    updated in place."""
+    updated in place (a recurrent kind's new state is copied into its
+    cache)."""
     for (kind, n, _), p, cache in zip(stack_templates(cfg), seg_params,
                                       caches):
         for li, pl in enumerate(_layers(p, n)):
             cl = cache if n == 1 else _layer(cache, li)
-            x, _ = block_decode(kind, cfg, pl, x, cl, pos)
+            x, new = block_decode(kind, cfg, pl, x, cl, pos)
+            if kind in RECURRENT_KINDS:
+                for dst, src in zip(cl, new):
+                    dst.copy_(src)
     return x, caches
 
 

@@ -8,10 +8,11 @@ the others go on (continuous batching).
 
 Where the reference ``vmap``s a B=1 decode over the slots, the port writes
 the batch dimension out: the stacked caches are ``(L, slots, S_c, KV,
-hd)`` and ``lm.decode_step`` takes a position vector ``(slots,)``, each row
-writing its cache entry at its own position and masking ``idx <=
-pos[b]``.  Free slots are decoded too, at the position they last held, as
-in the reference; their writes are clamped into the cache
+hd)`` (a recurrent layer's state ``(L, slots, ...)``) and
+``lm.decode_step`` takes a position vector ``(slots,)``, each row writing
+its cache entry at its own position and masking ``idx <= pos[b]``.
+Free slots are decoded too, at the position they last held, as in the
+reference; their writes are clamped into the cache
 (``models/attention.py:decode_attention``), so a slot retired at
 ``cache_len - 1`` never writes out of range.  Greedy sampling is
 ``argmax`` (first index on ties, as ``jnp.argmax``); temperature sampling
@@ -31,6 +32,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch._tree import leaves
 from repro_torch.models import lm
 from repro_torch.models import transformer as tfm
 
@@ -116,17 +118,26 @@ class Engine:
             self._place(slot, req, caches, len(req.prompt), tok)
 
     def _place(self, slot: int, req: Request, caches, pos: int, tok: int):
+        """Copy one request's prefill caches (batch 1) into batch slot
+        ``slot`` of the engine's.  Generic over every decode state the
+        stack keeps, as the reference stacks them with ``jax.tree.map``:
+        attention KV caches (full or rolling), ``RGLRUState(h, conv_tail)``,
+        ``MLSTMState(C, n, m)`` and ``SLSTMState(h, c, n, m)``; each leaf
+        has the batch first, or second behind the layer dim of a stacked
+        segment, and is copied into the slot's leaf in that leaf's type."""
         if self._caches is None:
             self._caches = lm.init_caches(self.cfg, self.scfg.max_slots,
                                           self.scfg.cache_len,
                                           device=self.device)
-        for (_, n, _), full, one in zip(tfm.stack_templates(self.cfg),
-                                        self._caches, caches):
-            for f, o in zip(full, one):  # k, v; (L, B, ...) where n > 1
-                if n > 1:
-                    f[:, slot] = o[:, 0]
-                else:
-                    f[slot] = o[0]
+        for (kind, n, _), full, one in zip(tfm.stack_templates(self.cfg),
+                                           self._caches, caches):
+            for f, o in zip(leaves(full), leaves(one)):
+                dst, src = (f[:, slot], o[:, 0]) if n > 1 else (f[slot], o[0])
+                if dst.shape != src.shape:
+                    raise ValueError(f"{kind} cache leaf {tuple(src.shape)} "
+                                     f"does not fit the slot's "
+                                     f"{tuple(dst.shape)}")
+                dst.copy_(src)
         self._slots[slot] = req
         self._pos[slot] = pos
         self._last_tok[slot] = tok

@@ -1138,3 +1138,199 @@ def test_checkpoint_roundtrip_on_the_card(dev, tmp_path):
     name = "manifest-00000002.json"
     assert (tmp_path / "card" / name).read_bytes() == (
         tmp_path / "cpu" / name).read_bytes()
+
+
+# -- the recurrent families' scans and flash attention at head width 256 ------
+
+
+def _t32(rng, shape, lo=None, hi=None, std=1.0, dev="cuda"):
+    x = (rng.uniform(lo, hi, shape) if lo is not None
+         else rng.standard_normal(shape) * std)
+    return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+
+def _close_to(got, want, tol, msg=""):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **tol,
+                               err_msg=msg)
+
+
+@pytest.mark.parametrize("B,T,N", [(1, 1, 1), (2, 37, 100), (3, 1000, 33),
+                                   (1, 4096, 2560), (2, 17, 2561)])
+def test_linear_scan_kernel_matches_plain(dev, B, T, N):
+    """Ragged T, N not a multiple of 32, B > 1, and the state carried
+    across two calls (the second call's h0 is the first's last h)."""
+    from repro_torch.kernels import linear_scan as kscan
+
+    rng = np.random.default_rng(T + N)
+    a = _t32(rng, (B, 2 * T, N), 0.0, 0.95)
+    b = _t32(rng, (B, 2 * T, N), std=0.5)
+    h0 = _t32(rng, (B, N))
+    kscan.KERNEL.launches = 0
+    h1, last1 = kscan.linear_scan(a[:, :T], b[:, :T], h0)
+    h2, last2 = kscan.linear_scan(a[:, T:], b[:, T:], last1)
+    assert kscan.KERNEL.launches == 2
+    want, want_last = kscan.linear_scan_plain(a, b, h0)
+    _close_to(torch.cat([h1, h2], 1), want, kscan.TOLERANCE)
+    _close_to(last2, want_last, kscan.TOLERANCE)
+    _close_to(last1, want[:, T - 1], kscan.TOLERANCE)
+
+
+@pytest.mark.parametrize("B,nc,H,hd", [(1, 1, 1, 1), (2, 5, 3, 33),
+                                       (1, 16, 4, 384), (3, 9, 2, 64)])
+def test_mlstm_scan_kernel_matches_plain(dev, B, nc, H, hd):
+    """Every output (the state at each chunk start and after the last),
+    the state carried across two calls, B > 1."""
+    from repro_torch.kernels import mlstm_scan as kmlstm
+
+    rng = np.random.default_rng(nc + hd)
+    btot = -_t32(rng, (B, 2 * nc, H), 0.0, 5.0)
+    mc = _t32(rng, (B, 2 * nc, H))
+    kv = _t32(rng, (B, 2 * nc, H, hd, hd))
+    ks = _t32(rng, (B, 2 * nc, H, hd))
+    st0 = (_t32(rng, (B, H, hd, hd)), _t32(rng, (B, H, hd)),
+           torch.full((B, H), -1e30, device=dev))
+    kmlstm.KERNEL.launches = 0
+    st, got = st0, []
+    for hv in (slice(0, nc), slice(nc, 2 * nc)):
+        out = kmlstm.mlstm_scan(btot[:, hv], mc[:, hv], kv[:, hv], ks[:, hv],
+                                *st)
+        got.append(out)
+        st = out[3:]
+    assert kmlstm.KERNEL.launches == 2
+    want = kmlstm.mlstm_scan_plain(btot, mc, kv, ks, *st0)
+    for i in range(3):  # the state at every chunk start, both calls
+        _close_to(torch.cat([got[0][i], got[1][i]], 1), want[i],
+                  kmlstm.TOLERANCE, f"output {i}")
+    for i in range(3, 6):
+        _close_to(got[1][i], want[i], kmlstm.TOLERANCE, f"output {i}")
+
+
+_SLSTM_SHAPES = [(1, 1, 1, 8), (2, 33, 2, 32), (3, 17, 3, 24),
+                 (1, 300, 4, 128)]
+
+
+@pytest.mark.parametrize("dtype,B,S,H,hd", [
+    (dt, *shape) for dt in (torch.float32, torch.bfloat16)
+    for shape in _SLSTM_SHAPES] + [(torch.bfloat16, 2, 50, 4, 192)])
+def test_slstm_scan_kernel_matches_plain(dev, dtype, B, S, H, hd):
+    """Gate inputs and recurrent weights in float32 and in bfloat16 (the
+    reference's promotion: the state times r in float32), the weights at
+    the model's scale (std 0.02), the state carried across two calls, head
+    widths up to the kernel's (128 in float32, xLSTM's 192 in bfloat16);
+    held to the plain version in float64 as accurately as the plain
+    version in float32 is (``ACCURACY``)."""
+    from repro_torch.kernels import slstm_scan as kslstm
+
+    rng = np.random.default_rng(S + hd)
+    D = H * hd
+    xg = _t32(rng, (B, 2 * S, 4, D), std=0.5).to(dtype)
+    r = _t32(rng, (4, H, hd, hd), std=0.02).to(dtype)
+    st = kslstm.SLSTMState(_t32(rng, (B, D), std=0.3), _t32(rng, (B, D)),
+                           _t32(rng, (B, D), 0.5, 2.0), _t32(rng, (B, D)))
+    kslstm.KERNEL.launches = 0
+    h1, st1 = kslstm.slstm_scan(xg[:, :S], r, st)
+    h2, st2 = kslstm.slstm_scan(xg[:, S:], r, st1)
+    assert kslstm.KERNEL.launches == 2
+    want = kslstm.slstm_scan_plain(xg, r, st)
+    want64 = kslstm.slstm_scan_plain(
+        xg.double(), r.double(), kslstm.SLSTMState(*(t.double() for t in st)))
+    got = (torch.cat([h1, h2], 1), st2)
+    ratio = kslstm.accuracy_ratio(got, want, want64)
+    assert ratio <= 1.0, ratio
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("KV", [1, 2])
+@pytest.mark.parametrize("S", [1, 100, 1500])
+def test_flash_kernel_at_head_width_256(dev, no_tf32, dtype, KV, S):
+    """RecurrentGemma's head width: 4 query heads over 1 or 2 KV heads,
+    causal with and without a window, B = 2."""
+    from repro_torch.kernels import flash_attn as kflash
+
+    q, k, v = _flash_inputs(S + KV, 2, S, 4, KV, 256, dtype, dev)
+    for causal, window in ((True, 0), (True, 64), (False, 0)):
+        got = kflash.flash_attention(q, k, v, causal=causal, window=window)
+        want = kflash.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window, q_block=512,
+                                            kv_block=512)
+        _close_to(got, want, kflash.TOLERANCE[dtype],
+                  f"causal={causal} window={window}")
+
+
+def test_new_wrappers_raise_on_a_cuda_input_that_needs_a_gradient(dev):
+    """The scans have no backward kernel yet: a CUDA input that needs a
+    gradient raises, naming ROADMAP; without one it launches.  The sLSTM
+    wrapper refuses a head width its kernel does not take."""
+    from repro_torch.kernels import linear_scan as kscan
+    from repro_torch.kernels import mlstm_scan as kmlstm
+    from repro_torch.kernels import slstm_scan as kslstm
+
+    rng = np.random.default_rng(0)
+    a, b = _t32(rng, (1, 4, 8), 0.0, 0.9), _t32(rng, (1, 4, 8))
+    mins = (_t32(rng, (1, 2, 1)), _t32(rng, (1, 2, 1)),
+            _t32(rng, (1, 2, 1, 4, 4)), _t32(rng, (1, 2, 1, 4)),
+            _t32(rng, (1, 1, 4, 4)), _t32(rng, (1, 1, 4)), _t32(rng, (1, 1)))
+    xg, r = _t32(rng, (1, 3, 4, 8)), _t32(rng, (4, 2, 4, 4), std=0.02)
+    st = kslstm.SLSTMState(*(_t32(rng, (1, 8)) for _ in range(4)))
+    with pytest.raises(ValueError, match="head width"):  # 20 % 8 != 0
+        kslstm.slstm_scan(_t32(rng, (1, 2, 4, 40)),
+                          _t32(rng, (4, 2, 20, 20)).bfloat16(),
+                          kslstm.SLSTMState(*(_t32(rng, (1, 40))
+                                              for _ in range(4))))
+    calls = [lambda g: kscan.linear_scan(g(a), b),
+             lambda g: kmlstm.mlstm_scan(*mins[:2], g(mins[2]), *mins[3:]),
+             lambda g: kslstm.slstm_scan(g(xg), r, st)]
+    for call in calls:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call(lambda t: t.clone().requires_grad_(True))
+        call(lambda t: t)
+        with torch.no_grad():  # no gradient wanted: the kernel runs
+            call(lambda t: t.clone().requires_grad_(True))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "xlstm-125m"])
+def test_recurrent_models_and_engine_on_the_card_match_the_cpu(dev, no_tf32,
+                                                              arch):
+    """Reduced recurrentgemma-2b (flash blocks of 16) and xlstm-125m in
+    float32: forward logits on the card (the scan kernels, and flash for
+    the hybrid's attention) equal the CPU's (their plain versions), and the
+    engine's greedy tokens are the CPU engine's."""
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models import lm
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = get_reduced(arch)
+    if arch == "recurrentgemma-2b":
+        cfg = cfg.replace(attn_q_block=16, attn_kv_block=16)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    on_dev = tree_map(lambda t: t.to(dev), params)
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (2, 48)))
+    for k in KERNELS:
+        k.launches = 0
+    got = lm.forward(cfg, on_dev, {"tokens": toks.to(dev)})
+    torch.cuda.synchronize()
+    launched = {k.name for k in KERNELS if k.launches}
+    assert launched == ({"linear_scan", "flash_attn"}
+                        if arch == "recurrentgemma-2b"
+                        else {"mlstm_scan", "slstm_scan"}), launched
+    want = lm.forward(cfg, params, {"tokens": toks})
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=3e-4,
+                               atol=3e-4)
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(0, 256, n) for n in (48, 9, 32, 16, 64)]
+    out = {}
+    for device, p in (("cpu", params), (dev, on_dev)):
+        eng = Engine(cfg, p, ServeConfig(max_slots=2, cache_len=96,
+                                         max_new_tokens=6), device=device)
+        for pr in prompts:
+            eng.submit(pr)
+        out[str(device)] = eng.run()
+    assert out["cpu"] == out[str(dev)]

@@ -89,9 +89,20 @@ def test_template_param_count_equals_reference_at_full_width():
 
 
 def test_other_block_kinds_raise_naming_roadmap():
-    cfg = get_reduced("llama3.2-1b").replace(family="moe", n_experts=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.lm_template(cfg)
+    """The kinds still to port (MoE and MLA) raise; the others are held in
+    tests/test_torch_recurrent.py."""
+    base = get_reduced("llama3.2-1b")
+    for cfg in (base.replace(family="moe", n_experts=4),  # moe
+                base.replace(use_mla=True),  # mla_dense
+                base.replace(family="moe", n_experts=4, use_mla=True)):
+        kinds = set(transformer.layer_kinds(cfg))
+        assert kinds & {"moe", "mla_dense", "mla_moe"}, kinds
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            lm.lm_template(cfg)
+        for kind in kinds - set(transformer.PORTED_KINDS):
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                transformer.init_block_cache(kind, cfg, 1, 8, torch.float32,
+                                             "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lm.embed_inputs(get_reduced("llama3.2-1b").replace(
             input_mode="embeddings"), {}, {})

@@ -6,7 +6,10 @@ position per slot) gives the same greedy token lists as the reference's
 (``vmap`` over B=1 slot caches) for the requests of ``tests/test_serve.py``
 — more requests than slots, mixed prompt lengths — for prompts on the
 flash route, and for a request that runs until it retires at
-``cache_len - 1`` while the other slots keep decoding.
+``cache_len - 1`` while the other slots keep decoding.  The same for the
+recurrent and hybrid families (reduced ``recurrentgemma-2b`` and
+``xlstm-125m``), whose slots hold recurrent states: each slot's state
+equals its request's state served alone.
 """
 import numpy as np
 import pytest
@@ -20,6 +23,7 @@ from repro.serve import Engine as JEngine
 from repro.serve import ServeConfig as JServeConfig
 
 from repro_torch.configs import get_reduced
+from repro_torch.models import transformer as tfm
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serve import Engine, ServeConfig
 
@@ -32,9 +36,9 @@ def _leave_no_jax_trace():
     jax.clear_caches()
 
 
-def _model(**kw):
-    jcfg = j_get_reduced("llama3.2-1b").replace(**kw)
-    cfg = get_reduced("llama3.2-1b").replace(**kw)
+def _model(arch="llama3.2-1b", **kw):
+    jcfg = j_get_reduced(arch).replace(**kw)
+    cfg = get_reduced(arch).replace(**kw)
     jparams = jlm.init_params(jcfg, jax.random.PRNGKey(0))
     params = params_from_jax(cfg, jax.tree.map(np.asarray, jparams),
                              device="cpu")
@@ -149,3 +153,82 @@ def test_engine_needs_a_card_by_default(model):
         pytest.skip("a card is present")
     with pytest.raises((RuntimeError, AssertionError)):
         Engine(cfg, params, ServeConfig())
+
+
+RECURRENT = ("recurrentgemma-2b", "xlstm-125m")
+
+
+@pytest.fixture(scope="module", params=RECURRENT)
+def recurrent_model(request):
+    return _model(request.param)
+
+
+def test_recurrent_families_match_reference_mixed_lengths(recurrent_model):
+    """Five requests on two slots, prompts of 45 (past RecurrentGemma's
+    32-token window and xLSTM's 32-token chunk), 9, 33, 16 and 50 tokens."""
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 256, n) for n in (45, 9, 33, 16, 50)]
+    got, want, rids = _both(recurrent_model, prompts, max_slots=2,
+                            cache_len=96, max_new_tokens=6)
+    assert set(got) == set(rids)
+    assert got == want
+
+
+def test_hybrid_prompts_on_the_flash_route_match_reference():
+    """RecurrentGemma with attn_kv_block=16: the 32- and 48-token prompts
+    take the flash route with the local window (its plain version on the
+    CPU)."""
+    model = _model("recurrentgemma-2b", attn_q_block=16, attn_kv_block=16)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, 256, n) for n in (48, 16, 32, 9)]
+    got, want, _ = _both(model, prompts, max_slots=2, cache_len=64,
+                         max_new_tokens=7)
+    assert got == want
+
+
+def _slot_state(eng, slot):
+    """Slot ``slot``'s leaves of every segment's decode state."""
+    out = []
+    for (_, n, _), seg in zip(tfm.stack_templates(eng.cfg), eng._caches):
+        out += [t[:, slot] if n > 1 else t[slot] for t in seg]
+    return out
+
+
+def test_each_slot_holds_its_request_s_state(recurrent_model):
+    """Two requests of each family in two slots: after their prefills and
+    three decode steps, each slot's state (recurrent states, rolling KV
+    caches) equals that of the same request served alone in slot 0, to
+    float32 rounding (a batch of two rows against one)."""
+    cfg, params, _, _ = recurrent_model
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, 256, n) for n in (37, 20)]
+    scfg = ServeConfig(max_slots=2, cache_len=64, max_new_tokens=8)
+
+    def served(ps, steps=4):
+        eng = Engine(cfg, params, scfg, device="cpu")
+        for p in ps:
+            eng.submit(p)
+        for _ in range(steps):  # the prefills, then three decode steps
+            eng.step()
+        return eng
+
+    both = served(prompts)
+    assert [r.rid for r in both._slots] == [0, 1]
+    for slot, p in enumerate(prompts):
+        alone = served([p])
+        assert alone._slots[0].generated == both._slots[slot].generated
+        for got, want in zip(_slot_state(both, slot), _slot_state(alone, 0)):
+            np.testing.assert_allclose(got.float().numpy(),
+                                       want.float().numpy(), rtol=1e-5,
+                                       atol=1e-6)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_cli_serves_the_recurrent_families_on_the_cpu(arch, capsys):
+    from repro_torch.launch import serve
+
+    out = serve.main(["--arch", arch, "--device", "cpu", "--requests", "3",
+                      "--max-new", "4", "--cache-len", "64"])
+    assert sorted(out) == [0, 1, 2]
+    assert all(len(v) == 4 for v in out.values())
+    assert "served 3 requests / 12 tokens" in capsys.readouterr().out

@@ -233,6 +233,7 @@ def test_port_imports_no_jax_and_no_repro():
         "for name in available():\n"
         "    b = make_chunker(name, 4096, device='cpu').chunk(d)\n"
         "    assert b[-1] == d.size, name\n"
+        "import torch\n"
         "from repro_torch.configs import get_reduced\n"
         "from repro_torch.models import lm\n"
         "from repro_torch.serve import Engine, ServeConfig\n"
@@ -244,7 +245,14 @@ def test_port_imports_no_jax_and_no_repro():
         "max_slots=2, cache_len=64, max_new_tokens=3), device='cpu')\n"
         "eng.submit(np.arange(32) % 256)\n"
         "assert len(eng.run()[0]) == 3\n"
-        "import tempfile, torch\n"
+        "from repro_torch.configs import get_config\n"
+        "for arch in ('recurrentgemma-2b', 'xlstm-125m'):\n"
+        "    assert get_config(arch).name == arch\n"
+        "    c = get_reduced(arch)\n"
+        "    lg, _ = lm.prefill_step(c, lm.init_params(c, device='cpu'), "
+        "{'tokens': torch.arange(40)[None] % 256}, 48)\n"
+        "    assert lg.shape == (1, c.vocab_size), arch\n"
+        "import tempfile\n"
         "from repro_torch.scenarios import generate, corpus_digest\n"
         "assert len(corpus_digest(generate('lm_text', 'tiny'))) == 64\n"
         "from repro_torch.data import DedupIngest, PipelineConfig\n"

@@ -44,7 +44,8 @@ time, the wrapper's allocations included), after one warm-up call:
   4 heads of 384), the sLSTM's recurrence (4,096 and 32,768 steps at D
   768, bfloat16) and flash at recurrentgemma-2b's head width 256 (4,096
   tokens, 10 heads over 1 KV head, window 2048), with their device time
-  a call.
+  a call; the sLSTM also at 1, 2 and 64 steps (a step's time from the
+  slope).
 
 The packed, gear, masks and fingerprint rows also give the kernels'
 device time a call, from a ``torch.profiler`` trace
@@ -106,9 +107,14 @@ def call_ms(fn, reps: int) -> list[float]:
 
 
 def digest(tensors) -> str:
+    import torch
+
     h = hashlib.sha256()
     for t in tensors:
-        h.update(t.cpu().contiguous().numpy().tobytes())
+        t = t.cpu().contiguous()
+        if t.dtype == torch.bfloat16:  # numpy has no bfloat16: its bits
+            t = t.view(torch.int16)
+        h.update(t.numpy().tobytes())
     return h.hexdigest()[:16]
 
 
@@ -367,6 +373,14 @@ def recurrent_rows(seed: int) -> dict:
                                torch.full((B, D), -1e30, device="cuda"))
         out[f"slstm_scan {label}"] = row(
             lambda: kslstm.slstm_scan(xg, r, st), 3, "slstm_scan_kernel")
+        if S != SLSTM_SCAN_CASES[0][2]:
+            continue
+        # a step's time: the launched shape at S = 1, 2 and 64 (the slope
+        # is a step, the intercept the launch and the loads of r)
+        for steps in SLSTM_STEPS:
+            out[f"slstm_scan {B}x{steps}"] = row(
+                lambda: kslstm.slstm_scan(xg[:, :steps], r, st), 20,
+                "slstm_scan_kernel")
     for label, B, S, H, KV, hd, dt, causal, window in FLASH_CASES:
         if hd != 256:
             continue
@@ -378,6 +392,9 @@ def recurrent_rows(seed: int) -> dict:
                                            window=window), 20, "flash_attn_")
     return out
 
+
+#: the sLSTM's step counts for its per-step fit
+SLSTM_STEPS = (1, 2, 64)
 
 GROUPS = {"select": select_rows, "native": native_rows,
           "packed": packed_rows_timed, "gear": gear_rows,

@@ -1014,10 +1014,16 @@ def scan_phase(seed: int) -> dict:
         rng = np.random.default_rng(seed + T)
         a, b = f32(rng, (B, T, N), 0.0, 0.95), f32(rng, (B, T, N), std=0.5)
         h0 = f32(rng, (B, N))
-        err, worst = float_err(f"linear_scan {label}",
-                               kscan.linear_scan(a, b, h0),
+        got = kscan.linear_scan(a, b, h0)
+        err, worst = float_err(f"linear_scan {label}", got,
                                kscan.linear_scan_plain(a, b, h0),
                                kscan.TOLERANCE)
+        # the look-back's joins give the same bits whatever the timing
+        again = kscan.linear_scan(a, b, h0)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"linear_scan {label}: two launches on the "
+                                 f"same inputs differ")
+        del got, again
         bms, by = bound_ms(4 * (3 * B * T * N + 2 * B * N), 2 * B * T * N)
         out[f"linear_scan {label}"] = timed(dict(
             max_abs_err=err, tol_used=worst, tolerance=kscan.TOLERANCE,

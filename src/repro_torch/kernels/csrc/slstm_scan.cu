@@ -12,35 +12,54 @@
 //   h1 = sigmoid(pre_o) * c1 / n1
 // exactly the reference's cell: the float32 state times r (bf16 or
 // float32, promoted to float32 as JAX promotes it), the gate inputs in
-// their own type added in float32.  It writes h for every step (B,S,D)
-// float32 and the final (h, c, n, m).
+// their own type added in float32 after the product.  It writes h for
+// every step (B,S,D) float32 and the final (h, c, n, m).
 //
 // Bound on this card: the serial chain of S steps, not bytes or
 // operations.  A step of one head multiplies h by four hd x hd blocks
-// (at xLSTM-125M's width, 4 heads of 192: 295 KB of bf16 weights a head)
-// and cannot start before the last step's h; the whole run moves only
-// xg, h and r once (a 4,096-token prompt: 25 MB of bf16 gates, 0.0075 ms
-// at 3.35 TB/s), so the least time a step is set by latency.
+// (at xLSTM-125M's width, 4 heads of 192: 147,456 multiply-adds) and
+// cannot start before the last step's h; the whole run moves only xg, h
+// and r once (a 4,096-token prompt: 25 MB of bf16 gates, 0.0075 ms at
+// 3.35 TB/s), so a step's least time is set by latency: its products,
+// a reduction across lanes, the cell, and the exchange of h.
 //
-// Design (a first design): one CTA per (b, head).  Each step's four
-// products h . r_g are split over the CTA's threads: a thread takes one
-// gate, kV neighbouring channels (one 16-byte word of r a row: 8 bf16 or
-// 4 float32) and every kSplit-th row d (kSplit = 4), the quad's partial
-// sums reduced by two xor-shuffles.  h, the gates' pre-activations and
-// (c, n, m) live in shared memory, and so do as many rows of the head's
-// four blocks of r as fit (144 of 192 at xLSTM's width: 221 KB, each
-// row's words swizzled against bank conflicts), copied once; the last
-// rows of every block are read from L2 every step, their loads issued
-// before the shared-memory rows are folded, so their latency hides behind
-// that work.  The gate inputs are prefetched a step ahead.  After a
-// barrier the threads run the cell in float32 over the channels and write
-// h back.  Only B * H CTAs run (4 at B = 1), one SM each, and every step
-// waits on two barriers; PERF.md has a step's measured time against what
-// its instructions and shared-memory reads account for.  A thread-block
-// cluster holding a head's whole r across its CTAs' shared memory
-// (exchanging h through distributed shared memory) would take the last L2
-// reads off the chain and split a step's work over more SMs; that is
-// later work.
+// Design: a thread-block cluster of C CTAs a (b, head), on C neighbouring
+// SMs (grid (C * H, B), launched with cudaLaunchKernelEx and the cluster
+// dimension).  CTA c owns the head's channels [c E, (c + 1) E), E = hd / C,
+// for all four gates, so no partial sum crosses CTAs and each dot product
+// over d stays whole in one warp.  A warp takes two channels (8 sums: 4
+// gates x 2); its lane l takes the rows at positions l + 32 i of the h
+// buffer, and holds those rows of its channels' eight columns of r in
+// registers, converted to float32 once at the start (at xLSTM's width, C =
+// 8: 24 channels a CTA in 12 warps, 48 floats of r a lane), so r is read
+// from global memory once and never unpacked again.  A step: every lane
+// reads its rows of h from shared memory and folds them into its 8 partial
+// sums, and the warp reduces them across its 32 lanes in 9 shuffles (a
+// transposing reduction: each exchange hands the partner the half of the
+// sums it does not keep); each (channel, gate) sum goes to shared memory.
+// Warp 0 waits for them at a named barrier (the other warps only arrive
+// there) and runs the cell, lane e for channel e, with the gate inputs it
+// loaded kAhead steps before (kept as raw bits until used, so no
+// conversion waits for a load on the chain).  It then stores the new h,
+// four channels a 16-byte st.async, into the h buffer of every CTA of the
+// cluster through distributed shared memory (mapa + st.async), each store
+// counted on the receiving CTA's mbarrier.  The buffer is double-buffered
+// by step parity: every thread waits on its own CTA's mbarrier for the
+// phase of h_t, so no cluster-wide barrier, and no release fence, is on the
+// chain; a buffer is re-armed for h_{t+2} before this CTA sends its part of
+// h_{t+1}, which every sender of h_{t+2} needs first.  Rows of the buffer
+// are C slots of E rounded up to 4 channels, the padding zero in h and r.
+// Warp 1 writes h_t, from the registers it read it into, to hs at step t;
+// no global store or load stalls warp 0's chain.  The sums stay float32
+// products of the float32 state and r, as the reference's, in the same
+// order in every run.
+//
+// The cluster size: the least power of two with E = hd / C <= 32 (at most
+// 16 warps, 512 threads, so 128 registers a thread hold r): C = 8 at
+// xLSTM's 192 (and 256), 4 at 128, 2 at 64, 1 at 32 and below, all
+// portable sizes.  The least, since a step's time is its chain's latency,
+// not its products (PERF.md has a step's time from the slope over 1, 2 and
+// 64 steps): more CTAs would share the products and widen the exchange.
 #include <algorithm>
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -50,240 +69,371 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kSplit = 4;   // threads that split one dot product's rows
-// 16-byte words of r a thread keeps in flight: from L2 (issued before the
-// shared-memory rows are folded) and from shared memory
-constexpr int kUnrollL2 = 12;
-constexpr int kUnrollSm = 4;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxHd = 256;       // the widest head: one h buffer's floats
 constexpr int kMaxThreads = 512;  // 128 registers a thread
-constexpr size_t kSmemMax = 232448;  // shared memory a CTA may opt in to
+constexpr int kAhead = 4;         // steps of gate inputs a lane has in flight
+constexpr int kMaxCluster = 8;   // portable
+constexpr int kCPW = 2;           // channels a warp
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-
-// the kV values of r in one 16-byte word group, as float32
-__device__ __forceinline__ void unpack(const uint4& w, float (&out)[4]) {
-  out[0] = __uint_as_float(w.x);
-  out[1] = __uint_as_float(w.y);
-  out[2] = __uint_as_float(w.z);
-  out[3] = __uint_as_float(w.w);
+__device__ __forceinline__ float load_val(const void* p, long long i,
+                                          int is_bf16) {
+  return is_bf16 ? __bfloat162float(static_cast<const bf16*>(p)[i])
+                 : static_cast<const float*>(p)[i];
 }
-__device__ __forceinline__ void unpack(const uint4& w, float (&out)[8]) {
-  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {  // bf16 to float32: the top 16 bits
-    out[2 * i] = __uint_as_float(words[i] << 16);
-    out[2 * i + 1] = __uint_as_float(words[i] & 0xffff0000u);
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the address of the same shared-memory word in the cluster's CTA `rank`
+__device__ __forceinline__ uint32_t map_rank(uint32_t local, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote) : "r"(local), "r"(rank));
+  return remote;
+}
+
+// 16 bytes into the shared memory at addr of a CTA of the cluster, counted
+// on that CTA's mbarrier at bar (both cluster addresses)
+__device__ __forceinline__ void store_async(uint32_t addr, float a, float b,
+                                            float c, float d, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// the barrier's next phase completes once `bytes` have arrived
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// waits for the completion of the barrier's phase of the given parity
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
   }
 }
 
-// channels a thread: one 16-byte load of r a row
-template <typename RT>
-struct Vec {
-  static constexpr int kV = 16 / (int)sizeof(RT);
-};
-
-// threads of a CTA: 4 gates x hd / kV channel groups x kSplit, rounded up
-// to whole warps (the quads' shuffles need every lane present)
-template <typename RT>
-int threads_for(int hd) {
-  const int t = 4 * (hd / Vec<RT>::kV) * kSplit;
-  return (t + 31) / 32 * 32;
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
 }
 
-// up to kN 16-byte words of r: rows i0, i0 + 1, ... (< rows) of a thread,
-// at p + i * step
-template <int kN, typename RT>
-__device__ __forceinline__ void load_rows(uint4 (&w)[kN], const RT* p,
-                                          long long step, int i0, int rows) {
-#pragma unroll
-  for (int u = 0; u < kN; ++u)
-    w[u] = i0 + u < rows
-               ? *reinterpret_cast<const uint4*>(p + (i0 + u) * step)
-               : make_uint4(0u, 0u, 0u, 0u);
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// acc += h[d] r[d, :] over the words loaded for rows i0, i0 + 1, ... (row i
-// of the thread is d = ks + kSplit * i)
-template <int kN, int kV>
-__device__ __forceinline__ void fold_rows(const uint4 (&w)[kN], int i0,
-                                          int rows, const float* h_sm, int ks,
-                                          float (&acc)[kV]) {
+// The sum over the warp's lanes of each of a lane's K values, K a power of
+// two up to 32: while a lane keeps more than one, an exchange at offset o
+// hands the partner the half it does not keep (lanes with bit o set keep
+// the upper half), so K - 1 + 5 - log2 K shuffles in all; then lane l
+// holds the sum of value l >> (5 - log2 K), every lane of a value alike.
+template <int K>
+__device__ __forceinline__ float fold_lanes(float (&v)[K], int lane) {
+  int off = 16;
 #pragma unroll
-  for (int u = 0; u < kN; ++u) {
-    if (i0 + u < rows) {
-      const float hv = h_sm[ks + (i0 + u) * kSplit];
-      float rv[kV];
-      unpack(w[u], rv);
+  for (int half = K / 2; half >= 1; half /= 2, off /= 2) {
+    const bool up = lane & off;
 #pragma unroll
-      for (int v = 0; v < kV; ++v) acc[v] = fmaf(hv, rv[v], acc[v]);
+    for (int j = 0; j < half; ++j) {
+      const float keep = up ? v[j + half] : v[j];
+      const float send = up ? v[j] : v[j + half];
+      v[j] = keep + __shfl_xor_sync(kFull, send, off);
     }
   }
+  float s = v[0];
+#pragma unroll
+  for (; off >= 1; off /= 2) s += __shfl_xor_sync(kFull, s, off);
+  return s;
 }
 
-template <typename XT, typename RT>
-__global__ void __launch_bounds__(kMaxThreads)
-slstm_scan_kernel(const XT* __restrict__ xg, const RT* __restrict__ r,
+// the gate inputs' raw bits, kept as loaded until used: a conversion right
+// after the load would wait for it on the chain
+template <typename XT>
+struct Raw {
+  using T = float;
+  static __device__ __forceinline__ float value(float v) { return v; }
+};
+template <>
+struct Raw<bf16> {
+  using T = unsigned short;
+  static __device__ __forceinline__ float value(unsigned short v) {
+    return __uint_as_float(static_cast<uint32_t>(v) << 16);
+  }
+};
+
+// NR: rows of r a lane holds a column (the hbuf positions in use <= 32 NR)
+template <int NR, typename XT>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+slstm_scan_kernel(const XT* __restrict__ xg, const void* __restrict__ r,
                   const float* __restrict__ h0, const float* __restrict__ c0,
                   const float* __restrict__ n0, const float* __restrict__ m0,
                   float* __restrict__ hs, float* __restrict__ h_fin,
                   float* __restrict__ c_fin, float* __restrict__ n_fin,
-                  float* __restrict__ m_fin, int S, int H, int hd,
-                  int smem_rows, int swizzle) {
-  constexpr int kV = Vec<RT>::kV;
-  extern __shared__ __align__(16) float smem[];
-  float* h_sm = smem;          // h of this head, hd floats
-  float* pre = h_sm + hd;      // the four gates' pre-activations, 4 * hd
-  float* c_sm = pre + 4 * hd;  // c, n, m of this head
-  float* n_sm = c_sm + hd;
-  float* m_sm = n_sm + hd;
-  RT* r_sm = reinterpret_cast<RT*>(m_sm + hd);  // rows < smem_rows of r
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int ks = tid % kSplit, rest = tid / kSplit;
-  const int groups = hd / kV;
-  const bool active = rest < 4 * groups;  // the rest only shuffle zeros
-  const int j = active ? rest % groups : 0, g = active ? rest / groups : 0;
-  const int e0 = j * kV;                  // this thread's first channel
-  const int rows = hd / kSplit;  // its rows of r: ks, ks + kSplit, ...
-  const int rows_sm = smem_rows / kSplit;  // the first ones in shared memory
-  const int head = blockIdx.x, b = blockIdx.y;
+                  float* __restrict__ m_fin, int S, int H, int hd, int C,
+                  int r_bf16) {
+  using XR = typename Raw<XT>::T;
+  constexpr int K = 4 * kCPW;  // sums a lane folds: 4 gates x 2 channels
+  constexpr int kShift = 2;    // lane >> kShift: the sum it ends with
+  __shared__ __align__(16) float hbuf[2][kMaxHd];
+  // hbuf[p]'s arrivals: h_t lies in hbuf[t & 1], complete at phase
+  // (t - 1) >> 1 of full[t & 1] (t >= 1; h_0 is set here)
+  __shared__ __align__(8) uint64_t full[2];
+  __shared__ float pre[4][32];  // the step's recurrent sums, gate x channel
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rank = static_cast<int>(cluster_rank());
+  const int head = blockIdx.x / C, b = blockIdx.y;
+  const int E = hd / C;  // channels of this CTA, at most 32
+  // h lies in hbuf as C slots of Ep = E rounded up to 4 (16 bytes), so a
+  // CTA sends its channels' h as whole 16-byte words: channel d of the
+  // head at position (d / E) Ep + d % E, the rest zero
+  const int Ep = (E + 3) & ~3;
   const long long D = (long long)H * hd;
-  const long long chan = (long long)b * D + (long long)head * hd;
-  // r[g, head, d, e0 .. e0 + kV) for d = ks + kSplit i: in global memory
-  // at rp + i * kSplit * hd; in shared memory (rows below smem_rows) at
-  // sp + i * kSplit * hd, each row's 16-byte words stored with their index
-  // XOR 2 (d mod 4) (when a row has a multiple of 8 of them), so a quad's
-  // four rows and a warp's neighbouring words fall in distinct banks
-  const RT* rp = r + (((long long)g * H + head) * hd + ks) * hd + e0;
-  const RT* sp = r_sm + ((long long)g * smem_rows + ks) * hd +
-                 (j ^ (2 * ks & swizzle)) * kV;
-  const XT* xb = xg + (long long)b * S * 4 * D + g * D + head * hd + e0;
-  const long long xstep = 4 * D;
-  float* hb = hs + (long long)b * S * D + head * hd;
+  const long long head0 = (long long)b * D + (long long)head * hd;
+  const long long chan0 = head0 + rank * E;  // the CTA's first channel
 
-  {  // rows d < smem_rows of this head's four blocks of r, once
-    const RT* src = r + (long long)head * hd * hd;
-    const long long words = 4LL * smem_rows * groups;
-    for (long long w = tid; w < words; w += nthr) {
-      const int c = (int)(w % groups);
-      const long long gd = w / groups;  // g * smem_rows + d
-      const int gg = (int)(gd / smem_rows), d = (int)(gd % smem_rows);
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(
-          src + (long long)gg * H * hd * hd + (long long)d * hd + c * kV));
-      *reinterpret_cast<uint4*>(r_sm + gd * hd +
-                                (c ^ (2 * (d % kSplit) & swizzle)) * kV) = v;
+  // rr[j][g][i] = r[g, head, d, rank E + 2 warp + j] for the row d at
+  // position lane + 32 i of hbuf, zero at padding or past E channels; own:
+  // which of the lane's positions is a channel of this CTA (-1: none)
+  float rr[kCPW][4][NR];
+  int own = -1;
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    const int pos = lane + 32 * i, q = pos / Ep, k = pos % Ep;
+    const int d = q < C && k < E ? q * E + k : -1;
+    if (q == rank && k < E) own = i;
+#pragma unroll
+    for (int j = 0; j < kCPW; ++j) {
+      const int el = warp * kCPW + j;
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        rr[j][g][i] = el < E && d >= 0
+                          ? load_val(r,
+                                     (((long long)g * H + head) * hd + d) * hd +
+                                         rank * E + el,
+                                     r_bf16)
+                          : 0.f;
     }
   }
-  for (int e = tid; e < hd; e += nthr) {
-    h_sm[e] = h0[chan + e];
-    c_sm[e] = c0[chan + e];
-    n_sm[e] = n0[chan + e];
-    m_sm[e] = m0[chan + e];
+  // after the fold, lane l holds the sum of channel 2 warp + l / 16, gate
+  // (l / 4) % 4; the first lane of each writes it
+  const int idx = lane >> kShift;
+  const int el = warp * kCPW + (idx >> 2);
+  const bool writes_pre = el < E && (lane & ((1 << kShift) - 1)) == 0;
+  // warp 0 runs the cell, lane e for channel e of the CTA
+  const bool cell = warp == 0 && lane < E;
+  float c = 0.f, n = 0.f, m = 0.f, h = 0.f;
+  if (cell) {
+    h = h0[chan0 + lane];
+    c = c0[chan0 + lane];
+    n = n0[chan0 + lane];
+    m = m0[chan0 + lane];
   }
-  const bool loads_x = active && ks == 0;
-  float x_next[kV];
+  for (int pos = threadIdx.x; pos < kMaxHd; pos += blockDim.x) {
+    const int q = pos / Ep, k = pos % Ep;
+    hbuf[0][pos] = q < C && k < E ? h0[head0 + q * E + k] : 0.f;
+    hbuf[1][pos] = 0.f;
+  }
+  const int bytes = C * Ep * 4;  // a step's arrivals at each CTA
+  if (threadIdx.x == 0) {
+    mbar_init(&full[0]);
+    mbar_init(&full[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (S >= 2) mbar_expect(&full[1], bytes);  // h_1
+    if (S >= 3) mbar_expect(&full[0], bytes);  // h_2
+  }
+  // the cell lane's gate inputs at step t: xg[b, t, g, head hd + rank E +
+  // lane], kAhead steps in flight
+  const XT* xp = xg + (long long)b * S * 4 * D + (chan0 - (long long)b * D) +
+                 lane;
+  const long long xstep = 4 * D;
+  XR xq[kAhead][4];
 #pragma unroll
-  for (int v = 0; v < kV; ++v) x_next[v] = loads_x ? to_f(xb[v]) : 0.f;
-  __syncthreads();
-  for (int t = 0; t < S; ++t) {
-    float x[kV], acc[kV];
+  for (int u = 0; u < kAhead; ++u)
 #pragma unroll
-    for (int v = 0; v < kV; ++v) {
-      x[v] = x_next[v];
-      acc[v] = 0.f;
-    }
-    if (loads_x && t + 1 < S) {
+    for (int g = 0; g < 4; ++g)
+      xq[u][g] = cell && u < S
+                     ? reinterpret_cast<const XR*>(xp)[u * xstep + g * D]
+                     : XR(0);
+  // hs[b, t, head hd + rank E + e]: h_t lands in every CTA's hbuf, so warp
+  // 1 writes row t - 1 at step t from its registers; warp 0 the last row
+  float* hrow = hs + (long long)b * S * D + (chan0 - (long long)b * D);
+  // every CTA of the cluster has started and set its buffers
+  cluster_arrive();
+  cluster_wait();
+
+  for (int t0 = 0; t0 < S; t0 += kAhead) {
 #pragma unroll
-      for (int v = 0; v < kV; ++v)
-        x_next[v] = to_f(xb[(long long)(t + 1) * xstep + v]);
-    }
-    if (active) {
-      // the first L2 rows in flight while the shared-memory rows fold
-      const long long step = (long long)kSplit * hd;
-      uint4 wg[kUnrollL2], w[kUnrollSm];
-      load_rows<kUnrollL2, RT>(wg, rp, step, rows_sm, rows);
-      for (int i0 = 0; i0 < rows_sm; i0 += kUnrollSm) {
-        load_rows<kUnrollSm, RT>(w, sp, step, i0, rows_sm);
-        fold_rows<kUnrollSm, kV>(w, i0, rows_sm, h_sm, ks, acc);
+    for (int u = 0; u < kAhead; ++u) {
+      const int t = t0 + u;
+      if (t >= S) break;
+      if (t >= 1) {
+        mbar_wait(&full[t & 1], ((t - 1) >> 1) & 1);
+        // the next use of this buffer, h_{t+2}: its senders wait for this
+        // warp's h_{t+1}, sent below, so it is armed before they send
+        if (threadIdx.x == 0 && t + 2 < S) mbar_expect(&full[t & 1], bytes);
       }
-      fold_rows<kUnrollL2, kV>(wg, rows_sm, rows, h_sm, ks, acc);
-      for (int i0 = rows_sm + kUnrollL2; i0 < rows; i0 += kUnrollL2) {
-        load_rows<kUnrollL2, RT>(wg, rp, step, i0, rows);
-        fold_rows<kUnrollL2, kV>(wg, i0, rows, h_sm, ks, acc);
+      const float* hp = hbuf[t & 1];
+      float hv[NR];
+#pragma unroll
+      for (int i = 0; i < NR; ++i) hv[i] = hp[lane + 32 * i];
+      float acc[K];
+#pragma unroll
+      for (int j = 0; j < kCPW; ++j) {
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          float s = 0.f;
+#pragma unroll
+          for (int i = 0; i < NR; ++i) s = fmaf(hv[i], rr[j][g][i], s);
+          acc[4 * j + g] = s;
+        }
+      }
+      const float sum = fold_lanes<K>(acc, lane);
+      if (writes_pre) pre[idx & 3][el] = sum;
+      // the sums meet warp 0; the other warps go on to wait for h_{t+1}
+      // (their next writes of pre wait for it too, so pre is not overwritten
+      // before warp 0 has read it)
+      if (warp != 0) {
+        asm volatile("bar.arrive 1, %0;\n" ::"r"(blockDim.x) : "memory");
+        if (warp == 1 && t >= 1 && own >= 0) {
+          float v = 0.f;
+#pragma unroll
+          for (int i = 0; i < NR; ++i) v = i == own ? hv[i] : v;
+          hrow[(long long)(t - 1) * D + lane + 32 * own - rank * Ep] = v;
+        }
+        continue;
+      }
+      asm volatile("bar.sync 1, %0;\n" ::"r"(blockDim.x) : "memory");
+      if (cell) {
+        const float i_pre = pre[0][lane] + Raw<XT>::value(xq[u][0]);
+        const float f_pre = pre[1][lane] + Raw<XT>::value(xq[u][1]);
+        const float z = tanhf(pre[2][lane] + Raw<XT>::value(xq[u][2]));
+        const float o =
+            1.f / (1.f + expf(-(pre[3][lane] + Raw<XT>::value(xq[u][3]))));
+        const float m1 = fmaxf(f_pre + m, i_pre);
+        const float ip = expf(i_pre - m1);
+        const float fp = expf(f_pre + m - m1);
+        c = fp * c + ip * z;
+        n = fmaxf(fp * n + ip, 1e-6f);
+        m = m1;
+        h = o * (c / n);
+      }
+      if (t + 1 < S) {  // into hbuf[(t + 1) & 1] of every CTA, 4 channels
+        const float h1 = __shfl_down_sync(kFull, h, 1);  // to a 16-byte word
+        const float h2 = __shfl_down_sync(kFull, h, 2);
+        const float h3 = __shfl_down_sync(kFull, h, 3);
+        if ((lane & 3) == 0 && lane < E) {
+          const int p = (t + 1) & 1;
+          const uint32_t at = smem_addr(&hbuf[p][rank * Ep + lane]);
+          const uint32_t bar = smem_addr(&full[p]);
+          for (int q = 0; q < C; ++q)
+            store_async(map_rank(at, q), h, h1, h2, h3, map_rank(bar, q));
+        }
+      }
+      if (cell && t + kAhead < S) {
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          xq[u][g] = reinterpret_cast<const XR*>(
+              xp)[(long long)(t + kAhead) * xstep + g * D];
       }
     }
-#pragma unroll
-    for (int v = 0; v < kV; ++v) {  // the quad's partial sums
-      acc[v] += __shfl_xor_sync(0xffffffffu, acc[v], 1);
-      acc[v] += __shfl_xor_sync(0xffffffffu, acc[v], 2);
-    }
-    if (loads_x) {
-#pragma unroll
-      for (int v = 0; v < kV; ++v) pre[g * hd + e0 + v] = x[v] + acc[v];
-    }
-    __syncthreads();
-    for (int e = tid; e < hd; e += nthr) {
-      const float i_pre = pre[e];
-      const float f_pre = pre[hd + e];
-      const float z = tanhf(pre[2 * hd + e]);
-      const float o = 1.f / (1.f + expf(-pre[3 * hd + e]));
-      const float m = m_sm[e];
-      const float m1 = fmaxf(f_pre + m, i_pre);
-      const float ip = expf(i_pre - m1);
-      const float fp = expf(f_pre + m - m1);
-      const float c = fp * c_sm[e] + ip * z;
-      const float n = fmaxf(fp * n_sm[e] + ip, 1e-6f);
-      const float h = o * (c / n);
-      c_sm[e] = c;
-      n_sm[e] = n;
-      m_sm[e] = m1;
-      h_sm[e] = h;
-      hb[(long long)t * D + e] = h;
-    }
-    __syncthreads();
   }
-  for (int e = tid; e < hd; e += nthr) {
-    h_fin[chan + e] = h_sm[e];
-    c_fin[chan + e] = c_sm[e];
-    n_fin[chan + e] = n_sm[e];
-    m_fin[chan + e] = m_sm[e];
+  // no CTA leaves while another may still write its buffers
+  __syncwarp();
+  cluster_arrive();
+  cluster_wait();
+  if (cell) {
+    hrow[(long long)(S - 1) * D + lane] = h;
+    h_fin[chan0 + lane] = h;
+    c_fin[chan0 + lane] = c;
+    n_fin[chan0 + lane] = n;
+    m_fin[chan0 + lane] = m;
   }
 }
 
-template <typename XT, typename RT>
-int launch(const void* xg, const void* r, const float* const* st, float* hs,
-           float* const* fin, int B, int S, int H, int hd,
-           cudaStream_t stream) {
-  if (hd % Vec<RT>::kV != 0 || hd % kSplit != 0 ||
-      threads_for<RT>(hd) > kMaxThreads)
-    return static_cast<int>(cudaErrorInvalidValue);
-  // as many rows of the four gates' blocks of r in shared memory as fit
-  // beside the state, a multiple of kSplit (144 of 192 at xLSTM's bf16
-  // heads), the rest from L2
-  const size_t state = (size_t)8 * hd * sizeof(float);
-  const size_t row = (size_t)4 * hd * sizeof(RT);  // one row of each gate
-  const int smem_rows = (int)std::min<size_t>(
-      hd, (kSmemMax - state) / row / kSplit * kSplit);
-  const size_t smem = state + smem_rows * row;
-  cudaError_t err = cudaFuncSetAttribute(
-      slstm_scan_kernel<XT, RT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+struct Args {
+  const void *xg, *r;
+  const float *h0, *c0, *n0, *m0;
+  float *hs, *h_fin, *c_fin, *n_fin, *m_fin;
+  int B, S, H, hd, C, r_bf16;
+};
+
+template <int NR, typename XT>
+int launch(const Args& a, cudaStream_t stream) {
+  auto kernel = slstm_scan_kernel<NR, XT>;
+  const int E = a.hd / a.C;
+  // a warp for two channels, and at least two warps (warp 1 writes hs)
+  const int threads = 32 * std::max(2, (E + kCPW - 1) / kCPW);
+  if (threads > kMaxThreads) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.C * a.H, a.B);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // at least one cluster must fit on the card (the rest run in waves: the
+  // clusters do not wait on each other)
+  int clusters = 0;
+  cudaError_t err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int swizzle = (hd / Vec<RT>::kV) % 8 == 0 ? 6 : 0;
-  const dim3 grid(H, B);
-  slstm_scan_kernel<XT, RT><<<grid, threads_for<RT>(hd), smem, stream>>>(
-      static_cast<const XT*>(xg), static_cast<const RT*>(r), st[0], st[1],
-      st[2], st[3], hs, fin[0], fin[1], fin[2], fin[3], S, H, hd, smem_rows,
-      swizzle);
+  if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const XT*>(a.xg), a.r,
+                           a.h0, a.c0, a.n0, a.m0, a.hs, a.h_fin, a.c_fin,
+                           a.n_fin, a.m_fin, a.S, a.H, a.hd, a.C, a.r_bf16);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename XT>
+int launch_rows(const Args& a, cudaStream_t stream) {
+  // positions of hbuf in use: C slots of E rounded up to 4
+  const int rows = a.C * ((a.hd / a.C + 3) & ~3);
+  if (rows > kMaxHd) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows <= 64) return launch<2, XT>(a, stream);
+  if (rows <= 128) return launch<4, XT>(a, stream);
+  if (rows <= 192) return launch<6, XT>(a, stream);
+  return launch<8, XT>(a, stream);
 }
 
 }  // namespace
 
 // xg: (B,S,4,D) float32 (xg_bf16 == 0) or bfloat16; r: (4,H,hd,hd) float32
 // (r_bf16 == 0) or bfloat16; h0, c0, n0, m0, h_fin, c_fin, n_fin, m_fin:
-// (B,D) float32; hs: (B,S,D) float32; all contiguous, r 16-byte aligned.
-// hd a multiple of 8 (bfloat16 r) or 4 (float32 r), at most 256 or 128.
+// (B,D) float32; hs: (B,S,D) float32; all contiguous.  hd at most 256 and
+// a multiple of its cluster size C, the least power of two with hd / C at
+// most 32.
 extern "C" int slstm_scan_launch(const void* xg, const void* r, const void* h0,
                                  const void* c0, const void* n0,
                                  const void* m0, void* hs, void* h_fin,
@@ -291,21 +441,31 @@ extern "C" int slstm_scan_launch(const void* xg, const void* r, const void* h0,
                                  int S, int H, int hd, int xg_bf16,
                                  int r_bf16, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0) return 0;
-  if (hd <= 0 || reinterpret_cast<uintptr_t>(r) % 16 != 0)
+  if (hd <= 0 || hd > kMaxHd || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const float* st[4] = {static_cast<const float*>(h0),
-                        static_cast<const float*>(c0),
-                        static_cast<const float*>(n0),
-                        static_cast<const float*>(m0)};
-  float* fin[4] = {static_cast<float*>(h_fin), static_cast<float*>(c_fin),
-                   static_cast<float*>(n_fin), static_cast<float*>(m_fin)};
-  float* out = static_cast<float*>(hs);
+  int C = 1;
+  while (hd > 16 * kCPW * C) C *= 2;
+  if (C > kMaxCluster || hd % C != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{xg,
+               r,
+               static_cast<const float*>(h0),
+               static_cast<const float*>(c0),
+               static_cast<const float*>(n0),
+               static_cast<const float*>(m0),
+               static_cast<float*>(hs),
+               static_cast<float*>(h_fin),
+               static_cast<float*>(c_fin),
+               static_cast<float*>(n_fin),
+               static_cast<float*>(m_fin),
+               B,
+               S,
+               H,
+               hd,
+               C,
+               r_bf16};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (xg_bf16)
-    return r_bf16 ? launch<bf16, bf16>(xg, r, st, out, fin, B, S, H, hd, s)
-                  : launch<bf16, float>(xg, r, st, out, fin, B, S, H, hd, s);
-  return r_bf16 ? launch<float, bf16>(xg, r, st, out, fin, B, S, H, hd, s)
-                : launch<float, float>(xg, r, st, out, fin, B, S, H, hd, s);
+  return xg_bf16 ? launch_rows<bf16>(a, s) : launch_rows<float>(a, s);
 }
 
 extern "C" const char* slstm_scan_error_string(int err) {

@@ -5,9 +5,12 @@ The device form of ``repro/models/rglru.py:rglru_scan``'s
 Pallas kernel for it).  The kernel (``csrc/linear_scan.cu``) takes a, b
 ``(B,T,N)`` and h0 ``(B,N)`` in float32 and returns every ``h_t`` and the
 last, with h0 entering as the reference folds it into the first input
-term.  It is bound by bytes (12 an element); its first design walks T
-with one thread a channel, so at the RG-LRU's width it fills only part of
-the card (the note in the source says what would).
+term.  It is bound by bytes (12 an element), and reads a and b once: a
+single pass over tiles of :data:`TILE_CHANNELS` channels by
+:data:`TILE_STEPS` steps, joined by a decoupled look-back that gives the
+same bits on every run, through status words tagged with the launch's
+generation, which the wrapper keeps on each stream from launch to launch
+(the note in the source has the design).
 
 :func:`linear_scan_plain` is its plain version: a log-depth
 (Hillis-Steele) scan in torch, which autograd can differentiate; the CPU
@@ -18,6 +21,7 @@ families).
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -25,13 +29,23 @@ from ._build import Kernel
 
 KERNEL = Kernel(
     "linear_scan",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3,
+    [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+    + [ctypes.c_uint],
     replaces="src/repro/models/rglru.py:82",
 )
 
-#: ``|got - want| <= atol + rtol * |want|`` between the kernel (a
-#: sequential fused multiply-add a step), the plain version (a log-depth
-#: tree) and the reference's ``associative_scan`` (another tree): all float32,
+#: A tile of the kernel: ``TILE_CHANNELS`` channels by ``TILE_STEPS`` steps,
+#: in sub-chunks of ``SUB_STEPS`` steps (``csrc/linear_scan.cu`` kLanes,
+#: kTile, kSteps)
+TILE_CHANNELS, TILE_STEPS, SUB_STEPS = 32, 128, 16
+#: The status words' tags hold a launch's generation in 30 bits
+#: (``csrc/linear_scan.cu`` kGenerations): at the wrap the scratch is zeroed
+GENERATIONS = 1 << 30
+
+#: ``|got - want| <= atol + rtol * |want|`` between the kernel (fused
+#: multiply-adds in sub-chunks, tiles and a carry across tiles), the plain
+#: version (a log-depth tree) and the reference's ``associative_scan``
+#: (another tree): all float32,
 #: they differ in summation order only.  With ``|a| < 1`` an error decays,
 #: so each output carries the rounding of about ``1 / (1 - a)`` terms: for
 #: ``a <= 0.95`` and ``|b| <= 1`` that is under 1e-5 of ``|h| <= 20``
@@ -106,8 +120,42 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor,
     last = torch.empty((B, N), dtype=torch.float32, device=a.device)
     if B * N == 0:
         return out, last
+    tiles = B * -(-N // TILE_CHANNELS) * -(-T // TILE_STEPS)
+    stream = torch.cuda.current_stream(a.device)
+    scratch, gen = _scratch.take(stream, 1 + tiles * 2 * TILE_CHANNELS)
     with torch.cuda.device(a.device):
         KERNEL.launch(a.data_ptr(), b.data_ptr(), h0.data_ptr(),
-                      out.data_ptr(), last.data_ptr(), B, T, N,
-                      stream=torch.cuda.current_stream(a.device).cuda_stream)
+                      out.data_ptr(), last.data_ptr(), scratch.data_ptr(),
+                      scratch.numel(), B, T, N, gen,
+                      stream=stream.cuda_stream)
     return out, last
+
+
+class _Scratch:
+    """The look-back's ticket and status words, one buffer a stream, kept
+    from launch to launch: the kernel leaves the ticket at 0 and tags each
+    status word with its launch's generation, so a launch needs no zeroing
+    unless its buffer is new (or larger) or the generation wraps."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.bufs: dict[tuple[int, int], tuple[torch.Tensor, int]] = {}
+
+    def take(self, stream: torch.cuda.Stream, words: int):
+        """``(buffer, gen)`` for the next launch on ``stream``."""
+        key = (stream.device.index, stream.cuda_stream)
+        with self.lock:
+            buf, gen = self.bufs.get(key, (None, 0))
+            if buf is None or buf.numel() < words:
+                buf = torch.zeros(words, dtype=torch.int64,
+                                  device=stream.device)
+                gen = 0
+            gen += 1
+            if gen == GENERATIONS:
+                buf.zero_()
+                gen = 1
+            self.bufs[key] = (buf, gen)
+        return buf, gen
+
+
+_scratch = _Scratch()

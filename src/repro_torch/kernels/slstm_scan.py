@@ -7,8 +7,10 @@ reference has no Pallas kernel for it).  The kernel
 + b_g`` for the gates i, f, z, o, plain products outside the scan), the
 block-diagonal recurrent weights ``r (4,H,hd,hd)`` and the float32 state
 ``(h, c, n, m)``, and returns h for every step ``(B,S,D)`` float32 and the
-final state; the head width must be a multiple of 8 (bfloat16 weights) or
-4 (float32).  It is bound by the chain of S steps: one CTA per (b, head).
+final state, at the head widths of :data:`HEAD_WIDTHS`.  It is bound by
+the chain of S steps: a thread-block cluster a (b, head), each CTA
+holding its channels' columns of r in registers, h exchanged through
+distributed shared memory and one mbarrier wait a step (the note in the source has the design).
 
 :func:`slstm_step` is one step of the cell in torch (the reference's
 ``_slstm_cell``; the model's decode step calls it), and
@@ -31,6 +33,14 @@ KERNEL = Kernel(
     [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6,
     replaces="src/repro/models/ssm.py:251",
 )
+
+#: Head widths the kernel takes, by the weights' type: (multiple, widest).
+#: The kernel splits a head over C CTAs, C the least power of two with at
+#: most 32 channels a CTA (``csrc/slstm_scan.cu``), and takes hd up to 256
+#: where C divides it: a multiple of 8 up to 256 always splits (C <= 8), a
+#: multiple of 4 up to 128 (C <= 4).  Float32 weights keep the narrower set,
+#: the widths the card tests hold.
+HEAD_WIDTHS = {torch.bfloat16: (8, 256), torch.float32: (4, 128)}
 
 #: ``|got - want| <= atol + rtol * |want|`` between two float32 forms of the
 #: cell over a short sequence (tens of steps): the same float32 cell, the
@@ -140,13 +150,11 @@ def slstm_scan(xg: torch.Tensor, r: torch.Tensor, state: SLSTMState):
         raise ValueError("xg, r and the state must be on one device")
     B, S, _, D = xg.shape
     H, hd = r.shape[1], r.shape[2]
-    vec = 16 // r.element_size()  # channels a thread: 16 bytes of r a row
-    if hd % vec or hd > 32 * vec:
+    multiple, widest = HEAD_WIDTHS[r.dtype]
+    if hd % multiple or hd > widest:
         raise ValueError(f"head width {hd}: the kernel takes multiples of "
-                         f"{vec} up to {32 * vec} for {r.dtype} weights")
+                         f"{multiple} up to {widest} for {r.dtype} weights")
     xg, r = xg.contiguous(), r.contiguous()
-    if r.data_ptr() % 16:  # the kernel reads r 16 bytes at a time
-        r = r.clone()
     st = [t.to(torch.float32).contiguous() for t in state]
     hs = torch.empty((B, S, D), dtype=torch.float32, device=xg.device)
     fin = SLSTMState(*(torch.empty_like(t) for t in st))

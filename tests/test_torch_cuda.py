@@ -1157,11 +1157,19 @@ def _close_to(got, want, tol, msg=""):
                                err_msg=msg)
 
 
+_TILE = 128  # kernels/linear_scan.py TILE_STEPS
+
+
 @pytest.mark.parametrize("B,T,N", [(1, 1, 1), (2, 37, 100), (3, 1000, 33),
-                                   (1, 4096, 2560), (2, 17, 2561)])
+                                   (1, 4096, 2560), (2, 17, 2561),
+                                   (1, _TILE - 1, 64), (1, _TILE, 64),
+                                   (2, _TILE + 1, 64), (3, 300 * _TILE + 5, 40),
+                                   (3, 300, 2561)])
 def test_linear_scan_kernel_matches_plain(dev, B, T, N):
-    """Ragged T, N not a multiple of 32, B > 1, and the state carried
-    across two calls (the second call's h0 is the first's last h)."""
+    """Ragged T, N not a multiple of 32, B > 1, T at a tile's edges and
+    over hundreds of tiles (the look-back), and the state carried across
+    two calls launched back to back (the second call's h0 is the first's
+    last h)."""
     from repro_torch.kernels import linear_scan as kscan
 
     rng = np.random.default_rng(T + N)
@@ -1176,6 +1184,56 @@ def test_linear_scan_kernel_matches_plain(dev, B, T, N):
     _close_to(torch.cat([h1, h2], 1), want, kscan.TOLERANCE)
     _close_to(last2, want_last, kscan.TOLERANCE)
     _close_to(last1, want[:, T - 1], kscan.TOLERANCE)
+
+
+def test_linear_scan_kernel_after_launches_of_other_sizes(dev):
+    """A launch leaves the ticket at 0 and its status words tagged with its
+    generation, which the next launch on the stream reads as unpublished: a
+    large launch, a small one, the large one again and a larger one (a new
+    scratch), back to back on one stream, each equal to its plain version;
+    then the same again across the generations' wrap."""
+    from repro_torch.kernels import linear_scan as kscan
+
+    rng = np.random.default_rng(7)
+    shapes = [(2, 40 * _TILE + 3, 300), (1, 5, 7), (2, 40 * _TILE + 3, 300),
+              (3, 20 * _TILE, 2561)]
+    ins = [(_t32(rng, s, 0.0, 0.95), _t32(rng, s, std=0.5),
+            _t32(rng, (s[0], s[2]))) for s in shapes]
+    stream = torch.cuda.current_stream()
+    key = (stream.device.index, stream.cuda_stream)
+    kscan._scratch.bufs.pop(key, None)
+    for wrap in (False, True):
+        if wrap:
+            buf, _ = kscan._scratch.bufs[key]
+            kscan._scratch.bufs[key] = (buf, kscan.GENERATIONS - 2)
+        kscan.KERNEL.launches = 0
+        got = [kscan.linear_scan(*x) for x in ins]
+        assert kscan.KERNEL.launches == len(shapes)
+        for (h, last), x in zip(got, ins):
+            want, want_last = kscan.linear_scan_plain(*x)
+            _close_to(h, want, kscan.TOLERANCE)
+            _close_to(last, want_last, kscan.TOLERANCE)
+    assert kscan._scratch.bufs[key][1] == 3  # wrapped at the second launch
+
+
+@pytest.mark.parametrize("B,T,N", [(1, 32768, 2560), (3, 300 * _TILE, 2561)])
+def test_linear_scan_kernel_is_bit_reproducible(dev, B, T, N):
+    """The look-back folds forward from the nearest prefix in the order a
+    chain of prefixes would, so however far each tile walks, five launches
+    give the same bits (phase 10's longest prompt and hundreds of tiles at
+    B 3)."""
+    from repro_torch.kernels import linear_scan as kscan
+
+    rng = np.random.default_rng(B + T)
+    a = _t32(rng, (B, T, N), 0.0, 0.999)
+    b = _t32(rng, (B, T, N), std=0.5)
+    h0 = _t32(rng, (B, N))
+    first, first_last = kscan.linear_scan(a, b, h0)
+    for _ in range(4):
+        h, last = kscan.linear_scan(a, b, h0)
+        assert torch.equal(h, first) and torch.equal(last, first_last)
+    want, _ = kscan.linear_scan_plain(a[:, :4096], b[:, :4096], h0)
+    _close_to(first[:, :4096], want, kscan.TOLERANCE)
 
 
 @pytest.mark.parametrize("B,nc,H,hd", [(1, 1, 1, 1), (2, 5, 3, 33),
@@ -1208,20 +1266,27 @@ def test_mlstm_scan_kernel_matches_plain(dev, B, nc, H, hd):
         _close_to(got[1][i], want[i], kmlstm.TOLERANCE, f"output {i}")
 
 
+#: (B, S, H, hd): head widths on each cluster size the kernel picks (1 at
+#: hd <= 32, 2 at 64, 4 at 128, 8 above), several clusters (B 3, H > 1)
 _SLSTM_SHAPES = [(1, 1, 1, 8), (2, 33, 2, 32), (3, 17, 3, 24),
-                 (1, 300, 4, 128)]
+                 (1, 300, 4, 128), (1, 40, 2, 64), (3, 25, 2, 128)]
 
 
 @pytest.mark.parametrize("dtype,B,S,H,hd", [
     (dt, *shape) for dt in (torch.float32, torch.bfloat16)
-    for shape in _SLSTM_SHAPES] + [(torch.bfloat16, 2, 50, 4, 192)])
+    for shape in _SLSTM_SHAPES] + [
+        (torch.bfloat16, 2, 50, 4, 192), (torch.bfloat16, 1, 1, 4, 192),
+        (torch.bfloat16, 3, 20, 2, 256), (torch.bfloat16, 3, 12, 3, 200),
+        (torch.bfloat16, 1, 2048, 4, 192)])
 def test_slstm_scan_kernel_matches_plain(dev, dtype, B, S, H, hd):
     """Gate inputs and recurrent weights in float32 and in bfloat16 (the
     reference's promotion: the state times r in float32), the weights at
     the model's scale (std 0.02), the state carried across two calls, head
-    widths up to the kernel's (128 in float32, xLSTM's 192 in bfloat16);
-    held to the plain version in float64 as accurately as the plain
-    version in float32 is (``ACCURACY``)."""
+    widths up to the kernel's (128 in float32, 256 in bfloat16; 200: 25
+    channels a CTA, padded to 28 in the h buffer), S = 1, and xLSTM's
+    width over 4,096 steps (two calls of 2,048); held to the plain version
+    in float64 as accurately as the plain version in float32 is
+    (``ACCURACY``)."""
     from repro_torch.kernels import slstm_scan as kslstm
 
     rng = np.random.default_rng(S + hd)

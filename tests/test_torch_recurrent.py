@@ -169,6 +169,84 @@ def test_linear_scan_plain_is_the_recurrence(T):
     _close(last.numpy(), want[-1], kscan.TOLERANCE)
 
 
+def _tiled_scan(a, b, h0, walk=0):
+    """The card kernel's order of composition (``csrc/linear_scan.cu``) in
+    float32 numpy: each sub-chunk of ``SUB_STEPS`` steps scanned from h = 0
+    with its running product of a; the tile's sub-chunks composed in order
+    into each one's incoming map and the tile's aggregate ``(A_k, B_k)``;
+    the carry into tile k the look-back's: from the nearest predecessor's
+    inclusive prefix, forward through the aggregates after it,
+    ``P_j = A_j P_{j-1} + B_j``; each output ``A_t h_in + B_t``.  With
+    ``walk`` > 0, every tile k that is a multiple of it and at least it
+    finds no prefix nearer than tile k - walk (the walk of a tile whose
+    predecessors have only published their aggregates); else each meets
+    its predecessor's prefix.  Steps past T are the identity map, as the
+    kernel pads them."""
+    f = np.float32
+    Bn, T, N = a.shape
+    W, L = kscan.TILE_STEPS // kscan.SUB_STEPS, kscan.SUB_STEPS
+    out = np.empty((Bn, T, N), f)
+    aggs, prefix = [], []
+    for k, k0 in enumerate(range(0, T, kscan.TILE_STEPS)):
+        va, vb = [], []
+        for w in range(W):  # each sub-chunk's local scan
+            ta, tb = [], []
+            for u in range(L):
+                t = k0 + w * L + u
+                at = a[:, t] if t < T else np.ones((Bn, N), f)
+                bt = b[:, t] if t < T else np.zeros((Bn, N), f)
+                if u:
+                    bt, at = at * tb[-1] + bt, at * ta[-1]
+                ta.append(at.astype(f))
+                tb.append(bt.astype(f))
+            va.append(ta)
+            vb.append(tb)
+        A, Bm, inc = np.ones((Bn, N), f), np.zeros((Bn, N), f), []
+        for w in range(W):  # warp 0: incoming maps and the aggregate
+            inc.append((A, Bm))
+            Bm, A = va[w][-1] * Bm + vb[w][-1], va[w][-1] * A
+        aggs.append((A, Bm))
+        if k == 0:
+            carry = h0.astype(f)
+        else:
+            depth = walk if walk and k >= walk and k % walk == 0 else 1
+            carry = prefix[k - depth]
+            for j in range(k - depth + 1, k):
+                carry = aggs[j][0] * carry + aggs[j][1]
+        prefix.append(A * carry + Bm)
+        for w in range(W):
+            hw = inc[w][0] * carry + inc[w][1]
+            for u in range(L):
+                t = k0 + w * L + u
+                if t < T:
+                    out[:, t] = va[w][u] * hw + vb[w][u]
+    return out
+
+
+@pytest.mark.parametrize("walk", [0, 3])
+@pytest.mark.parametrize("T", [1, kscan.TILE_STEPS - 1, kscan.TILE_STEPS,
+                               kscan.TILE_STEPS + 1,
+                               7 * kscan.TILE_STEPS + 50])
+def test_tiled_linear_scan_order_matches_associative_scan(T, walk):
+    """The kernel's sub-chunk, tile and look-back order of composition
+    against the reference's ``rglru_scan`` (its ``a``, ``b`` from
+    ``_lru_coeffs``, a non-zero h0 folded into the first step), at
+    ``kscan.TOLERANCE``, each tile joined by its predecessor's prefix or
+    every third through the aggregates after an earlier prefix; the two
+    joins give the same bits, as the kernel's do whatever the timing."""
+    cfg, jcfg = _cfgs("recurrentgemma-2b")
+    jp, _ = _block_params(jrglru.rglru_template(jcfg), 1)
+    u = jnp.asarray(_normal(2, (2, T, cfg.lru_width), 0.5))
+    h0 = _normal(3, (2, cfg.lru_width))
+    a, b = (np.asarray(x) for x in jrglru._lru_coeffs(jp, u))
+    want, want_last = jrglru.rglru_scan(jp, u, jnp.asarray(h0))
+    got = _tiled_scan(a, b, h0, walk)
+    _close(got, want, kscan.TOLERANCE)
+    _close(got[:, -1], want_last, kscan.TOLERANCE)
+    if walk:
+        np.testing.assert_array_equal(got, _tiled_scan(a, b, h0))
+
+
 def test_rglru_block_prefill_and_decode_match_reference():
     cfg, jcfg = _cfgs("recurrentgemma-2b")
     jp, p = _block_params(jrglru.rglru_template(jcfg), 4)
@@ -383,6 +461,61 @@ def test_prefill_and_eight_decode_steps_match_reference(model):
                                        jnp.asarray(tok), pos)
         _close(lg.numpy(), jlg, TOL, f"decode step {step}")
     _states_close(caches, jcaches)
+
+
+#: bf16 models: the port's logits are held to the reference's bf16 logits
+#: within ``BF16_RATIO`` times the reference's own gap to the same weights
+#: run in float32, plus ``BF16_ATOL``.  Two bf16 forms that round at other
+#: places (XLA and torch fuse and block differently) each lie about that
+#: gap from the float32 run, so they differ by at most the sum of the two:
+#: twice it, as ``slstm_scan.ACCURACY`` holds a kernel to its float64 run;
+#: the atol covers outputs where the gap is near zero
+BF16_RATIO = 2.0
+BF16_ATOL = 1e-3
+BF16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
+
+
+@pytest.mark.parametrize("arch", ARCHS + ("llama3.2-1b",))
+def test_bf16_prefill_and_decode_match_reference(arch):
+    """Whole reduced models in bf16, the inputs of each family's
+    ``test_prefill_and_eight_decode_steps_match_reference`` (llama3.2-1b's
+    in ``test_torch_models.py``: the flash route, blocks of 16): the
+    prefill's logits and eight decode steps', each within ``BF16_RATIO`` of
+    the reference's bf16-vs-float32 gap on the same bf16 weights."""
+    llama = arch == "llama3.2-1b"
+    kw = dict(attn_q_block=16, attn_kv_block=16) if llama else {}
+    S, seed = (48, 11) if llama else (45, 21)
+    cfg, jcfg = _cfgs(arch, **BF16, **kw)
+    _, jcfg32 = _cfgs(arch, **kw)
+    jp32 = jlm.init_params(jcfg32, jax.random.PRNGKey(0))
+    jp = jax.tree.map(lambda x: x.astype(jnp.bfloat16), jp32)
+    jp_up = jax.tree.map(lambda x: x.astype(jnp.float32), jp)
+    params = params_from_jax(cfg, jax.tree.map(np.asarray, jp32),
+                             device="cpu")
+    cache_len = 64
+    toks = _tokens(seed, 2, S, cfg.vocab_size)
+    nxt = np.random.default_rng(seed + 1).integers(0, cfg.vocab_size,
+                                                   (8, 2, 1))
+    lg, caches = lm.prefill_step(cfg, params,
+                                 {"tokens": torch.from_numpy(toks).long()},
+                                 cache_len)
+    ref = [jlm.prefill_step(c, p, {"tokens": jnp.asarray(toks)}, cache_len)
+           for c, p in ((jcfg, jp), (jcfg32, jp_up))]
+    for step in range(9):
+        want, want32 = (np.asarray(r[0], np.float32) for r in ref)
+        got = lg.float().numpy()
+        err = float(np.abs(got - want).max())
+        own = float(np.abs(want - want32).max())
+        assert err <= BF16_RATIO * own + BF16_ATOL, (
+            f"{arch} step {step}: port vs reference bf16 {err}, reference "
+            f"bf16 vs float32 {own}")
+        if step == 8:
+            break
+        pos, tok = S + step, nxt[step].astype(np.int32)
+        lg, caches = lm.decode_step(cfg, params, caches,
+                                    torch.from_numpy(tok).long(), pos)
+        ref = [jlm.decode_step(c, p, r[1], jnp.asarray(tok), pos)
+               for (c, p), r in zip(((jcfg, jp), (jcfg32, jp_up)), ref)]
 
 
 def test_decode_matches_forward(model):

@@ -32,7 +32,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It drives only
    tokens, 32 query and 8 KV heads of width 64, causal, bfloat16 and
    float32), at phase 9's training shape (a microbatch of 2 x 2048,
    bfloat16), at recurrentgemma-2b's local MQA (4,096 tokens, 10 query
-   heads and 1 KV head of width 256, window 2048, bfloat16) and one small
+   heads and 1 KV head of width 256, window 2048, bfloat16), at phase
+   11's (4,096 tokens, bfloat16: 32 over 8 heads and 56 over 8 of width
+   128, 32 over 32 of width 64) and one small
    ragged case each for the full mask and a local window, with its error
    beside the stated tolerance, kernel, plain and SDPA times (the window
    as a boolean mask) and its bound; the recurrent families' three scans
@@ -122,14 +124,31 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It drives only
    against one ``forward`` over the same tokens, logits within the
    tolerance between routes and the greedy tokens the forward's argmax
    (or near-ties within twice the routes' difference);
-11. the ``kernels`` JSON line, then the result line.
+11. the rest of the dense family, the embedding input modes and MoE at
+   their published width, random bfloat16 weights from the seed, each
+   model freed before the next: ``granite-8b``, ``phi3-medium-14b``,
+   ``qwen2-72b`` (its depth cut to the deepest that fits beside the
+   cache: 145 GB whole) and ``qwen3-moe-30b-a3b`` (128 experts, top 8)
+   through ``Engine`` with 4 slots and a 4,160-token cache, 4 requests of
+   4096, 2048, 1024 and 37 prompt tokens, 16 new each, with the device's
+   busy share over the decode-only steps and, for the MoE, the pairs each
+   prefill drops past the experts' capacity; ``musicgen-large``
+   (``embeddings``: 2 rows of 4,096 frame embeddings) and
+   ``llava-next-34b`` (``mixed``: 2 rows of 2,880 patch embeddings and
+   1,216 text tokens) through ``lm.prefill_step`` and 15 greedy
+   ``lm.decode_step``s; prefill ms, decode tokens/s, peak memory, flash
+   launches equal to those the prefills make; then each model's gate at 2
+   layers, full width (the MoE's capacity lifted): a 2,048-position
+   prefill (llava: 4,096) and 8 greedy steps against one ``forward``, as
+   phase 10's;
+12. the ``kernels`` JSON line, then the result line.
 
-Phases 7 and 10 count, in the traced replay of their decode steps, the
+Phases 7, 10 and 11 count, in the traced replay of their decode steps, the
 kernel launches the host issued against the kernels the trace recorded,
 and print both beside the busy share where they differ (the share is then
 a lower bound).  The launch counts are set to 0 before the block-max op
 in phase 3, before phases 4, 5, 6, 7 and 8, before phase 9's ingest and
-its training run, and before each of phase 10's two serving runs, and
+its training run, and before each serving run of phases 10 and 11, and
 read after each; every kernel must launch in one of them, and each phase
 must launch the kernels of its own path.  The ``kernels`` line sums
 them.
@@ -855,8 +874,13 @@ def block_max_path(seed: int, n: int, kernels) -> dict:
 #: lengths that take the flash route, phase 9's training shape (batch 8
 #: in microbatches of 4 gives 2 rows of 2048), recurrentgemma-2b's local
 #: MQA (10 query heads and 1 KV head of width 256, window 2048) at a
-#: 4,096-token prompt, and one small ragged case each for the full
-#: (non-causal) mask and a local window
+#: 4,096-token prompt, phase 11's at 4,096 tokens: granite-8b's 32 over 8
+#: heads of width 128, llava-next-34b's 56 over 8 (groups of 7),
+#: phi3-medium-14b's 40 over 10, qwen2-72b's 64 over 8 and
+#: qwen3-moe-30b-a3b's 32 over 4 (both groups of 8) and musicgen-large's
+#: full MHA (32 over 32 of width 64): every layout phase 11 launches the
+#: kernel with, held to its tolerance here; and one small
+#: ragged case each for the full (non-causal) mask and a local window
 FLASH_CASES = [
     ("S2048 bf16", 1, 2048, 32, 8, 64, "bfloat16", True, 0),
     ("S2048 bf16 B2", 2, 2048, 32, 8, 64, "bfloat16", True, 0),
@@ -865,6 +889,12 @@ FLASH_CASES = [
     ("S4096 f32", 1, 4096, 32, 8, 64, "float32", True, 0),
     ("S4096 hd256 window 2048 bf16", 1, 4096, 10, 1, 256, "bfloat16", True,
      2048),
+    ("S4096 hd128 32/8 bf16", 1, 4096, 32, 8, 128, "bfloat16", True, 0),
+    ("S4096 hd128 56/8 bf16", 1, 4096, 56, 8, 128, "bfloat16", True, 0),
+    ("S4096 hd128 40/10 bf16", 1, 4096, 40, 10, 128, "bfloat16", True, 0),
+    ("S4096 hd128 64/8 bf16", 1, 4096, 64, 8, 128, "bfloat16", True, 0),
+    ("S4096 hd128 32/4 bf16", 1, 4096, 32, 4, 128, "bfloat16", True, 0),
+    ("S4096 hd64 32/32 bf16", 1, 4096, 32, 32, 64, "bfloat16", True, 0),
     ("S96 hd16 full", 2, 96, 4, 2, 16, "float32", False, 0),
     ("S96 hd16 window 24", 2, 96, 4, 2, 16, "float32", True, 24),
 ]
@@ -1578,8 +1608,8 @@ def serve_checked(cfg, params, scfg, prompts, kernels, warm) -> dict:
     if not bool(torch.stack(eng.finite).all()):
         raise AssertionError("non-finite logits while serving")
     st = eng.stats
-    n_busy = next(i for i, (admitted, _) in enumerate(eng.steps[1:], 1)
-                  if admitted) - 1
+    n_busy = next((i for i, (admitted, _) in enumerate(eng.steps[1:], 1)
+                   if admitted), len(eng.steps)) - 1
     busy_s = sum(s_ for _, s_ in eng.steps[1:1 + n_busy])
     del eng
     replay = Engine(cfg, params, scfg)
@@ -1907,6 +1937,28 @@ STEP_KERNEL_GROUPS = (("matmul", ("gemm", "xmma", "nvjet", "cutlass")),
                       ("flash", ("flash_attn",)))
 
 
+def device_split(prof, groups) -> dict:
+    """A ``torch.profiler`` trace's device time by kernel group, the first
+    group whose keys a kernel's name holds (else "other"): the ms of each
+    group, the kernels counted and the ten costliest by name."""
+    split = {name: 0.0 for name, _ in groups}
+    split["other"] = 0.0
+    kernels = 0
+    top = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0.0) or getattr(
+            ev, "self_cuda_time_total", 0.0)
+        if us <= 0:
+            continue
+        kernels += ev.count
+        name = next((g for g, keys in groups
+                     if any(k in ev.key for k in keys)), "other")
+        split[name] += us / 1e3
+        top.append((us / 1e3, ev.count, ev.key))
+    return dict(device_ms=sum(split.values()), groups_ms=split,
+                kernels=kernels, top=sorted(top, reverse=True)[:10])
+
+
 def traced_step(trainer, params, opt_state, step: int) -> dict:
     """One more training step traced with ``torch.profiler``: its wall
     ms, the device ms by kernel group, and the device's busy share."""
@@ -1921,24 +1973,9 @@ def traced_step(trainer, params, opt_state, step: int) -> dict:
         float(out[2]["loss"])
         wall = time.perf_counter() - t0
     del out
-    groups = {name: 0.0 for name, _ in STEP_KERNEL_GROUPS}
-    groups["other"] = 0.0
-    kernels = 0
-    top = []
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", 0.0) or getattr(
-            ev, "self_cuda_time_total", 0.0)
-        if us <= 0:
-            continue
-        kernels += ev.count
-        name = next((g for g, keys in STEP_KERNEL_GROUPS
-                     if any(k in ev.key for k in keys)), "other")
-        groups[name] += us / 1e3
-        top.append((us / 1e3, ev.count, ev.key))
-    device = sum(groups.values())
-    return dict(wall_ms=wall * 1e3, device_ms=device, groups_ms=groups,
-                kernels=kernels, busy_share=device / (wall * 1e3),
-                top=sorted(top, reverse=True)[:10])
+    split = device_split(prof, STEP_KERNEL_GROUPS)
+    return dict(wall_ms=wall * 1e3,
+                busy_share=split["device_ms"] / (wall * 1e3), **split)
 
 
 def training_phase(seed: int, kernels) -> dict:
@@ -2184,10 +2221,11 @@ GATE_STEPS = 8
 
 def expected_launches(cfg, prompts) -> dict:
     """The scan and flash launches that prefilling ``prompts`` makes: flash
-    once an attention layer for a prompt above ``attn_kv_block``, the
-    RG-LRU and sLSTM scans once a layer, the mLSTM carry once a layer (twice
-    for a ragged prompt: the whole chunks, then the tail)."""
-    from repro_torch.models.transformer import layer_kinds
+    once an attention layer (dense, MoE or local) for a prompt above
+    ``attn_kv_block``, the RG-LRU and sLSTM scans once a layer, the mLSTM
+    carry once a layer (twice for a ragged prompt: the whole chunks, then
+    the tail)."""
+    from repro_torch.models.transformer import ATTENTION_KINDS, layer_kinds
 
     kinds = layer_kinds(cfg)
 
@@ -2198,7 +2236,7 @@ def expected_launches(cfg, prompts) -> dict:
                 for S in prompts)
     mlstm = sum(1 if S % min(cfg.mlstm_chunk, S) == 0 else 2
                 for S in prompts)
-    return {"flash_attn": flash * n("attn"),
+    return {"flash_attn": flash * sum(map(n, ATTENTION_KINDS)),
             "linear_scan": len(prompts) * n("rglru"),
             "mlstm_scan": mlstm * n("mlstm"),
             "slstm_scan": len(prompts) * n("slstm")}
@@ -2214,16 +2252,65 @@ def state_bytes_per_slot(cfg, cache_len: int) -> int:
     return sum(t.numel() * t.element_size() for t in leaves(caches))
 
 
+def greedy_against_forward(cfg, params, batch, steps: int) -> dict:
+    """One row's prefill of ``batch`` and ``steps`` greedy decode steps,
+    against one ``forward`` over the prompt and the tokens decoded (its
+    attention on the materialised route in query blocks that divide its
+    length, as the tile assert asks; in the ``embeddings`` mode the
+    tokens embedded through the output head's transpose, as decode embeds
+    them).  At each of the ``steps + 1`` positions the two routes' logits
+    must agree within the phase 7 tolerance between routes
+    (``LOGITS_TOL``), and the greedy token must be the forward's argmax,
+    or, where it is not, a near-tie: within twice that position's
+    difference between the routes of the forward's own maximum."""
+    import torch
+
+    from repro_torch.models import lm
+
+    S0 = sum(t.shape[1] for t in batch.values())
+    with torch.inference_mode():
+        lg, caches = lm.prefill_step(cfg, params, batch, S0 + steps + 1)
+        dec = [lg[0].float()]
+        for i in range(steps):
+            tok = dec[-1].argmax().reshape(1, 1)
+            lg, caches = lm.decode_step(cfg, params, caches, tok, S0 + i)
+            dec.append(lg[0].float())
+        toks = torch.stack([d.argmax() for d in dec])[None, :-1]
+        full_batch = dict(batch)
+        if cfg.input_mode == "embeddings":
+            w = params["embed"] if cfg.tie_embeddings else params["unembed"].T
+            full_batch["embeds"] = torch.cat(
+                [batch["embeds"], w[toks].to(batch["embeds"].dtype)], 1)
+        else:
+            full_batch["tokens"] = torch.cat([batch["tokens"], toks], 1)
+        S = S0 + steps
+        qb = max(d for d in range(1, 1025) if S % d == 0)
+        fcfg = cfg.replace(attn_kv_block=0, attn_q_block=qb)
+        full = lm.forward(fcfg, params, full_batch)[0, S0 - 1:].float()
+    tol = LOGITS_TOL["bfloat16"]
+    out = []
+    for i, d in enumerate(dec):
+        f = full[i]
+        err = float((d - f).abs().max())
+        t_dec, t_fwd = int(d.argmax()), int(f.argmax())
+        margin = float(f[t_fwd] - f[t_dec])
+        top2 = torch.topk(f, 2).values
+        out.append(dict(max_abs_err=err, token=t_dec, forward=t_fwd,
+                        margin=margin, top2_gap=float(top2[0] - top2[1])))
+        if not (err <= tol and (t_dec == t_fwd or margin <= 2 * err)):
+            raise AssertionError(f"{cfg.name} decode vs forward at position "
+                                 f"{S0 - 1 + i}: {out[-1]} (tolerance {tol})")
+    del caches, full
+    return dict(layers=cfg.n_layers, prompt=S0, q_block=qb, steps=out,
+                equal=sum(s["token"] == s["forward"] for s in out),
+                max_abs_err=max(s["max_abs_err"] for s in out),
+                tolerance=tol)
+
+
 def decode_gate(seed: int, arch: str) -> dict:
     """One pattern period of ``arch`` at full width (random bf16 weights):
-    an 8,192-token prefill and 8 greedy decode steps, against one
-    ``forward`` over the prompt and the tokens decoded (8,200 tokens; the
-    hybrid's attention on the materialised route in query blocks that
-    divide 8,200, as the tile assert asks).  At each of the 9 positions the
-    two routes' logits must agree within the phase 7 tolerance between
-    routes (``LOGITS_TOL``), and the greedy token must be the forward's
-    argmax, or, where it is not, a near-tie: within twice that position's
-    difference between the routes of the forward's own maximum."""
+    an 8,192-token prefill and 8 greedy decode steps against one
+    ``forward`` over the same tokens (``greedy_against_forward``)."""
     import numpy as np
     import torch
 
@@ -2236,41 +2323,10 @@ def decode_gate(seed: int, arch: str) -> dict:
     rng = np.random.default_rng(seed + 11)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, GATE_PROMPT),
                              device="cuda")[None]
-    with torch.inference_mode():
-        lg, caches = lm.prefill_step(cfg, params, {"tokens": prompt},
-                                     GATE_PROMPT + GATE_STEPS + 1)
-        dec = [lg[0].float()]
-        for i in range(GATE_STEPS):
-            tok = dec[-1].argmax().reshape(1, 1)
-            lg, caches = lm.decode_step(cfg, params, caches, tok,
-                                        GATE_PROMPT + i)
-            dec.append(lg[0].float())
-        toks = torch.stack([d.argmax() for d in dec])
-        seq = torch.cat([prompt, toks[None, :-1]], 1)
-        S = seq.shape[1]
-        qb = max(d for d in range(1, 1025) if S % d == 0)
-        fcfg = cfg.replace(attn_kv_block=0, attn_q_block=qb)
-        full = lm.forward(fcfg, params, {"tokens": seq})[0, GATE_PROMPT - 1:]
-        full = full.float()
-    tol = LOGITS_TOL["bfloat16"]
-    steps = []
-    for i, d in enumerate(dec):
-        f = full[i]
-        err = float((d - f).abs().max())
-        t_dec, t_fwd = int(d.argmax()), int(f.argmax())
-        margin = float(f[t_fwd] - f[t_dec])
-        top2 = torch.topk(f, 2).values
-        steps.append(dict(max_abs_err=err, token=t_dec, forward=t_fwd,
-                          margin=margin, top2_gap=float(top2[0] - top2[1])))
-        if not (err <= tol and (t_dec == t_fwd or margin <= 2 * err)):
-            raise AssertionError(f"{arch} decode vs forward at position "
-                                 f"{GATE_PROMPT - 1 + i}: {steps[-1]} "
-                                 f"(tolerance {tol})")
-    del params, caches, full
-    return dict(layers=cfg.n_layers, q_block=qb, steps=steps,
-                equal=sum(s["token"] == s["forward"] for s in steps),
-                max_abs_err=max(s["max_abs_err"] for s in steps),
-                tolerance=tol)
+    gate = greedy_against_forward(cfg, params, {"tokens": prompt},
+                                  GATE_STEPS)
+    del params
+    return gate
 
 
 def recurrent_serving_phase(seed: int, arch: str, kernels) -> dict:
@@ -2317,6 +2373,291 @@ def recurrent_serving_phase(seed: int, arch: str, kernels) -> dict:
     return dict(arch=arch, params=n_params_of(cfg), init_s=init_s,
                 expected_launches=want,
                 state_bytes_per_slot=state[RECURRENT_CACHE],
+                gate=gate, **res)
+
+
+# -- phase 11: the dense family, the embedding modes and MoE at full width ----
+
+#: the token models, served through ``Engine``, then the embedding-mode
+#: models, through ``lm.prefill_step`` and ``lm.decode_step``
+FAMILY_TOKEN_ARCHS = ("granite-8b", "phi3-medium-14b", "qwen2-72b",
+                      "qwen3-moe-30b-a3b")
+FAMILY_EMBED_ARCHS = ("musicgen-large", "llava-next-34b")
+#: the token models' prompts, one a slot: those above 1024 tokens take the
+#: flash route and are multiples of 1024 (the tile assert)
+FAMILY_PROMPTS = (4096, 2048, 1024, 37)
+FAMILY_NEW = 16
+FAMILY_CACHE = 4160
+#: the embedding models: 2 rows of 4,096 positions (llava: its 2,880
+#: patch embeddings and 1,216 text tokens), 16 greedy decode steps
+FAMILY_ROWS = 2
+FAMILY_POSITIONS = 4096
+#: device memory kept free beside a depth-cut model's weights and the
+#: engine's cache: prefill activations, one request's caches, the
+#: allocator's slack
+FAMILY_HEADROOM_BYTES = 10e9
+#: the gate: 2 layers at full width, a 2,048-position prompt (llava:
+#: 2,880 + 1,216), 8 greedy steps; MoE with the capacity lifted, as the
+#: reference's decode test lifts it (capacity drops depend on the length)
+FAMILY_GATE_LAYERS = 2
+FAMILY_GATE_PROMPT = 2048
+FAMILY_GATE_STEPS = 8
+FAMILY_GATE_CAPACITY = 8.0
+
+
+def param_bytes(cfg) -> int:
+    from repro_torch.models import lm
+
+    return n_params_of(cfg) * lm.param_dtype(cfg).itemsize
+
+
+def deepest_that_fits(cfg, slots: int, cache_len: int) -> int:
+    """The most layers of ``cfg`` whose bf16 weights and ``slots`` KV
+    caches of ``cache_len`` fit on the card beside
+    ``FAMILY_HEADROOM_BYTES`` (at most the published depth)."""
+    import torch
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    one, two = (param_bytes(cfg.replace(n_layers=n)) for n in (1, 2))
+    layer = two - one
+    cache = (2 * slots * cache_len * cfg.n_kv_heads * cfg.head_dim
+             * torch.finfo(torch.bfloat16).bits // 8)
+    fit = int((total - FAMILY_HEADROOM_BYTES - (one - layer))
+              // (layer + cache))
+    return min(cfg.n_layers, fit)
+
+
+def family_prompt(cfg, seed: int, rows: int, positions: int) -> dict:
+    """A batch of ``rows`` x ``positions`` in the model's input mode,
+    from ``seed``: token ids, or frame / patch embeddings drawn normal x
+    0.02 (as ``tests/test_models.py`` draws them) in the compute dtype;
+    llava's ``img_tokens`` patch embeddings go in front of its text."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import lm
+
+    rng = np.random.default_rng(seed)
+    dt = lm.compute_dtype(cfg)
+    n_emb = {"tokens": 0, "embeddings": positions,
+             "mixed": cfg.img_tokens}[cfg.input_mode]
+    batch = {}
+    if n_emb:
+        e = rng.standard_normal((rows, n_emb, cfg.d_model),
+                                dtype=np.float32) * np.float32(0.02)
+        batch["embeds"] = torch.from_numpy(e).to("cuda", dt)
+    if positions > n_emb:
+        batch["tokens"] = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (rows, positions - n_emb))).to("cuda")
+    return batch
+
+
+def moe_drops(cfg, params, prompts) -> list:
+    """The (token, expert) pairs each prompt's prefill drops past the
+    experts' capacity, summed over the layers: each prompt prefilled
+    alone, the port's ``moe.dispatch`` counted through a wrapper."""
+    import torch
+
+    from repro_torch.models import lm, moe
+
+    real, counts = moe.dispatch, []
+
+    def counted(p, x, c):
+        d = real(p, x, c)
+        counts.append((~d.ok).sum())
+        return d
+
+    moe.dispatch = counted
+    out = []
+    try:
+        with torch.inference_mode():
+            for pr in prompts:
+                counts.clear()
+                tok = torch.as_tensor(pr, device="cuda")[None]
+                lm.prefill_step(cfg, params, {"tokens": tok}, tok.shape[1])
+                out.append(int(torch.stack(counts).sum()))
+    finally:
+        moe.dispatch = real
+    return out
+
+
+#: device kernels of a traced MoE prefill, by name: matrix products (the
+#: attention projections and the grouped expert einsums), the flash
+#: kernel, sorts (the router's top-k sort, the pair sort and the sorts
+#: inside an accumulating ``index_put_``), the accumulating
+#: ``index_put_``'s own scatter, other indexing (gathers, ``searchsorted``)
+MOE_KERNEL_GROUPS = (STEP_KERNEL_GROUPS[0], STEP_KERNEL_GROUPS[1],
+                     ("sort", ("sort", "Sort")),
+                     ("index_put", ("indexing_backward", "index_put")),
+                     ("index", ("gather", "index", "scatter", "search")))
+
+
+def traced_prefill(cfg, params, prompt) -> dict:
+    """One prefill of ``prompt`` alone (``lm.prefill_step``) traced with
+    ``torch.profiler``: its wall ms and the device ms by
+    ``MOE_KERNEL_GROUPS``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import lm
+
+    tok = torch.as_tensor(prompt, device="cuda")[None]
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            lg, _ = lm.prefill_step(cfg, params, {"tokens": tok},
+                                    tok.shape[1])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    del lg
+    split = device_split(prof, MOE_KERNEL_GROUPS)
+    return dict(wall_ms=wall * 1e3, positions=tok.shape[1], **split)
+
+
+def embedding_serving(cfg, params, seed: int, kernels) -> dict:
+    """The embedding-mode models served as the reference serves them:
+    ``lm.prefill_step`` on FAMILY_ROWS x FAMILY_POSITIONS, then
+    FAMILY_NEW - 1 greedy ``lm.decode_step``s (FAMILY_NEW tokens a row
+    with the prefill's), after a warm-up at half the length; the launch
+    counts set to 0 just before the timed run and read just after."""
+    import torch
+
+    from repro_torch.models import lm
+
+    batch = family_prompt(cfg, seed, FAMILY_ROWS, FAMILY_POSITIONS)
+    cache_len = FAMILY_POSITIONS + FAMILY_NEW
+
+    def run(b, steps):
+        S = sum(t.shape[1] for t in b.values())
+        lg, caches = lm.prefill_step(cfg, params, b, cache_len)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        toks = [lg.argmax(-1)]
+        for i in range(steps):
+            lg, caches = lm.decode_step(cfg, params, caches,
+                                        toks[-1][:, None], S + i)
+            toks.append(lg.argmax(-1))
+        out = torch.stack(toks, 1)
+        finite = bool(torch.isfinite(lg).all())
+        return t1, out, finite
+
+    with torch.inference_mode():
+        half = {k: v[:, : v.shape[1] // 2] for k, v in batch.items()}
+        run(half, 2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        t1, out, finite = run(batch, FAMILY_NEW - 1)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    launches = {k.name: k.launches for k in kernels}
+    if not finite or out.shape != (FAMILY_ROWS, FAMILY_NEW) or not bool(
+            ((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError(f"{cfg.name}: tokens {out.shape}, finite "
+                             f"logits {finite}")
+    decode_s = t2 - t1
+    return dict(launches=launches, peak_gb=torch.cuda.max_memory_allocated()
+                / 1e9, prefill_ms={FAMILY_POSITIONS: [(t1 - t0) * 1e3]},
+                rows=FAMILY_ROWS, decode_steps=FAMILY_NEW - 1,
+                decode_s=decode_s,
+                decode_tok_s=FAMILY_ROWS * (FAMILY_NEW - 1) / decode_s,
+                decode_ms_per_step=decode_s / (FAMILY_NEW - 1) * 1e3,
+                tokens=int(out.numel()))
+
+
+def family_gate(seed: int, arch: str) -> dict:
+    """2 layers of ``arch`` at full width (random bf16 weights), the MoE's
+    capacity lifted: a FAMILY_GATE_PROMPT-position prefill (llava: its
+    patch embeddings and 1,216 text tokens) and 8 greedy decode steps
+    against one ``forward`` (``greedy_against_forward``)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    cfg = get_config(arch).replace(n_layers=FAMILY_GATE_LAYERS)
+    if cfg.n_experts:
+        cfg = cfg.replace(capacity_factor=FAMILY_GATE_CAPACITY)
+    positions = (FAMILY_POSITIONS if cfg.input_mode == "mixed"
+                 else FAMILY_GATE_PROMPT)
+    params = lm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(seed + 1))
+    gate = greedy_against_forward(
+        cfg, params, family_prompt(cfg, seed + 12, 1, positions),
+        FAMILY_GATE_STEPS)
+    del params
+    return gate
+
+
+def family_phase(seed: int, arch: str, kernels) -> dict:
+    """``arch`` at its published width (random bf16 weights from the seed;
+    qwen2-72b with its depth cut to the deepest that fits): the token
+    models through ``Engine`` (FAMILY_PROMPTS on 4 slots, ``serve_checked``
+    with its busy share), the MoE's dropped pairs a prefill; the embedding
+    models through ``embedding_serving``; the flash launches equal to
+    those the prefills make; then the gate at 2 layers."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeConfig
+
+    cfg = get_config(arch)
+    published = cfg.n_layers
+    slots, cache_len = ((SERVE_SLOTS, FAMILY_CACHE)
+                        if cfg.input_mode == "tokens" else
+                        (FAMILY_ROWS, FAMILY_POSITIONS + FAMILY_NEW))
+    cfg = cfg.replace(n_layers=deepest_that_fits(cfg, slots, cache_len))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    drops = trace = None
+    if cfg.input_mode == "tokens":
+        rng = np.random.default_rng(seed + 13)
+        prompts = [rng.integers(0, cfg.vocab_size, n)
+                   for n in FAMILY_PROMPTS]
+        scfg = ServeConfig(max_slots=SERVE_SLOTS, cache_len=FAMILY_CACHE,
+                           max_new_tokens=FAMILY_NEW)
+        res = serve_checked(cfg, params, scfg, prompts, kernels,
+                            warm=[prompts[-1], prompts[1]])
+        del res["out"]
+        want = expected_launches(cfg, FAMILY_PROMPTS)["flash_attn"]
+        if cfg.n_experts:
+            drops = moe_drops(cfg, params, prompts)
+            trace = traced_prefill(cfg, params, prompts[0])
+    else:
+        res = embedding_serving(cfg, params, seed + 14, kernels)
+        want = expected_launches(cfg, [FAMILY_POSITIONS])["flash_attn"]
+    if res["launches"]["flash_attn"] != want:
+        raise AssertionError(f"{arch}: flash launched "
+                             f"{res['launches']['flash_attn']} times, the "
+                             f"prefills make {want}")
+    weights_gb = param_bytes(cfg) / 1e9
+    experts_gb = (cfg.n_layers * 3 * cfg.n_experts * cfg.d_model
+                  * cfg.d_ff_expert * 2 / 1e9)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    gate = family_gate(seed, arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(arch=arch, layers=cfg.n_layers, published_layers=published,
+                params=n_params_of(cfg), weights_gb=weights_gb,
+                init_s=init_s, init_peak_gb=init_peak_gb,
+                expected_flash=want, moe_drops=drops, moe_trace=trace,
+                experts_gb_per_step=experts_gb,
+                experts_bound_ms=experts_gb * 1e9 / HBM_BYTES_PER_S * 1e3,
                 gate=gate, **res)
 
 
@@ -2742,13 +3083,76 @@ def main(argv=None) -> int:
             f"top-2 gaps " + ", ".join(f"{st['top2_gap']:.4f}"
                                        for st in g["steps"]))
 
+    # 11. the dense family, the embedding modes and MoE at full width
+    fam = {}
+    t11 = time.perf_counter()
+    for arch in FAMILY_TOKEN_ARCHS + FAMILY_EMBED_ARCHS:
+        r = fam[arch] = family_phase(args.seed, arch, KERNELS)
+        cut = ("nothing cut" if r["layers"] == r["published_layers"] else
+               f"depth cut to {r['layers']} of {r['published_layers']} "
+               f"layers (the deepest that fits beside the cache)")
+        how = (f"Engine, {len(FAMILY_PROMPTS)} requests on {SERVE_SLOTS} "
+               f"slots, cache {FAMILY_CACHE}"
+               if "busy_share" in r else
+               f"lm.prefill_step on {FAMILY_ROWS} x {FAMILY_POSITIONS} "
+               f"positions, then greedy lm.decode_steps")
+        log(f"family {arch}: published width, {cut}; {r['params']} "
+            f"parameters ({r['weights_gb']:.2f} GB bf16, init "
+            f"{r['init_s']:.2f} s, peak {r['init_peak_gb']:.2f} GB during "
+            f"init); {how}: {r['tokens']} tokens, peak {r['peak_gb']:.2f} "
+            f"GB")
+        log(f"family {arch}: prefill ms by prompt length: " + ", ".join(
+            f"{n}: " + "/".join(f"{t:.2f}" for t in ts)
+            for n, ts in r["prefill_ms"].items())
+            + f"; decode {r['decode_tok_s']:.2f} tokens/s "
+            f"({r['decode_ms_per_step']:.3f} ms a step); flash launches "
+            f"{r['launches']['flash_attn']} (as the prefills make them)")
+        if "busy_share" in r:
+            log(f"family {arch}: device busy share {r['busy_share']:.4f} "
+                f"({r['busy_note']}) over the run's {r['busy_steps']} "
+                f"decode-only steps after the first "
+                f"({r['busy_step_ms']:.3f} ms a step untraced, "
+                f"{r['busy_device_ms_per_step']:.3f} device ms, "
+                f"{r['busy_kernels_per_step']:.1f} kernels traced and "
+                f"{r['busy_launches_per_step']:.1f} launched a step in a "
+                f"replay)")
+        if r["moe_drops"] is not None:
+            log(f"family {arch}: (token, expert) pairs dropped past the "
+                f"capacity, by prefill of " + ", ".join(
+                    f"{n}: {d}" for n, d in zip(FAMILY_PROMPTS,
+                                                r["moe_drops"]))
+                + f"; a decode step reads every expert: "
+                f"{r['experts_gb_per_step']:.2f} GB, "
+                f"{r['experts_bound_ms']:.3f} ms at 3.35 TB/s")
+            tp = r["moe_trace"]
+            log(f"family {arch}: one {tp['positions']}-token prefill "
+                f"traced: {tp['wall_ms']:.1f} ms, device "
+                f"{tp['device_ms']:.1f} ms in {tp['kernels']} kernels: "
+                + ", ".join(f"{g} {v:.1f} ms"
+                            for g, v in tp["groups_ms"].items()))
+            for ms, count, name in tp["top"]:
+                log(f"family {arch}: traced prefill kernel {ms:.1f} ms in "
+                    f"{count} launches: {name[:120]}")
+        g = r["gate"]
+        log(f"family {arch}: decode equals forward at {g['layers']} layers, "
+            f"full width: {g['prompt']}-position prefill and "
+            f"{FAMILY_GATE_STEPS} greedy steps, argmax equal at "
+            f"{g['equal']} of {len(g['steps'])} positions"
+            + ("" if g["equal"] == len(g["steps"])
+               else " (near-ties elsewhere)")
+            + f", max_abs_err {g['max_abs_err']:.4g} (tolerance "
+            f"{g['tolerance']}); forward attention in query blocks of "
+            f"{g['q_block']}; the forward's top-2 gaps " + ", ".join(
+                f"{st['top2_gap']:.4f}" for st in g["steps"]))
+    log(f"phase 11: {time.perf_counter() - t11:.1f} s")
+
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith(("jax.", "repro."))
               or m == "repro"]
     if leaked:
         raise AssertionError(f"the port imported {leaked[:5]}")
 
-    # 11. the kernels line and the result
+    # 12. the kernels line and the result
     row_of = {
         packed_pipeline.KERNEL: ("16KiBx8 packed all-tiny",
                                  packed["all-tiny"]),
@@ -2791,8 +3195,11 @@ def main(argv=None) -> int:
             r["shape"]: r["ms"] for name, r in launched.items()
             if name.startswith("seqcdc_masks")},
         flash_attn.KERNEL: {
-            fl["S4096 hd256 window 2048 bf16"]["shape"]:
-                fl["S4096 hd256 window 2048 bf16"]["ms"]},
+            fl[c]["shape"]: fl[c]["ms"]
+            for c in ("S4096 hd256 window 2048 bf16", "S4096 hd128 32/8 bf16",
+                      "S4096 hd128 56/8 bf16", "S4096 hd128 40/10 bf16",
+                      "S4096 hd128 64/8 bf16", "S4096 hd128 32/4 bf16",
+                      "S4096 hd64 32/32 bf16")},
         **{k: {r["shape"]: r["ms"] for name, r in scans.items()
                if name.startswith(k.name)}
            for k in (linear_scan.KERNEL, mlstm_scan.KERNEL,
@@ -2809,7 +3216,8 @@ def main(argv=None) -> int:
                     + sv["launches"][k.name] + sc["launches"][k.name]
                     + tr["ingest_launches"][k.name]
                     + tr["train_launches"][k.name]
-                    + sum(r["launches"][k.name] for r in rec.values()))
+                    + sum(r["launches"][k.name] for r in rec.values())
+                    + sum(r["launches"][k.name] for r in fam.values()))
         if launches == 0:
             raise AssertionError(f"kernel {k.name} never launched")
         rows.append(dict(
@@ -2828,7 +3236,7 @@ def main(argv=None) -> int:
             json.dump(dict(card=card, build_s=build_s, kernels=measured,
                            service=svc, sharded=sh, registry=rg,
                            serving=sv, scenarios=sc, training=tr,
-                           recurrent=rec), f,
+                           recurrent=rec, family=fam), f,
                       indent=1, default=float)
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

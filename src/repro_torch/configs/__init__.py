@@ -3,9 +3,10 @@
 ``get_config(name)`` returns the exact public configuration and
 ``get_reduced(name)`` the family-preserving smoke variant the CPU tests
 use, as in the reference's ``repro/configs``.  The port runs the dense,
-hybrid (RG-LRU and local attention) and SSM (mLSTM, sLSTM) block kinds, so
-it registers ``llama3.2-1b``, ``recurrentgemma-2b`` and ``xlstm-125m``; any
-other name raises a ``KeyError`` that points at the module queue in
+MoE, hybrid (RG-LRU and local attention) and SSM (mLSTM, sLSTM) block kinds
+and all three input modes, so it registers every architecture of the
+reference but ``deepseek-v3-671b``, whose MLA blocks it does not run yet;
+that name raises a ``KeyError`` that points at the module queue in
 ROADMAP.md.
 """
 from __future__ import annotations
@@ -23,9 +24,15 @@ from .base import (  # noqa: F401
 )
 
 _MODULES: Dict[str, str] = {
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "phi3-medium-14b": "phi3_medium_14b",
     "llama3.2-1b": "llama32_1b",
-    "recurrentgemma-2b": "recurrentgemma_2b",
+    "qwen2-72b": "qwen2_72b",
+    "granite-8b": "granite_8b",
+    "musicgen-large": "musicgen_large",
+    "llava-next-34b": "llava_next_34b",
     "xlstm-125m": "xlstm_125m",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 ARCHS = tuple(_MODULES)
@@ -37,8 +44,8 @@ def _module(name: str):
     except KeyError:
         raise KeyError(
             f"arch {name!r} is not ported: the port serves {list(_MODULES)}; "
-            f"the other families (MoE, MLA) wait in "
-            f"ROADMAP.md's module queue (LM substrate)") from None
+            f"deepseek-v3-671b (MLA) waits in ROADMAP.md's module queue "
+            f"(LM substrate)") from None
     return importlib.import_module(f"{__name__}.{mod}")
 
 

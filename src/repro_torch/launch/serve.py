@@ -4,9 +4,12 @@
       --requests 8 --max-new 32 [--device cpu]
 
 The port of ``repro/launch/serve.py``: the same flags and the same reduced
-configuration of any registered ``--arch`` (``llama3.2-1b``,
-``recurrentgemma-2b``, ``xlstm-125m``), random weights from seed 0, on the
-card unless ``--device`` says otherwise.
+configuration of any registered ``--arch`` of the ``tokens`` input mode
+(``llama3.2-1b``, ``granite-8b``, ``phi3-medium-14b``, ``qwen2-72b``,
+``qwen3-moe-30b-a3b``, ``recurrentgemma-2b``, ``xlstm-125m``), random
+weights from seed 0, on the card unless ``--device`` says otherwise.
+``musicgen-large`` and ``llava-next-34b`` take embeddings from a frontend
+stub: the CLI exits naming their input mode.
 """
 from __future__ import annotations
 
@@ -31,8 +34,13 @@ def main(argv=None) -> dict:
     from repro_torch.configs import get_reduced
     from repro_torch.models import lm
     from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.serve.engine import check_input_mode
 
     cfg = get_reduced(args.arch)
+    try:
+        check_input_mode(cfg)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
     gen = torch.Generator(device=args.device).manual_seed(0)
     params = lm.init_params(cfg, gen, device=args.device)
     eng = Engine(cfg, params, ServeConfig(

@@ -1,10 +1,12 @@
-"""repro_torch.models — the LM substrate's dense decoder on torch.
+"""repro_torch.models — the LM substrate's decoders on torch.
 
 ``layers`` (templates, initialisers, RMSNorm, RoPE, MLP, head),
 ``attention`` (GQA attention, KV caches; the flash kernel on long
-prompts), ``transformer`` (the dense block and the layer stack), ``lm``
-(embed -> stack -> logits, prefill and decode steps) and ``convert`` (the
-reference's parameters carried across).
+prompts), ``moe`` (top-k routing and the capacity dispatch), ``rglru`` and
+``ssm`` (the recurrent kinds), ``transformer`` (the blocks and the layer
+stack), ``lm`` (the three input modes -> stack -> logits, prefill and
+decode steps, the loss) and ``convert`` (the reference's parameters
+carried across).
 """
 from .lm import (  # noqa: F401
     decode_step,

@@ -56,6 +56,16 @@ def stack_template(template: Dict[str, Any], n: int):
     )
 
 
+#: a normal leaf of at most this many elements is drawn in one float32
+#: call (4 GiB); a larger one (a stacked full-width leaf: llava-next-34b's
+#: MLP is 8.8 G elements) is filled in its dtype slice by slice along its
+#: first dim, each slice's float32 draw at most SLICE_ELEMENTS elements or
+#: one index of that dim, whichever is larger (one layer of every stacked
+#: leaf the registered configurations have)
+WHOLE_DRAW_ELEMENTS = 1 << 30
+SLICE_ELEMENTS = 1 << 28
+
+
 def _init_one(t: PT, generator: torch.Generator, dtype, device):
     if t.init == "zeros":
         return torch.zeros(t.shape, dtype=dtype, device=device)
@@ -68,9 +78,20 @@ def _init_one(t: PT, generator: torch.Generator, dtype, device):
         # stack dim of stacked layers included
         fan_in = t.shape[0] if len(t.shape) == 1 else int(np.prod(t.shape[:-1]))
         scale = t.scale if t.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
-    x = torch.randn(t.shape, generator=generator, dtype=torch.float32,
-                    device=device)
-    return (x * scale).to(dtype)
+
+    def draw(shape):
+        x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return x.mul_(scale).to(dtype)
+
+    if math.prod(t.shape) <= WHOLE_DRAW_ELEMENTS:
+        return draw(t.shape)
+    out = torch.empty(t.shape, dtype=dtype, device=device)
+    step = max(1, SLICE_ELEMENTS // math.prod(t.shape[1:]))
+    for i in range(0, t.shape[0], step):
+        part = out[i:i + step]
+        part.copy_(draw(part.shape))
+    return out
 
 
 def init_tree(template, generator: torch.Generator, dtype=torch.float32,

@@ -1,12 +1,23 @@
 """Top-level language model: embed -> block stack -> norm -> logits.
 
-The port of ``repro/models/lm.py`` for the ``tokens`` input mode (the
-``embeddings`` and ``mixed`` modes wait for later slices), with the
-training loss :func:`loss_and_metrics`.  Parameters are a plain tree of tensors shaped by
-:func:`lm_template`, the reference's layout (``segments`` a list of
-stacked per-segment dicts, ``final_norm``, ``embed``); :func:`init_params`
-makes them from a seed on the card unless asked for another device, and
-``models.convert.params_from_jax`` carries the reference's across.
+The port of ``repro/models/lm.py``, with its three input modes:
+
+* ``tokens``: int token ids, ``batch["tokens"]`` (B, S);
+* ``embeddings`` (musicgen): the frontend's frame embeddings arrive
+  precomputed as ``batch["embeds"]`` (B, S, D); the head still predicts
+  codec ids over ``vocab_size``, and decode embeds the generated ids with
+  the output head's transpose (no ``embed`` leaf when untied);
+* ``mixed`` (llava-next): ``batch["embeds"]`` (B, img_tokens, D), the
+  precomputed patch embeddings, go in front of the embedded
+  ``batch["tokens"]``; labels of -1 mask the image positions.
+
+Beside the serving functions it has the training loss
+:func:`loss_and_metrics`.  Parameters are a plain tree of tensors shaped
+by :func:`lm_template`, the reference's layout (``segments`` a list of
+stacked per-segment dicts, ``final_norm``, ``embed``, ``unembed``);
+:func:`init_params` makes them from a seed on the card unless asked for
+another device, and ``models.convert.params_from_jax`` carries the
+reference's across.
 """
 from __future__ import annotations
 
@@ -52,17 +63,17 @@ def init_params(cfg, generator: torch.Generator | None = None,
                      device=device)
 
 
-def _check_mode(cfg):
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(
-            f"input mode {cfg.input_mode!r} is not ported: the port serves "
-            f"token models (ROADMAP.md, LM substrate)")
-
-
 def embed_inputs(cfg, params: Params, batch: Dict[str, torch.Tensor]):
-    """(B, S, D) input activations of the ``tokens`` input mode."""
-    _check_mode(cfg)
-    return params["embed"][batch["tokens"]].to(compute_dtype(cfg))
+    """(B, S, D) input activations from the arch's input mode."""
+    dt = compute_dtype(cfg)
+    if cfg.input_mode == "tokens":
+        return params["embed"][batch["tokens"]].to(dt)
+    if cfg.input_mode == "embeddings":
+        return batch["embeds"].to(dt)
+    if cfg.input_mode == "mixed":
+        xt = params["embed"][batch["tokens"]].to(dt)
+        return torch.cat([batch["embeds"].to(dt), xt], dim=1)
+    raise ValueError(cfg.input_mode)
 
 
 def _head(cfg, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -135,9 +146,14 @@ def decode_step(cfg, params: Params, caches, tokens: torch.Tensor, pos):
     """One decode step.  tokens (B, 1) int, pos the absolute position: a
     scalar, or one per row (B,) for rows at different positions (the
     engine's slots).  Returns (logits (B, V), caches), the caches updated
-    in place."""
-    _check_mode(cfg)
-    x = params["embed"][tokens].to(compute_dtype(cfg))
+    in place.  In the ``embeddings`` mode the generated codec ids are
+    embedded with the output head's transpose (the frontend stub has no
+    encoder at decode time)."""
+    if cfg.input_mode in ("tokens", "mixed") or cfg.tie_embeddings:
+        w = params["embed"]
+    else:
+        w = params["unembed"].T
+    x = w[tokens].to(compute_dtype(cfg))
     x, caches = tfm.decode_stack(cfg, params["segments"], x, caches, pos)
     logits = _head(cfg, params, x)
     return logits[:, 0], caches

@@ -1,14 +1,15 @@
 """Model assembly: blocks, run-length layer segments, the layer stack.
 
 The port of ``repro/models/transformer.py`` for the block kinds ``dense``,
+``moe`` (the dense block's attention before a mixture of experts),
 ``attn`` (the hybrid family's local-window attention), ``rglru`` (the
 RG-LRU), ``mlstm`` and ``slstm``.  Layers are segmented into runs of one
 kind as in the reference, and a segment of more than one layer keeps its
 parameters stacked ``(L, ...)``; where the reference scans over the stack,
 the port loops over it in Python, and decode caches (attention KV caches,
 the recurrent kinds' states) come back stacked along a leading layer dim
-as the reference's scan stacks them.  The MoE and MLA kinds (``moe``,
-``mla_dense``, ``mla_moe``) raise ``NotImplementedError``.
+as the reference's scan stacks them.  The MLA kinds (``mla_dense``,
+``mla_moe``) raise ``NotImplementedError``.
 ``cfg.remat`` checkpoints each block of :func:`forward_stack` as the
 reference's ``_maybe_remat`` does: ``"full"`` recomputes the whole block
 in the backward, ``"dots"`` keeps the outputs of its matrix products
@@ -23,12 +24,13 @@ import torch
 from torch.utils import checkpoint as torch_checkpoint
 
 from . import attention as attn_mod
+from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
 from .layers import mlp_apply, mlp_template, norm_template, rmsnorm, stack_template
 
 #: the block kinds the port runs
-PORTED_KINDS = ("dense", "attn", "rglru", "mlstm", "slstm")
+PORTED_KINDS = ("dense", "moe", "attn", "rglru", "mlstm", "slstm")
 #: the kinds whose decode state is a recurrence's (not a KV cache): their
 #: prefill state is the decode cache, and a decode step returns a new one
 RECURRENT_KINDS = ("rglru", "mlstm", "slstm")
@@ -37,8 +39,7 @@ RECURRENT_KINDS = ("rglru", "mlstm", "slstm")
 def _unported(kind: str):
     return NotImplementedError(
         f"block kind {kind!r} is not ported: the port runs {PORTED_KINDS}; "
-        f"the other families wait in ROADMAP.md's module queue (LM "
-        f"substrate)")
+        f"MLA waits in ROADMAP.md's module queue (LM substrate)")
 
 
 def layer_kinds(cfg) -> List[str]:
@@ -71,6 +72,13 @@ def block_template(kind: str, cfg) -> Dict[str, Any]:
             "ln2": norm_template(d),
             "mlp": mlp_template(d, cfg.d_ff),
         }
+    if kind == "moe":
+        return {
+            "ln1": norm_template(d),
+            "attn": attn_mod.attn_template(cfg),
+            "ln2": norm_template(d),
+            "moe": moe_mod.moe_template(cfg),
+        }
     if kind == "mlstm":
         return {"ln": norm_template(d), "cell": ssm_mod.mlstm_template(cfg)}
     if kind == "slstm":
@@ -99,7 +107,7 @@ def stack_templates(cfg) -> List[Tuple[str, int, Any]]:
 def init_block_cache(kind: str, cfg, batch: int, cache_len: int, dtype,
                      device="cuda"):
     """Decode state of one layer of the given kind."""
-    if kind == "dense":
+    if kind in ("dense", "moe"):
         return attn_mod.init_cache(cfg, batch, cache_len, dtype, device)
     if kind == "attn":  # hybrid local window: a rolling buffer
         win = min(cfg.window_size, cache_len) or cache_len
@@ -138,20 +146,38 @@ def _recurrent_block(kind: str, cfg, p, x, state, decode: bool):
     return x + out, st
 
 
+#: the kinds whose block is attention then a feed-forward part
+ATTENTION_KINDS = ("dense", "moe", "attn")
+
+
+def _ffn(kind: str, cfg, p, x):
+    """The block's feed-forward half after attention: x plus the MLP (or
+    the mixture of experts) of its norm.  Returns (x, aux)."""
+    y = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    if kind == "moe":
+        out, aux = moe_mod.moe_ffn(p["moe"], y, cfg)
+    else:
+        out, aux = mlp_apply(p["mlp"], y, cfg.act), None
+    return x + out, aux
+
+
 def block_forward(kind: str, cfg, p, x, positions, state=None):
-    """Full-sequence pass.  Returns (x, new_state_or_None, aux)."""
-    aux = torch.zeros((), dtype=x.dtype, device=x.device)
-    if kind in ("dense", "attn"):
+    """Full-sequence pass.  Returns (x, new_state_or_None, aux): aux is the
+    MoE's load-balance loss, 0 for the other kinds."""
+    if kind in ATTENTION_KINDS:
         win = cfg.window_size if kind == "attn" else 0
         h = attn_mod.attention(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps),
                                cfg, positions, window=win)
-        x = x + h
-        y = rmsnorm(x, p["ln2"], cfg.norm_eps)
-        return x + mlp_apply(p["mlp"], y, cfg.act), None, aux
-    if kind in RECURRENT_KINDS:
+        x, aux = _ffn(kind, cfg, p, x + h)
+        st = None
+    elif kind in RECURRENT_KINDS:
         x, st = _recurrent_block(kind, cfg, p, x, state, decode=False)
-        return x, st, aux
-    raise _unported(kind)
+        aux = None
+    else:
+        raise _unported(kind)
+    if aux is None:
+        aux = torch.zeros((), dtype=x.dtype, device=x.device)
+    return x, st, aux
 
 
 def block_prefill(kind: str, cfg, p, x, positions, cache_len: int):
@@ -159,14 +185,12 @@ def block_prefill(kind: str, cfg, p, x, positions, cache_len: int):
 
     Attention caches are filled at slots [0, S) (rolling for the local
     window); the recurrent kinds return their final state."""
-    if kind in ("dense", "attn"):
+    if kind in ATTENTION_KINDS:
         win = cfg.window_size if kind == "attn" else 0
         h, cache = attn_mod.prefill_attention(
             p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, positions,
             cache_len, window=win)
-        x = x + h
-        y = rmsnorm(x, p["ln2"], cfg.norm_eps)
-        return x + mlp_apply(p["mlp"], y, cfg.act), cache
+        return _ffn(kind, cfg, p, x + h)[0], cache
     if kind in RECURRENT_KINDS:  # the forward state IS the decode cache
         x, st, _ = block_forward(kind, cfg, p, x, positions, state=None)
         return x, st
@@ -176,14 +200,12 @@ def block_prefill(kind: str, cfg, p, x, positions, cache_len: int):
 def block_decode(kind: str, cfg, p, x, cache, pos):
     """Single-token pass: (x, cache).  An attention cache is updated in
     place and returned; a recurrent kind returns its new state."""
-    if kind in ("dense", "attn"):
+    if kind in ATTENTION_KINDS:
         win = cfg.window_size if kind == "attn" else 0
         h, cache = attn_mod.decode_attention(
             p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, cache, pos,
             window=win)
-        x = x + h
-        y = rmsnorm(x, p["ln2"], cfg.norm_eps)
-        return x + mlp_apply(p["mlp"], y, cfg.act), cache
+        return _ffn(kind, cfg, p, x + h)[0], cache
     if kind in RECURRENT_KINDS:
         return _recurrent_block(kind, cfg, p, x, cache, decode=True)
     raise _unported(kind)

@@ -1,10 +1,13 @@
 """Batched serving engine: slot-based continuous batching.
 
-The port of ``repro/serve/engine.py``.  Requests are prefilled one at a
-time (prompt lengths vary), each prompt's caches are copied into a fixed
-batch *slot*, and one decode step advances every slot with a position per
-slot; a finished slot frees at once and is refilled from the queue while
-the others go on (continuous batching).
+The port of ``repro/serve/engine.py``, for the models of the ``tokens``
+input mode (the others raise: their prompts carry embeddings, and they
+are served through ``lm.prefill_step`` and ``lm.decode_step``).
+Requests are prefilled one at a time (prompt lengths vary), each
+prompt's caches are copied into a fixed batch *slot*, and one decode
+step advances every slot with a position per slot; a finished slot frees
+at once and is refilled from the queue while the others go on
+(continuous batching).
 
 Where the reference ``vmap``s a B=1 decode over the slots, the port writes
 the batch dimension out: the stacked caches are ``(L, slots, S_c, KV,
@@ -65,8 +68,20 @@ class EngineStats:
     decode_tokens: int = 0
 
 
+def check_input_mode(cfg) -> None:
+    """Raise ``ValueError`` naming the input mode unless ``cfg`` takes
+    token prompts: the engine's prefill builds ``{"tokens": ...}``, as the
+    reference's does."""
+    if cfg.input_mode != "tokens":
+        raise ValueError(
+            f"{cfg.name} takes input mode {cfg.input_mode!r}: the engine "
+            f"serves token prompts; call lm.prefill_step and "
+            f"lm.decode_step with the batch's embeds")
+
+
 class Engine:
     def __init__(self, cfg, params, serve_cfg: ServeConfig, device="cuda"):
+        check_input_mode(cfg)
         self.cfg = cfg
         self.params = params
         self.scfg = serve_cfg

@@ -126,8 +126,8 @@ class ShardedDedupService(ServiceBase):
             raise NotImplementedError(
                 "mesh= (fingerprint records over a device mesh's "
                 "all_to_all) is not ported yet (ROADMAP.md, 'Modules to "
-                "port', item 6: distribution); the host route serves every "
-                "shard count"
+                "port', item 4: launch, distribution, analysis); the host "
+                "route serves every shard count"
             )
         if stores is not None and len(stores) != num_shards:
             raise ValueError(f"{len(stores)} stores for {num_shards} shards")

@@ -1399,3 +1399,73 @@ def test_recurrent_models_and_engine_on_the_card_match_the_cpu(dev, no_tf32,
             eng.submit(pr)
         out[str(device)] = eng.run()
     assert out["cpu"] == out[str(dev)]
+
+
+# -- the dense family, the embedding input modes and MoE ----------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,H,KV", [(128, 56, 8), (128, 40, 10),
+                                     (128, 64, 8), (128, 32, 4),
+                                     (64, 32, 32)])
+@pytest.mark.parametrize("S", [1024, 4096])
+def test_flash_kernel_at_the_dense_family_s_serving_shapes(dev, no_tf32,
+                                                           dtype, hd, H, KV,
+                                                           S):
+    """llava-next-34b's heads (56 over 8 KV heads: groups of 7),
+    phi3-medium-14b's (40 over 10), qwen2-72b's (64 over 8: groups of 8)
+    and qwen3-moe-30b-a3b's (32 over 4: groups of 8) at width 128, and
+    musicgen-large's full MHA (32 over 32) at width 64: one causal prompt
+    of S tokens."""
+    from repro_torch.kernels import flash_attn as kflash
+
+    q, k, v = _flash_inputs(S + H + hd, 1, S, H, KV, hd, dtype, dev)
+    kflash.KERNEL.launches = 0
+    got = kflash.flash_attention(q, k, v)
+    assert kflash.KERNEL.launches == 1
+    want = kflash.flash_attention_plain(q, k, v, q_block=1024,
+                                        kv_block=1024)
+    _close_to(got, want, kflash.TOLERANCE[dtype])
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "llava-next-34b"])
+def test_moe_and_mixed_models_on_the_card_match_the_cpu(dev, no_tf32, arch):
+    """Reduced qwen3-moe-30b-a3b and llava-next-34b (float32, flash blocks
+    of 16): a 48-position prefill (llava: 16 patch embeddings and 32 text
+    tokens) and 4 greedy decode steps on the card, logits and the greedy
+    tokens equal to the CPU's; the prefill launches the flash kernel once
+    a layer."""
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import flash_attn as kflash
+    from repro_torch.models import lm
+
+    cfg = get_reduced(arch).replace(attn_q_block=16, attn_kv_block=16)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    rng = np.random.default_rng(12)
+    S = 48
+    n_tok = S - (cfg.img_tokens if cfg.input_mode == "mixed" else 0)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                     (2, n_tok)))}
+    if cfg.input_mode == "mixed":
+        batch["embeds"] = torch.from_numpy((rng.standard_normal(
+            (2, cfg.img_tokens, cfg.d_model)) * 0.02).astype(np.float32))
+    runs = {}
+    for device in ("cpu", dev):
+        p = tree_map(lambda t: t.to(device), params)
+        b = {k: t.to(device) for k, t in batch.items()}
+        kflash.KERNEL.launches = 0
+        lg, caches = lm.prefill_step(cfg, p, b, S + 8)
+        if str(device) != "cpu":
+            assert kflash.KERNEL.launches == cfg.n_layers
+        logits = [lg]
+        for i in range(4):
+            tok = logits[-1].argmax(-1)[:, None]
+            lg, caches = lm.decode_step(cfg, p, caches, tok, S + i)
+            logits.append(lg)
+        runs[str(device)] = [t.cpu() for t in logits]
+    for i, (g, w) in enumerate(zip(runs[str(dev)], runs["cpu"])):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=3e-4,
+                                   atol=3e-4, err_msg=f"step {i}")
+        assert torch.equal(g.argmax(-1), w.argmax(-1)), i

@@ -73,7 +73,7 @@ def test_configs_are_the_reference_s():
         assert (dataclasses.asdict(get_reduced(name))
                 == dataclasses.asdict(j_get_reduced(name)))
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("qwen2-72b")
+        get_config("deepseek-v3-671b")
 
 
 def test_template_param_count_equals_reference_at_full_width():
@@ -89,23 +89,30 @@ def test_template_param_count_equals_reference_at_full_width():
 
 
 def test_other_block_kinds_raise_naming_roadmap():
-    """The kinds still to port (MoE and MLA) raise; the others are held in
-    tests/test_torch_recurrent.py."""
+    """The kinds still to port (MLA) raise; MoE and the embedding input
+    modes build (held in tests/test_torch_families.py, the recurrent
+    kinds in tests/test_torch_recurrent.py)."""
     base = get_reduced("llama3.2-1b")
-    for cfg in (base.replace(family="moe", n_experts=4),  # moe
-                base.replace(use_mla=True),  # mla_dense
+    for cfg in (base.replace(use_mla=True),  # mla_dense
                 base.replace(family="moe", n_experts=4, use_mla=True)):
         kinds = set(transformer.layer_kinds(cfg))
-        assert kinds & {"moe", "mla_dense", "mla_moe"}, kinds
+        assert kinds & {"mla_dense", "mla_moe"}, kinds
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             lm.lm_template(cfg)
         for kind in kinds - set(transformer.PORTED_KINDS):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 transformer.init_block_cache(kind, cfg, 1, 8, torch.float32,
                                              "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.embed_inputs(get_reduced("llama3.2-1b").replace(
-            input_mode="embeddings"), {}, {})
+    moe = base.replace(family="moe", n_experts=4, moe_top_k=2,
+                       d_ff_expert=32)
+    assert set(transformer.layer_kinds(moe)) == {"moe"}
+    assert "moe" in lm.lm_template(moe)["segments"][0]
+    cache = transformer.init_block_cache("moe", moe, 1, 8, torch.float32,
+                                         "cpu")
+    assert cache.k.shape == (1, 8, 2, 16)
+    emb = base.replace(input_mode="embeddings")
+    x = torch.ones(1, 3, emb.d_model)
+    assert torch.equal(lm.embed_inputs(emb, {}, {"embeds": x}), x)
 
 
 def test_init_params_follows_the_template():

@@ -246,6 +246,10 @@ def test_port_imports_no_jax_and_no_repro():
         "eng.submit(np.arange(32) % 256)\n"
         "assert len(eng.run()[0]) == 3\n"
         "from repro_torch.configs import get_config\n"
+        "c = get_reduced('qwen3-moe-30b-a3b')\n"
+        "lg = lm.forward(c, lm.init_params(c, device='cpu'), "
+        "{'tokens': torch.arange(40)[None] % 256})\n"
+        "assert lg.shape == (1, 40, c.vocab_size)\n"
         "for arch in ('recurrentgemma-2b', 'xlstm-125m'):\n"
         "    assert get_config(arch).name == arch\n"
         "    c = get_reduced(arch)\n"

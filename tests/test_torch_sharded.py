@@ -143,7 +143,7 @@ def test_dist_index_host_half_matches_reference(num_shards):
 
 
 def test_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         ShardedDedupService(2, params=TP, device="cpu", mesh=object())
 
 

@@ -141,17 +141,28 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It drives only
    layers, full width (the MoE's capacity lifted): a 2,048-position
    prefill (llava: 4,096) and 8 greedy steps against one ``forward``, as
    phase 10's;
-12. the ``kernels`` JSON line, then the result line.
+12. MLA: ``deepseek-v3-671b`` at its published width (d_model 7168, 128
+   heads, q_lora 1536, kv_lora 512, all 256 routed experts of 2048, top
+   8, and the shared one; vocabulary 129,280), random bfloat16 weights
+   from the seed, its depth cut to the deepest that fits, each layer
+   reckoned by its kind (its 3 ``mla_dense`` layers and 2 ``mla_moe`` on
+   an 80 GB card), served as phase 11 serves its token models (the
+   absorbed decode: a cache of 512 + 64 values a token a layer, asserted
+   so), with no hand-written kernel launched, the bound of a decode step
+   that reads every expert beside the decode rate, and the gate at 3
+   ``mla_dense`` + 1 ``mla_moe`` layers (the materialised prefill and
+   forward against the absorbed decode);
+13. the ``kernels`` JSON line, then the result line.
 
-Phases 7, 10 and 11 count, in the traced replay of their decode steps, the
-kernel launches the host issued against the kernels the trace recorded,
-and print both beside the busy share where they differ (the share is then
-a lower bound).  The launch counts are set to 0 before the block-max op
-in phase 3, before phases 4, 5, 6, 7 and 8, before phase 9's ingest and
-its training run, and before each serving run of phases 10 and 11, and
-read after each; every kernel must launch in one of them, and each phase
-must launch the kernels of its own path.  The ``kernels`` line sums
-them.
+Phases 7, 10, 11 and 12 count, in the traced replay of their decode
+steps, the kernel launches the host issued against the kernels the trace
+recorded, and print both beside the busy share where they differ (the
+share is then a lower bound).  The launch counts are set to 0 before the
+block-max op in phase 3, before phases 4, 5, 6, 7 and 8, before phase 9's
+ingest and its training run, and before each serving run of phases 10, 11
+and 12, and read after each; every kernel must launch in one of them, and
+each phase must launch the kernels of its own path (phase 12's path has
+none).  The ``kernels`` line sums them.
 
 It exits non-zero, with no result line, without a CUDA card, outside a
 checkout of the repo, or when any phase fails.
@@ -2222,9 +2233,10 @@ GATE_STEPS = 8
 def expected_launches(cfg, prompts) -> dict:
     """The scan and flash launches that prefilling ``prompts`` makes: flash
     once an attention layer (dense, MoE or local) for a prompt above
-    ``attn_kv_block``, the RG-LRU and sLSTM scans once a layer, the mLSTM
-    carry once a layer (twice for a ragged prompt: the whole chunks, then
-    the tail)."""
+    ``attn_kv_block`` and never for an MLA layer (its attention is
+    materialised in query blocks), the RG-LRU and sLSTM scans once a
+    layer, the mLSTM carry once a layer (twice for a ragged prompt: the
+    whole chunks, then the tail)."""
     from repro_torch.models.transformer import ATTENTION_KINDS, layer_kinds
 
     kinds = layer_kinds(cfg)
@@ -2396,8 +2408,9 @@ FAMILY_POSITIONS = 4096
 #: engine's cache: prefill activations, one request's caches, the
 #: allocator's slack
 FAMILY_HEADROOM_BYTES = 10e9
-#: the gate: 2 layers at full width, a 2,048-position prompt (llava:
-#: 2,880 + 1,216), 8 greedy steps; MoE with the capacity lifted, as the
+#: the gate: 2 layers at full width (a model with leading dense layers:
+#: those and one MoE layer), a 2,048-position prompt (llava: 2,880 +
+#: 1,216), 8 greedy steps; MoE with the capacity lifted, as the
 #: reference's decode test lifts it (capacity drops depend on the length)
 FAMILY_GATE_LAYERS = 2
 FAMILY_GATE_PROMPT = 2048
@@ -2411,20 +2424,48 @@ def param_bytes(cfg) -> int:
     return n_params_of(cfg) * lm.param_dtype(cfg).itemsize
 
 
+def layer_bytes(cfg, kind: str, slots: int, cache_len: int) -> int:
+    """Bytes of one ``kind`` layer of ``cfg`` on the card: its block's
+    parameters in the parameter dtype and its decode cache for ``slots``
+    rows of ``cache_len`` in the compute dtype (a KV cache 2 x n_kv_heads
+    x head_dim a token, MLA's kv_lora_rank + qk_rope_dim), from the
+    template's and the cache's shapes alone."""
+    from repro_torch._tree import leaves
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import template_map
+
+    shapes = []
+    template_map(shapes.append, tfm.block_template(kind, cfg))
+    weights = (sum(math.prod(t.shape) for t in shapes)
+               * lm.param_dtype(cfg).itemsize)
+    cache = tfm.init_block_cache(kind, cfg, slots, cache_len,
+                                 lm.compute_dtype(cfg), device="meta")
+    return weights + sum(t.numel() * t.element_size() for t in leaves(cache))
+
+
 def deepest_that_fits(cfg, slots: int, cache_len: int) -> int:
-    """The most layers of ``cfg`` whose bf16 weights and ``slots`` KV
-    caches of ``cache_len`` fit on the card beside
-    ``FAMILY_HEADROOM_BYTES`` (at most the published depth)."""
+    """The most layers of ``cfg``, its first ones in order (deepseek's
+    three ``mla_dense`` before its ``mla_moe``), whose bf16 weights and
+    ``slots`` decode caches of ``cache_len`` fit on the card beside the
+    embedding, the head and ``FAMILY_HEADROOM_BYTES`` (at most the
+    published depth); each layer reckoned by its kind
+    (``layer_bytes``)."""
     import torch
 
-    total = torch.cuda.get_device_properties(0).total_memory
-    one, two = (param_bytes(cfg.replace(n_layers=n)) for n in (1, 2))
-    layer = two - one
-    cache = (2 * slots * cache_len * cfg.n_kv_heads * cfg.head_dim
-             * torch.finfo(torch.bfloat16).bits // 8)
-    fit = int((total - FAMILY_HEADROOM_BYTES - (one - layer))
-              // (layer + cache))
-    return min(cfg.n_layers, fit)
+    from repro_torch.models.transformer import layer_kinds
+
+    room = (torch.cuda.get_device_properties(0).total_memory
+            - FAMILY_HEADROOM_BYTES - param_bytes(cfg.replace(n_layers=0)))
+    need = {k: layer_bytes(cfg, k, slots, cache_len)
+            for k in set(layer_kinds(cfg))}
+    fit = 0
+    for kind in layer_kinds(cfg):
+        room -= need[kind]
+        if room < 0:
+            break
+        fit += 1
+    return fit
 
 
 def family_prompt(cfg, seed: int, rows: int, positions: int) -> dict:
@@ -2569,16 +2610,19 @@ def embedding_serving(cfg, params, seed: int, kernels) -> dict:
 
 
 def family_gate(seed: int, arch: str) -> dict:
-    """2 layers of ``arch`` at full width (random bf16 weights), the MoE's
-    capacity lifted: a FAMILY_GATE_PROMPT-position prefill (llava: its
-    patch embeddings and 1,216 text tokens) and 8 greedy decode steps
-    against one ``forward`` (``greedy_against_forward``)."""
+    """2 layers of ``arch`` at full width (deepseek: its 3 dense layers
+    and 1 MoE layer) with random bf16 weights, the MoE's capacity lifted:
+    a FAMILY_GATE_PROMPT-position prefill (llava: its patch embeddings
+    and 1,216 text tokens) and 8 greedy decode steps against one
+    ``forward`` (``greedy_against_forward``)."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import lm
 
-    cfg = get_config(arch).replace(n_layers=FAMILY_GATE_LAYERS)
+    cfg = get_config(arch)
+    cfg = cfg.replace(n_layers=max(FAMILY_GATE_LAYERS,
+                                   cfg.n_dense_layers + 1))
     if cfg.n_experts:
         cfg = cfg.replace(capacity_factor=FAMILY_GATE_CAPACITY)
     positions = (FAMILY_POSITIONS if cfg.input_mode == "mixed"
@@ -2606,6 +2650,7 @@ def family_phase(seed: int, arch: str, kernels) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.models import lm
+    from repro_torch.models.transformer import MOE_KINDS, layer_kinds
     from repro_torch.serve import ServeConfig
 
     cfg = get_config(arch)
@@ -2644,7 +2689,8 @@ def family_phase(seed: int, arch: str, kernels) -> dict:
                              f"{res['launches']['flash_attn']} times, the "
                              f"prefills make {want}")
     weights_gb = param_bytes(cfg) / 1e9
-    experts_gb = (cfg.n_layers * 3 * cfg.n_experts * cfg.d_model
+    n_moe = sum(k in MOE_KINDS for k in layer_kinds(cfg))
+    experts_gb = (n_moe * 3 * cfg.n_experts * cfg.d_model
                   * cfg.d_ff_expert * 2 / 1e9)
     del params
     gc.collect()
@@ -2653,12 +2699,110 @@ def family_phase(seed: int, arch: str, kernels) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return dict(arch=arch, layers=cfg.n_layers, published_layers=published,
-                params=n_params_of(cfg), weights_gb=weights_gb,
+                kinds=layer_kinds(cfg), params=n_params_of(cfg),
+                weights_gb=weights_gb, cache_len=cache_len,
+                state_bytes_per_slot=state_bytes_per_slot(cfg, cache_len),
                 init_s=init_s, init_peak_gb=init_peak_gb,
                 expected_flash=want, moe_drops=drops, moe_trace=trace,
                 experts_gb_per_step=experts_gb,
                 experts_bound_ms=experts_gb * 1e9 / HBM_BYTES_PER_S * 1e3,
                 gate=gate, **res)
+
+
+def log_family(arch: str, r: dict) -> None:
+    """Print one model's serving numbers from ``family_phase``."""
+    cut = ("nothing cut" if r["layers"] == r["published_layers"] else
+           f"depth cut to {r['layers']} of {r['published_layers']} "
+           f"layers (the deepest that fits beside the cache)")
+    how = (f"Engine, {len(FAMILY_PROMPTS)} requests on {SERVE_SLOTS} "
+           f"slots, cache {FAMILY_CACHE}"
+           if "busy_share" in r else
+           f"lm.prefill_step on {FAMILY_ROWS} x {FAMILY_POSITIONS} "
+           f"positions, then greedy lm.decode_steps")
+    log(f"family {arch}: published width, {cut}; {r['params']} "
+        f"parameters ({r['weights_gb']:.2f} GB bf16, init "
+        f"{r['init_s']:.2f} s, peak {r['init_peak_gb']:.2f} GB during "
+        f"init); {how}: {r['tokens']} tokens, peak {r['peak_gb']:.2f} "
+        f"GB")
+    log(f"family {arch}: prefill ms by prompt length: " + ", ".join(
+        f"{n}: " + "/".join(f"{t:.2f}" for t in ts)
+        for n, ts in r["prefill_ms"].items())
+        + f"; decode {r['decode_tok_s']:.2f} tokens/s "
+        f"({r['decode_ms_per_step']:.3f} ms a step); flash launches "
+        f"{r['launches']['flash_attn']} (as the prefills make them)")
+    if "busy_share" in r:
+        log(f"family {arch}: device busy share {r['busy_share']:.4f} "
+            f"({r['busy_note']}) over the run's {r['busy_steps']} "
+            f"decode-only steps after the first "
+            f"({r['busy_step_ms']:.3f} ms a step untraced, "
+            f"{r['busy_device_ms_per_step']:.3f} device ms, "
+            f"{r['busy_kernels_per_step']:.1f} kernels traced and "
+            f"{r['busy_launches_per_step']:.1f} launched a step in a "
+            f"replay)")
+    if r["moe_drops"] is not None:
+        log(f"family {arch}: (token, expert) pairs dropped past the "
+            f"capacity, by prefill of " + ", ".join(
+                f"{n}: {d}" for n, d in zip(FAMILY_PROMPTS,
+                                            r["moe_drops"]))
+            + f"; a decode step reads every expert: "
+            f"{r['experts_gb_per_step']:.2f} GB, "
+            f"{r['experts_bound_ms']:.3f} ms at 3.35 TB/s")
+        tp = r["moe_trace"]
+        log(f"family {arch}: one {tp['positions']}-token prefill "
+            f"traced: {tp['wall_ms']:.1f} ms, device "
+            f"{tp['device_ms']:.1f} ms in {tp['kernels']} kernels: "
+            + ", ".join(f"{g} {v:.1f} ms"
+                        for g, v in tp["groups_ms"].items()))
+        for ms, count, name in tp["top"]:
+            log(f"family {arch}: traced prefill kernel {ms:.1f} ms in "
+                f"{count} launches: {name[:120]}")
+    g = r["gate"]
+    log(f"family {arch}: decode equals forward at {g['layers']} layers, "
+        f"full width: {g['prompt']}-position prefill and "
+        f"{FAMILY_GATE_STEPS} greedy steps, argmax equal at "
+        f"{g['equal']} of {len(g['steps'])} positions"
+        + ("" if g["equal"] == len(g["steps"])
+           else " (near-ties elsewhere)")
+        + f", max_abs_err {g['max_abs_err']:.4g} (tolerance "
+        f"{g['tolerance']}, {g['max_abs_err'] / g['tolerance']:.3f} of it "
+        f"used); forward attention in query blocks of {g['q_block']}; the "
+        f"forward's top-2 gaps " + ", ".join(
+            f"{st['top2_gap']:.4f}" for st in g["steps"]))
+
+
+# -- phase 12: MLA, deepseek-v3-671b at published width ----------------------
+
+MLA_ARCH = "deepseek-v3-671b"
+
+
+def mla_phase(seed: int, kernels) -> dict:
+    """``deepseek-v3-671b`` through ``family_phase``: published width, all
+    256 routed experts and the shared one, its depth cut to the deepest
+    that fits (its 3 ``mla_dense`` layers first, then ``mla_moe``), served
+    by ``Engine`` on FAMILY_PROMPTS with the absorbed decode, then the
+    gate at 3 dense + 1 MoE layers.  Beyond phase 11's checks: at least
+    one MoE layer in the cut, no hand-written kernel launched (MLA takes
+    no flash route), and the decode state exactly the latent cache, layers
+    x cache_len x (kv_lora_rank + qk_rope_dim) in bf16 a slot."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MLA_ARCH)
+    r = family_phase(seed, MLA_ARCH, kernels)
+    kinds = r["kinds"]
+    if kinds[:cfg.n_dense_layers] != ["mla_dense"] * cfg.n_dense_layers or \
+            "mla_moe" not in kinds:
+        raise AssertionError(f"{MLA_ARCH}: layers {kinds}, not the 3 dense "
+                             f"and at least one MoE layer")
+    if any(r["launches"].values()):
+        raise AssertionError(f"{MLA_ARCH}: hand-written kernels launched "
+                             f"{r['launches']}")
+    latent = cfg.kv_lora_rank + cfg.qk_rope_dim
+    want = r["layers"] * r["cache_len"] * latent * 2
+    if r["state_bytes_per_slot"] != want:
+        raise AssertionError(f"{MLA_ARCH}: decode state "
+                             f"{r['state_bytes_per_slot']} bytes a slot, "
+                             f"not {want}")
+    return dict(latent_per_token=latent, **r)
 
 
 def main(argv=None) -> int:
@@ -3088,63 +3232,24 @@ def main(argv=None) -> int:
     t11 = time.perf_counter()
     for arch in FAMILY_TOKEN_ARCHS + FAMILY_EMBED_ARCHS:
         r = fam[arch] = family_phase(args.seed, arch, KERNELS)
-        cut = ("nothing cut" if r["layers"] == r["published_layers"] else
-               f"depth cut to {r['layers']} of {r['published_layers']} "
-               f"layers (the deepest that fits beside the cache)")
-        how = (f"Engine, {len(FAMILY_PROMPTS)} requests on {SERVE_SLOTS} "
-               f"slots, cache {FAMILY_CACHE}"
-               if "busy_share" in r else
-               f"lm.prefill_step on {FAMILY_ROWS} x {FAMILY_POSITIONS} "
-               f"positions, then greedy lm.decode_steps")
-        log(f"family {arch}: published width, {cut}; {r['params']} "
-            f"parameters ({r['weights_gb']:.2f} GB bf16, init "
-            f"{r['init_s']:.2f} s, peak {r['init_peak_gb']:.2f} GB during "
-            f"init); {how}: {r['tokens']} tokens, peak {r['peak_gb']:.2f} "
-            f"GB")
-        log(f"family {arch}: prefill ms by prompt length: " + ", ".join(
-            f"{n}: " + "/".join(f"{t:.2f}" for t in ts)
-            for n, ts in r["prefill_ms"].items())
-            + f"; decode {r['decode_tok_s']:.2f} tokens/s "
-            f"({r['decode_ms_per_step']:.3f} ms a step); flash launches "
-            f"{r['launches']['flash_attn']} (as the prefills make them)")
-        if "busy_share" in r:
-            log(f"family {arch}: device busy share {r['busy_share']:.4f} "
-                f"({r['busy_note']}) over the run's {r['busy_steps']} "
-                f"decode-only steps after the first "
-                f"({r['busy_step_ms']:.3f} ms a step untraced, "
-                f"{r['busy_device_ms_per_step']:.3f} device ms, "
-                f"{r['busy_kernels_per_step']:.1f} kernels traced and "
-                f"{r['busy_launches_per_step']:.1f} launched a step in a "
-                f"replay)")
-        if r["moe_drops"] is not None:
-            log(f"family {arch}: (token, expert) pairs dropped past the "
-                f"capacity, by prefill of " + ", ".join(
-                    f"{n}: {d}" for n, d in zip(FAMILY_PROMPTS,
-                                                r["moe_drops"]))
-                + f"; a decode step reads every expert: "
-                f"{r['experts_gb_per_step']:.2f} GB, "
-                f"{r['experts_bound_ms']:.3f} ms at 3.35 TB/s")
-            tp = r["moe_trace"]
-            log(f"family {arch}: one {tp['positions']}-token prefill "
-                f"traced: {tp['wall_ms']:.1f} ms, device "
-                f"{tp['device_ms']:.1f} ms in {tp['kernels']} kernels: "
-                + ", ".join(f"{g} {v:.1f} ms"
-                            for g, v in tp["groups_ms"].items()))
-            for ms, count, name in tp["top"]:
-                log(f"family {arch}: traced prefill kernel {ms:.1f} ms in "
-                    f"{count} launches: {name[:120]}")
-        g = r["gate"]
-        log(f"family {arch}: decode equals forward at {g['layers']} layers, "
-            f"full width: {g['prompt']}-position prefill and "
-            f"{FAMILY_GATE_STEPS} greedy steps, argmax equal at "
-            f"{g['equal']} of {len(g['steps'])} positions"
-            + ("" if g["equal"] == len(g["steps"])
-               else " (near-ties elsewhere)")
-            + f", max_abs_err {g['max_abs_err']:.4g} (tolerance "
-            f"{g['tolerance']}); forward attention in query blocks of "
-            f"{g['q_block']}; the forward's top-2 gaps " + ", ".join(
-                f"{st['top2_gap']:.4f}" for st in g["steps"]))
+        log_family(arch, r)
     log(f"phase 11: {time.perf_counter() - t11:.1f} s")
+
+    # 12. MLA: deepseek-v3-671b at published width, absorbed decode
+    t12 = time.perf_counter()
+    ds = mla_phase(args.seed, KERNELS)
+    log_family(MLA_ARCH, ds)
+    log(f"mla {MLA_ARCH}: {ds['layers']} of {ds['published_layers']} "
+        f"layers ({ds['kinds'].count('mla_dense')} mla_dense, "
+        f"{ds['kinds'].count('mla_moe')} mla_moe: the deepest that fits "
+        f"beside the cache); decode state {ds['state_bytes_per_slot']} "
+        f"bytes a slot = {ds['layers']} layers x {ds['cache_len']} x "
+        f"{ds['latent_per_token']} x 2 (the latent cache only); decode "
+        f"{ds['decode_ms_per_step']:.3f} ms a step against the bound of a "
+        f"step that reads every expert, {ds['experts_gb_per_step']:.2f} GB "
+        f"at 3.35 TB/s: {ds['experts_bound_ms']:.3f} ms; no hand-written "
+        f"kernel launched (MLA takes no flash route)")
+    log(f"phase 12: {time.perf_counter() - t12:.1f} s")
 
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith(("jax.", "repro."))
@@ -3152,7 +3257,7 @@ def main(argv=None) -> int:
     if leaked:
         raise AssertionError(f"the port imported {leaked[:5]}")
 
-    # 12. the kernels line and the result
+    # 13. the kernels line and the result
     row_of = {
         packed_pipeline.KERNEL: ("16KiBx8 packed all-tiny",
                                  packed["all-tiny"]),
@@ -3217,7 +3322,8 @@ def main(argv=None) -> int:
                     + tr["ingest_launches"][k.name]
                     + tr["train_launches"][k.name]
                     + sum(r["launches"][k.name] for r in rec.values())
-                    + sum(r["launches"][k.name] for r in fam.values()))
+                    + sum(r["launches"][k.name] for r in fam.values())
+                    + ds["launches"][k.name])
         if launches == 0:
             raise AssertionError(f"kernel {k.name} never launched")
         rows.append(dict(
@@ -3236,7 +3342,7 @@ def main(argv=None) -> int:
             json.dump(dict(card=card, build_s=build_s, kernels=measured,
                            service=svc, sharded=sh, registry=rg,
                            serving=sv, scenarios=sc, training=tr,
-                           recurrent=rec, family=fam), f,
+                           recurrent=rec, family=fam, mla=ds), f,
                       indent=1, default=float)
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -3,11 +3,9 @@
 ``get_config(name)`` returns the exact public configuration and
 ``get_reduced(name)`` the family-preserving smoke variant the CPU tests
 use, as in the reference's ``repro/configs``.  The port runs the dense,
-MoE, hybrid (RG-LRU and local attention) and SSM (mLSTM, sLSTM) block kinds
-and all three input modes, so it registers every architecture of the
-reference but ``deepseek-v3-671b``, whose MLA blocks it does not run yet;
-that name raises a ``KeyError`` that points at the module queue in
-ROADMAP.md.
+MoE, MLA (``mla_dense``, ``mla_moe``), hybrid (RG-LRU and local
+attention) and SSM (mLSTM, sLSTM) block kinds and all three input modes,
+so it registers every architecture of the reference, in its order.
 """
 from __future__ import annotations
 
@@ -25,6 +23,7 @@ from .base import (  # noqa: F401
 
 _MODULES: Dict[str, str] = {
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
     "phi3-medium-14b": "phi3_medium_14b",
     "llama3.2-1b": "llama32_1b",
     "qwen2-72b": "qwen2_72b",
@@ -42,10 +41,8 @@ def _module(name: str):
     try:
         mod = _MODULES[name]
     except KeyError:
-        raise KeyError(
-            f"arch {name!r} is not ported: the port serves {list(_MODULES)}; "
-            f"deepseek-v3-671b (MLA) waits in ROADMAP.md's module queue "
-            f"(LM substrate)") from None
+        raise KeyError(f"unknown arch {name!r}: the port serves "
+                       f"{list(_MODULES)}") from None
     return importlib.import_module(f"{__name__}.{mod}")
 
 

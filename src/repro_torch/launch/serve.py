@@ -6,7 +6,8 @@
 The port of ``repro/launch/serve.py``: the same flags and the same reduced
 configuration of any registered ``--arch`` of the ``tokens`` input mode
 (``llama3.2-1b``, ``granite-8b``, ``phi3-medium-14b``, ``qwen2-72b``,
-``qwen3-moe-30b-a3b``, ``recurrentgemma-2b``, ``xlstm-125m``), random
+``qwen3-moe-30b-a3b``, ``deepseek-v3-671b``, ``recurrentgemma-2b``,
+``xlstm-125m``), random
 weights from seed 0, on the card unless ``--device`` says otherwise.
 ``musicgen-large`` and ``llava-next-34b`` take embeddings from a frontend
 stub: the CLI exits naming their input mode.

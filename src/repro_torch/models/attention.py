@@ -1,8 +1,8 @@
 """GQA/MQA/MHA attention with RoPE, KV caches, local windows, query blocks.
 
 The port of ``repro/models/attention.py`` for the dense block and the
-hybrid family's local-window MQA (the ``attn`` kind; MLA lives in
-the reference's ``mla.py`` and is not ported).  The score/softmax/context
+hybrid family's local-window MQA (the ``attn`` kind; MLA has its own
+module, ``mla.py``).  The score/softmax/context
 cores and the decode core are plain torch, as the reference leaves them to
 XLA; prompts longer than ``cfg.attn_kv_block`` take :func:`_flash_attention`,
 which is the hand-written CUDA kernel on a CUDA tensor

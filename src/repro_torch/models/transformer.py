@@ -1,15 +1,16 @@
 """Model assembly: blocks, run-length layer segments, the layer stack.
 
-The port of ``repro/models/transformer.py`` for the block kinds ``dense``,
-``moe`` (the dense block's attention before a mixture of experts),
-``attn`` (the hybrid family's local-window attention), ``rglru`` (the
-RG-LRU), ``mlstm`` and ``slstm``.  Layers are segmented into runs of one
-kind as in the reference, and a segment of more than one layer keeps its
-parameters stacked ``(L, ...)``; where the reference scans over the stack,
-the port loops over it in Python, and decode caches (attention KV caches,
-the recurrent kinds' states) come back stacked along a leading layer dim
-as the reference's scan stacks them.  The MLA kinds (``mla_dense``,
-``mla_moe``) raise ``NotImplementedError``.
+The port of ``repro/models/transformer.py`` for all its block kinds:
+``dense``, ``moe`` (the dense block's attention before a mixture of
+experts), ``mla_dense`` and ``mla_moe`` (the same two with DeepSeek's
+latent attention, ``models/mla.py``), ``attn`` (the hybrid family's
+local-window attention), ``rglru`` (the RG-LRU), ``mlstm`` and
+``slstm``.  Layers are segmented into runs of one kind as in the
+reference, and a segment of more than one layer keeps its parameters
+stacked ``(L, ...)``; where the reference scans over the stack, the port
+loops over it in Python, and decode caches (attention KV caches, the
+recurrent kinds' states, MLA's latent caches) come back stacked along a
+leading layer dim as the reference's scan stacks them.
 ``cfg.remat`` checkpoints each block of :func:`forward_stack` as the
 reference's ``_maybe_remat`` does: ``"full"`` recomputes the whole block
 in the backward, ``"dots"`` keeps the outputs of its matrix products
@@ -24,22 +25,28 @@ import torch
 from torch.utils import checkpoint as torch_checkpoint
 
 from . import attention as attn_mod
+from . import mla as mla_mod
 from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
 from .layers import mlp_apply, mlp_template, norm_template, rmsnorm, stack_template
 
 #: the block kinds the port runs
-PORTED_KINDS = ("dense", "moe", "attn", "rglru", "mlstm", "slstm")
+PORTED_KINDS = ("dense", "moe", "mla_dense", "mla_moe", "attn", "rglru",
+                "mlstm", "slstm")
 #: the kinds whose decode state is a recurrence's (not a KV cache): their
 #: prefill state is the decode cache, and a decode step returns a new one
 RECURRENT_KINDS = ("rglru", "mlstm", "slstm")
+#: the kinds whose attention is MLA (``models/mla.py``): a compressed
+#: latent cache, no flash route
+MLA_KINDS = ("mla_dense", "mla_moe")
+#: the kinds whose feed-forward part is the mixture of experts
+MOE_KINDS = ("moe", "mla_moe")
 
 
 def _unported(kind: str):
     return NotImplementedError(
-        f"block kind {kind!r} is not ported: the port runs {PORTED_KINDS}; "
-        f"MLA waits in ROADMAP.md's module queue (LM substrate)")
+        f"unknown block kind {kind!r}: the port runs {PORTED_KINDS}")
 
 
 def layer_kinds(cfg) -> List[str]:
@@ -79,6 +86,14 @@ def block_template(kind: str, cfg) -> Dict[str, Any]:
             "ln2": norm_template(d),
             "moe": moe_mod.moe_template(cfg),
         }
+    if kind in MLA_KINDS:
+        return {
+            "ln1": norm_template(d),
+            "mla": mla_mod.mla_template(cfg),
+            "ln2": norm_template(d),
+            **({"moe": moe_mod.moe_template(cfg)} if kind == "mla_moe"
+               else {"mlp": mlp_template(d, cfg.d_ff)}),
+        }
     if kind == "mlstm":
         return {"ln": norm_template(d), "cell": ssm_mod.mlstm_template(cfg)}
     if kind == "slstm":
@@ -109,6 +124,8 @@ def init_block_cache(kind: str, cfg, batch: int, cache_len: int, dtype,
     """Decode state of one layer of the given kind."""
     if kind in ("dense", "moe"):
         return attn_mod.init_cache(cfg, batch, cache_len, dtype, device)
+    if kind in MLA_KINDS:
+        return mla_mod.init_mla_cache(cfg, batch, cache_len, dtype, device)
     if kind == "attn":  # hybrid local window: a rolling buffer
         win = min(cfg.window_size, cache_len) or cache_len
         return attn_mod.init_cache(cfg, batch, win, dtype, device)
@@ -146,7 +163,9 @@ def _recurrent_block(kind: str, cfg, p, x, state, decode: bool):
     return x + out, st
 
 
-#: the kinds whose block is attention then a feed-forward part
+#: the kinds whose block is ``attention.py``'s attention (the flash route
+#: for long prompts) then a feed-forward part; the MLA kinds are built
+#: the same way around ``mla.py`` (``MLA_KINDS``)
 ATTENTION_KINDS = ("dense", "moe", "attn")
 
 
@@ -154,7 +173,7 @@ def _ffn(kind: str, cfg, p, x):
     """The block's feed-forward half after attention: x plus the MLP (or
     the mixture of experts) of its norm.  Returns (x, aux)."""
     y = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    if kind == "moe":
+    if kind in MOE_KINDS:
         out, aux = moe_mod.moe_ffn(p["moe"], y, cfg)
     else:
         out, aux = mlp_apply(p["mlp"], y, cfg.act), None
@@ -170,6 +189,11 @@ def block_forward(kind: str, cfg, p, x, positions, state=None):
                                cfg, positions, window=win)
         x, aux = _ffn(kind, cfg, p, x + h)
         st = None
+    elif kind in MLA_KINDS:
+        h = mla_mod.mla_attention(p["mla"], rmsnorm(x, p["ln1"], cfg.norm_eps),
+                                  cfg, positions)
+        x, aux = _ffn(kind, cfg, p, x + h)
+        st = None
     elif kind in RECURRENT_KINDS:
         x, st = _recurrent_block(kind, cfg, p, x, state, decode=False)
         aux = None
@@ -183,13 +207,19 @@ def block_forward(kind: str, cfg, p, x, positions, state=None):
 def block_prefill(kind: str, cfg, p, x, positions, cache_len: int):
     """Full-sequence pass that also produces the decode cache: (x, cache).
 
-    Attention caches are filled at slots [0, S) (rolling for the local
-    window); the recurrent kinds return their final state."""
+    Attention caches (MLA's latent ones too) are filled at slots [0, S)
+    (rolling for the local window); the recurrent kinds return their
+    final state."""
     if kind in ATTENTION_KINDS:
         win = cfg.window_size if kind == "attn" else 0
         h, cache = attn_mod.prefill_attention(
             p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, positions,
             cache_len, window=win)
+        return _ffn(kind, cfg, p, x + h)[0], cache
+    if kind in MLA_KINDS:
+        h, cache = mla_mod.mla_prefill(
+            p["mla"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, positions,
+            cache_len)
         return _ffn(kind, cfg, p, x + h)[0], cache
     if kind in RECURRENT_KINDS:  # the forward state IS the decode cache
         x, st, _ = block_forward(kind, cfg, p, x, positions, state=None)
@@ -198,13 +228,18 @@ def block_prefill(kind: str, cfg, p, x, positions, cache_len: int):
 
 
 def block_decode(kind: str, cfg, p, x, cache, pos):
-    """Single-token pass: (x, cache).  An attention cache is updated in
-    place and returned; a recurrent kind returns its new state."""
+    """Single-token pass: (x, cache).  An attention cache (MLA's latent
+    one too, read in the absorbed form) is updated in place and returned;
+    a recurrent kind returns its new state."""
     if kind in ATTENTION_KINDS:
         win = cfg.window_size if kind == "attn" else 0
         h, cache = attn_mod.decode_attention(
             p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, cache, pos,
             window=win)
+        return _ffn(kind, cfg, p, x + h)[0], cache
+    if kind in MLA_KINDS:
+        h, cache = mla_mod.mla_decode(
+            p["mla"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, cache, pos)
         return _ffn(kind, cfg, p, x + h)[0], cache
     if kind in RECURRENT_KINDS:
         return _recurrent_block(kind, cfg, p, x, cache, decode=True)

@@ -11,13 +11,14 @@ at once and is refilled from the queue while the others go on
 
 Where the reference ``vmap``s a B=1 decode over the slots, the port writes
 the batch dimension out: the stacked caches are ``(L, slots, S_c, KV,
-hd)`` (a recurrent layer's state ``(L, slots, ...)``) and
-``lm.decode_step`` takes a position vector ``(slots,)``, each row writing
-its cache entry at its own position and masking ``idx <= pos[b]``.
-Free slots are decoded too, at the position they last held, as in the
-reference; their writes are clamped into the cache
-(``models/attention.py:decode_attention``), so a slot retired at
-``cache_len - 1`` never writes out of range.  Greedy sampling is
+hd)`` (an MLA layer's latent cache ``(L, slots, S_c, kv_lora_rank)`` and
+``(L, slots, S_c, qk_rope_dim)``, a recurrent layer's state ``(L, slots,
+...)``) and ``lm.decode_step`` takes a position vector ``(slots,)``, each
+row writing its cache entry at its own position and masking ``idx <=
+pos[b]``.  Free slots are decoded too, at the position they last held, as
+in the reference; their writes are clamped into the cache
+(``models/attention.py:decode_attention``, ``models/mla.py:mla_decode``),
+so a slot retired at ``cache_len - 1`` never writes out of range.  Greedy sampling is
 ``argmax`` (first index on ties, as ``jnp.argmax``); temperature sampling
 draws with ``torch.multinomial`` from the engine's own generator.
 
@@ -136,7 +137,8 @@ class Engine:
         """Copy one request's prefill caches (batch 1) into batch slot
         ``slot`` of the engine's.  Generic over every decode state the
         stack keeps, as the reference stacks them with ``jax.tree.map``:
-        attention KV caches (full or rolling), ``RGLRUState(h, conv_tail)``,
+        attention KV caches (full or rolling), MLA's ``MLACache(c_kv,
+        k_rope)``, ``RGLRUState(h, conv_tail)``,
         ``MLSTMState(C, n, m)`` and ``SLSTMState(h, c, n, m)``; each leaf
         has the batch first, or second behind the layer dim of a stacked
         segment, and is copied into the slot's leaf in that leaf's type."""

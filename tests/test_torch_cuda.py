@@ -1428,17 +1428,20 @@ def test_flash_kernel_at_the_dense_family_s_serving_shapes(dev, no_tf32,
     _close_to(got, want, kflash.TOLERANCE[dtype])
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "llava-next-34b"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "llava-next-34b",
+                                  "deepseek-v3-671b"])
 def test_moe_and_mixed_models_on_the_card_match_the_cpu(dev, no_tf32, arch):
-    """Reduced qwen3-moe-30b-a3b and llava-next-34b (float32, flash blocks
-    of 16): a 48-position prefill (llava: 16 patch embeddings and 32 text
-    tokens) and 4 greedy decode steps on the card, logits and the greedy
-    tokens equal to the CPU's; the prefill launches the flash kernel once
-    a layer."""
+    """Reduced qwen3-moe-30b-a3b, llava-next-34b and deepseek-v3-671b
+    (float32, flash blocks of 16): a 48-position prefill (llava: 16 patch
+    embeddings and 32 text tokens) and 4 greedy decode steps on the card
+    (deepseek's absorbed MLA decode), logits and the greedy tokens equal to
+    the CPU's; the prefill launches the flash kernel once an attention
+    layer (never for an MLA layer)."""
     from repro_torch._tree import tree_map
     from repro_torch.configs import get_reduced
     from repro_torch.kernels import flash_attn as kflash
     from repro_torch.models import lm
+    from repro_torch.models.transformer import ATTENTION_KINDS, layer_kinds
 
     cfg = get_reduced(arch).replace(attn_q_block=16, attn_kv_block=16)
     params = lm.init_params(cfg, torch.Generator().manual_seed(0),
@@ -1458,7 +1461,8 @@ def test_moe_and_mixed_models_on_the_card_match_the_cpu(dev, no_tf32, arch):
         kflash.KERNEL.launches = 0
         lg, caches = lm.prefill_step(cfg, p, b, S + 8)
         if str(device) != "cpu":
-            assert kflash.KERNEL.launches == cfg.n_layers
+            assert kflash.KERNEL.launches == sum(
+                k in ATTENTION_KINDS for k in layer_kinds(cfg))
         logits = [lg]
         for i in range(4):
             tok = logits[-1].argmax(-1)[:, None]

@@ -1,19 +1,20 @@
-"""The rest of the dense family, the two embedding input modes and MoE
-against the JAX package on the CPU.
+"""The rest of the dense family, the two embedding input modes, MoE and
+MLA against the JAX package on the CPU.
 
 Reduced ``granite-8b``, ``phi3-medium-14b``, ``qwen2-72b`` (QKV bias),
 ``musicgen-large`` (``embeddings`` mode, GeGLU, full MHA, untied and no
 ``embed`` leaf), ``llava-next-34b`` (``mixed`` mode: patch embeddings in
-front of the text tokens) and ``qwen3-moe-30b-a3b`` (MoE with q/k-norm),
-the reference's parameters carried across with ``params_from_jax`` and
-inputs made with numpy from a seed.  Held: the configurations and the
+front of the text tokens), ``qwen3-moe-30b-a3b`` (MoE with q/k-norm) and
+``deepseek-v3-671b`` (MLA, one ``mla_dense`` layer before two ``mla_moe``
+with a shared expert), the reference's parameters carried across with
+``params_from_jax`` and inputs made with numpy from a seed.  Held: the configurations and the
 full-width templates; ``forward`` logits on the flash route (blocks of
 16, the flash kernel's plain version) and the materialised route;
 ``loss_and_metrics`` with image positions masked and MoE's aux;
 ``prefill_step`` and eight ``decode_step``s, logits and caches; decode
-against the port's own forward; bf16 for one dense model and the MoE; the
-engine's greedy tokens; and MoE's dispatch bit for bit on adversarial
-router inputs.
+against the port's own forward; bf16 for one dense model and the two
+MoEs; the engine's greedy tokens; and MoE's dispatch bit for bit on
+adversarial router inputs.
 
 Tolerances: float32 logits within ``TOL`` (1e-5: the two packages run the
 same float32 operations and differ in summation order only); decode
@@ -43,10 +44,11 @@ from repro_torch._tree import tree_map
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.models import layers, lm, moe
 from repro_torch.models.convert import params_from_jax
+from repro_torch.models.transformer import MOE_KINDS, layer_kinds
 from repro_torch.serve import Engine, ServeConfig
 
 ARCHS = ("granite-8b", "phi3-medium-14b", "qwen2-72b", "musicgen-large",
-         "llava-next-34b", "qwen3-moe-30b-a3b")
+         "llava-next-34b", "qwen3-moe-30b-a3b", "deepseek-v3-671b")
 TOL = dict(rtol=1e-5, atol=1e-5)
 #: the reference's test_decode_matches_forward tolerances
 PREFILL_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -179,9 +181,11 @@ def test_full_width_template_is_the_reference_s(arch):
     paths = {p for p, *_ in got}
     assert ("params.embed" in paths) == (cfg.input_mode != "embeddings")
     if cfg.n_experts:
-        assert ("params.segments.0.moe.gate",
-                (cfg.n_layers, cfg.n_experts, cfg.d_model, cfg.d_ff_expert),
-                "normal", None) in got
+        # the MoE layers after the first n_dense_layers, one segment
+        seg = int(cfg.n_dense_layers > 0)
+        assert (f"params.segments.{seg}.moe.gate",
+                (cfg.n_layers - cfg.n_dense_layers, cfg.n_experts,
+                 cfg.d_model, cfg.d_ff_expert), "normal", None) in got
 
 
 def test_params_from_jax_carries_the_new_leaves(model):
@@ -291,11 +295,14 @@ def _bf16_step(bits):
     return 2.0 ** (np.floor(np.log2(bits)) - 7)
 
 
-def _flips(port, ref, K, where):
+def _flips(port, ref, K, where, ref32=None):
     """The routing decisions at positions ``where`` that differ between
-    the packages' router logits (B, S, E), each as (gap, step): how far
-    apart the experts that only one package chose lie, in the package
-    that is nearer a tie, beside one bf16 step at their size."""
+    the packages' router logits (B, S, E), each as (gap, step, own): how
+    far apart the experts that only one package chose lie, in the package
+    that is nearer a tie, beside one bf16 step at their size and, given
+    the reference's float32 router logits ``ref32``, the reference's own
+    bf16-vs-float32 difference of that position's router logits (else
+    None)."""
     out = []
     for b, t in where:
         lp, lr = port[b, t], ref[b, t]
@@ -306,7 +313,8 @@ def _flips(port, ref, K, where):
         P, R = sorted(sp - sr), sorted(sr - sp)
         gap = min(lp[P].min() - lp[R].max(), lr[R].min() - lr[P].max())
         out.append((float(gap), float(_bf16_step(
-            np.abs(np.concatenate([lp[P], lp[R], lr[P], lr[R]])).max()))))
+            np.abs(np.concatenate([lp[P], lp[R], lr[P], lr[R]])).max())),
+            None if ref32 is None else float(np.abs(lr - ref32[b, t]).max())))
     return out
 
 
@@ -314,16 +322,23 @@ def _bf16_against_reference(arch, seed, monkeypatch):
     """The bf16 check of ``test_bf16_prefill_and_decode_match_reference``
     on the reference's weights from ``PRNGKey(seed)`` and prompts from
     the numpy seeds 25 + 2 seed and 26 + 2 seed: the steps (of 9) whose
-    logits were compared."""
+    logits were compared.  An MLA model's routing differences are held to
+    the reference's own bf16 noise of its router logits, and its logits
+    compared at every step (the test's docstring says why)."""
     cfg, jcfg = _cfgs(arch, **BF16, **FLASH)
+    own_gap = cfg.use_mla
     _, jcfg32 = _cfgs(arch, **FLASH)
     jcfg = jcfg.replace(scan_layers=False)
+    if own_gap:  # its float32 router logits read too
+        jcfg32 = jcfg32.replace(scan_layers=False)
     jp32 = jlm.init_params(jcfg32, jax.random.PRNGKey(seed))
     jp = jax.tree.map(lambda x: x.astype(jnp.bfloat16), jp32)
     jp_up = jax.tree.map(lambda x: x.astype(jnp.float32), jp)
     params = params_from_jax(cfg, jax.tree.map(np.asarray, jp32),
                              device="cpu")
     routes = {"port": [], "ref": []}
+    if own_gap:
+        routes["ref32"] = []
     real, jreal = moe.dispatch, jmoe.moe_ffn
 
     def port_dispatch(p, x, c):
@@ -331,9 +346,9 @@ def _bf16_against_reference(arch, seed, monkeypatch):
         return real(p, x, c)
 
     def ref_moe(p, x, c):
-        if x.dtype == jnp.bfloat16:
-            routes["ref"].append(np.asarray(
-                (x @ p["router"]).astype(jnp.float32)))
+        if x.dtype == jnp.bfloat16 or own_gap:
+            routes["ref" if x.dtype == jnp.bfloat16 else "ref32"].append(
+                np.asarray((x @ p["router"]).astype(jnp.float32)))
         return jreal(p, x, c)
 
     monkeypatch.setattr(moe, "dispatch", port_dispatch)
@@ -348,19 +363,28 @@ def _bf16_against_reference(arch, seed, monkeypatch):
     ref = [jlm.prefill_step(c, p, {"tokens": jnp.asarray(toks)}, cache_len)
            for c, p in ((jcfg, jp), (jcfg32, jp_up))]
     checked = 0
+    n_moe = sum(k in MOE_KINDS for k in layer_kinds(cfg))
     for step in range(9):
-        assert len(routes["port"]) == len(routes["ref"]) == (
-            cfg.n_layers if cfg.n_experts else 0)
-        flips = [f for lp, lr in zip(routes["port"], routes["ref"])
+        assert all(len(r) == n_moe for r in routes.values())
+        ref32 = routes.get("ref32", [None] * n_moe)
+        flips = [f for lp, lr, l32 in zip(routes["port"], routes["ref"],
+                                          ref32)
                  for f in _flips(lp, lr, cfg.moe_top_k,
-                                 [(b, lp.shape[1] - 1) for b in range(2)])]
-        routes["port"].clear()
-        routes["ref"].clear()
-        for gap, bf16_step in flips:
-            assert gap <= bf16_step, (
-                f"{arch} step {step}: a routing difference {gap} apart, "
-                f"not a tie within one bf16 step ({bf16_step})")
-        if not flips:
+                                 [(b, lp.shape[1] - 1) for b in range(2)],
+                                 l32)]
+        for r in routes.values():
+            r.clear()
+        for gap, bf16_step, own_router in flips:
+            if own_router is None:
+                assert gap <= bf16_step, (
+                    f"{arch} step {step}: a routing difference {gap} "
+                    f"apart, not a tie within one bf16 step ({bf16_step})")
+            else:
+                assert gap <= max(bf16_step, own_router), (
+                    f"{arch} step {step}: a routing difference {gap} "
+                    f"apart, past one bf16 step ({bf16_step}) and the "
+                    f"reference's own bf16 noise there ({own_router})")
+        if not flips or own_gap:
             want, want32 = (np.asarray(r[0], np.float32) for r in ref)
             err = float(np.abs(lg.float().numpy() - want).max())
             own = float(np.abs(want - want32).max())
@@ -378,7 +402,8 @@ def _bf16_against_reference(arch, seed, monkeypatch):
     return checked
 
 
-@pytest.mark.parametrize("arch", ["granite-8b", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("arch", ["granite-8b", "qwen3-moe-30b-a3b",
+                                  "deepseek-v3-671b"])
 def test_bf16_prefill_and_decode_match_reference(arch, monkeypatch):
     """The models in bf16 on the flash route: the prefill's logits and
     eight decode steps', each within ``BF16_RATIO`` of the reference's
@@ -395,9 +420,24 @@ def test_bf16_prefill_and_decode_match_reference(arch, monkeypatch):
     each differing choice a tie within one bf16 step in one package; the
     other steps, most of them, to the logits' tolerance.  Routing differs
     at 1 of the 9 steps on this seed (qwen3-moe-30b-a3b: 8 compared); the
-    dense model compares all 9."""
+    dense model compares all 9.
+
+    MLA's model (``deepseek-v3-671b``, two ``mla_moe`` layers of 8
+    experts, top 2) is held otherwise: its logits at every step, routing
+    differences or not, and a routing difference may lie as far apart as
+    the reference's own bf16-vs-float32 difference of that position's
+    router logits (the reference's own rounding moves them that far; the
+    one-step rule is relative to the logits' size, this noise is not).
+    On this seed one difference at step 5 is 0.00122 apart (5 bf16 steps
+    at its size 0.03-0.06) against the reference's own 0.00292 there, and
+    the packages' router logits differ by 0.0015-0.0024 at every step
+    against the reference's own 0.0020-0.0052; all 9 steps compared."""
+    cfg = get_reduced(arch)
     checked = _bf16_against_reference(arch, 0, monkeypatch)
-    assert checked >= 7 if get_reduced(arch).n_experts else checked == 9
+    if cfg.use_mla:
+        assert checked == 9
+    else:
+        assert checked >= 7 if cfg.n_experts else checked == 9
 
 
 def test_bf16_moe_matches_reference_on_a_second_seed(monkeypatch):
@@ -541,7 +581,8 @@ def test_moe_capacity_is_the_reference_s():
 # -- serving ------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["granite-8b", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("arch", ["granite-8b", "qwen3-moe-30b-a3b",
+                                  "deepseek-v3-671b"])
 def test_engine_matches_reference(arch):
     """More requests than slots, mixed prompt lengths, the longest on the
     flash route: the same greedy tokens as the reference's engine."""
@@ -568,7 +609,8 @@ def test_engine_and_cli_refuse_embedding_modes(arch, capsys):
         serve.main(["--arch", arch, "--device", "cpu"])
 
 
-@pytest.mark.parametrize("arch", ["qwen2-72b", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("arch", ["qwen2-72b", "qwen3-moe-30b-a3b",
+                                  "deepseek-v3-671b"])
 def test_cli_serves_the_new_token_archs_on_the_cpu(arch, capsys):
     from repro_torch.launch import serve
 

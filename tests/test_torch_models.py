@@ -67,13 +67,15 @@ def _tokens(seed, B, S, vocab):
 
 
 def test_configs_are_the_reference_s():
-    for name in ("llama3.2-1b",):
+    """llama3.2-1b and deepseek-v3-671b (MLA) field for field; a name
+    neither package registers raises, naming the registered ones."""
+    for name in ("llama3.2-1b", "deepseek-v3-671b"):
         assert (dataclasses.asdict(get_config(name))
                 == dataclasses.asdict(j_get_config(name)))
         assert (dataclasses.asdict(get_reduced(name))
                 == dataclasses.asdict(j_get_reduced(name)))
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("deepseek-v3-671b")
+    with pytest.raises(KeyError, match="deepseek-v3-671b"):
+        get_config("deepseek-v4")
 
 
 def test_template_param_count_equals_reference_at_full_width():
@@ -89,20 +91,43 @@ def test_template_param_count_equals_reference_at_full_width():
 
 
 def test_other_block_kinds_raise_naming_roadmap():
-    """The kinds still to port (MLA) raise; MoE and the embedding input
-    modes build (held in tests/test_torch_families.py, the recurrent
-    kinds in tests/test_torch_recurrent.py)."""
+    """Every block kind of the reference builds now: the MLA kinds
+    (``mla_dense``, ``mla_moe``) a template with the reference's leaves
+    and a latent cache, and deepseek-v3-671b's full-width template counts
+    the reference's ``param_count``; a kind neither package knows raises,
+    naming the kinds the port runs.  MoE and the embedding input modes
+    build (held in tests/test_torch_families.py, MLA in
+    tests/test_torch_mla.py, the recurrent kinds in
+    tests/test_torch_recurrent.py)."""
     base = get_reduced("llama3.2-1b")
-    for cfg in (base.replace(use_mla=True),  # mla_dense
-                base.replace(family="moe", n_experts=4, use_mla=True)):
+    mla_cfgs = (base.replace(use_mla=True, q_lora_rank=32, kv_lora_rank=16,
+                             qk_nope_dim=16, qk_rope_dim=8, v_head_dim=16),
+                get_reduced("deepseek-v3-671b"))
+    for cfg in mla_cfgs:
         kinds = set(transformer.layer_kinds(cfg))
         assert kinds & {"mla_dense", "mla_moe"}, kinds
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lm.lm_template(cfg)
-        for kind in kinds - set(transformer.PORTED_KINDS):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                transformer.init_block_cache(kind, cfg, 1, 8, torch.float32,
-                                             "cpu")
+        assert kinds <= set(transformer.PORTED_KINDS)
+        segs = lm.lm_template(cfg)["segments"]
+        assert all("mla" in seg and "attn" not in seg for seg in segs)
+        for kind in kinds:
+            cache = transformer.init_block_cache(kind, cfg, 1, 8,
+                                                 torch.float32, "cpu")
+            assert (cache.c_kv.shape, cache.k_rope.shape) == (
+                (1, 8, cfg.kv_lora_rank), (1, 8, cfg.qk_rope_dim))
+    assert set(transformer.layer_kinds(mla_cfgs[1])) == {"mla_dense",
+                                                         "mla_moe"}
+    full = get_config("deepseek-v3-671b")
+    leaves = []
+    layers.template_map(leaves.append, lm.lm_template(full))
+    # param_count leaves out the norm scales (MLA's q_norm and kv_norm too)
+    counted = sum(int(np.prod(t.shape)) for t in leaves if t.init != "ones")
+    assert counted == j_param_count(j_get_config("deepseek-v3-671b"))[0]
+    assert counted == param_count(full)[0]
+    with pytest.raises(NotImplementedError, match="mla_moe"):
+        transformer.block_template("mla_sparse", base)
+    with pytest.raises(NotImplementedError, match="mla_dense"):
+        transformer.init_block_cache("mla_sparse", base, 1, 8, torch.float32,
+                                     "cpu")
     moe = base.replace(family="moe", n_experts=4, moe_top_k=2,
                        d_ff_expert=32)
     assert set(transformer.layer_kinds(moe)) == {"moe"}

@@ -250,6 +250,12 @@ def test_port_imports_no_jax_and_no_repro():
         "lg = lm.forward(c, lm.init_params(c, device='cpu'), "
         "{'tokens': torch.arange(40)[None] % 256})\n"
         "assert lg.shape == (1, 40, c.vocab_size)\n"
+        "c = get_reduced('deepseek-v3-671b')\n"
+        "pm = lm.init_params(c, device='cpu')\n"
+        "lg, ca = lm.prefill_step(c, pm, "
+        "{'tokens': torch.arange(40)[None] % 256}, 48)\n"
+        "lg, _ = lm.decode_step(c, pm, ca, lg.argmax(-1)[:, None], 40)\n"
+        "assert lg.shape == (1, c.vocab_size)\n"
         "for arch in ('recurrentgemma-2b', 'xlstm-125m'):\n"
         "    assert get_config(arch).name == arch\n"
         "    c = get_reduced(arch)\n"

@@ -103,7 +103,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It drives only
    kernel's launches (each layer's forward and its remat recompute, the
    backward recomputing the plain loop), and one more step traced for
    its device time by kernel group; then the restart check at the
-   same widths with the depth cut to 8 layers, under deterministic
+   same widths with the depth cut to 2 layers, under deterministic
    algorithms, in a child process of this script that alone has
    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``: 4 steps with a checkpoint every 2
    through the CDC store (SeqCDC at avg 1 MiB on the card), once unbroken
@@ -152,17 +152,32 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It drives only
    that reads every expert beside the decode rate, and the gate at 3
    ``mla_dense`` + 1 ``mla_moe`` layers (the materialised prefill and
    forward against the absorbed decode);
-13. the ``kernels`` JSON line, then the result line.
+13. distribution on one card: (a) the fingerprint index's ``all_to_all``
+   (``routed_fp_tables``, ``distributed_dedup``) over an 8-shard mesh of
+   ``cuda:0`` on 8 x 2^20 seeded records with duplicates, the tables
+   bit-equal to an 8-shard CPU mesh's and the stats equal to
+   ``dedup_stats``, and a skewed batch whose overflow equals the CPU's,
+   with the ms of each; (b) phase 5's tree ingested again through
+   ``ShardedDedupService(mesh=make_host_mesh(shards=4))``, its recipes'
+   digest, stored bytes and ``fp_estimated_savings`` equal to phase 5's
+   host route's, ``overflow_rerouted`` and MB/s beside phase 5's; (c) the
+   op counter (``roofline/cost.py``) on llama3.2-1b's 4,096-token prefill
+   at full width: FLOPs, bytes and the H100 bound beside phase 7's
+   prefill ms; (d) one published-size dry-run cell (llama3.2-1b x
+   decode_32k on the (16, 16) mesh, fake backend): status ``ok``;
+14. the ``kernels`` JSON line, then the result line.
 
 Phases 7, 10, 11 and 12 count, in the traced replay of their decode
 steps, the kernel launches the host issued against the kernels the trace
 recorded, and print both beside the busy share where they differ (the
 share is then a lower bound).  The launch counts are set to 0 before the
 block-max op in phase 3, before phases 4, 5, 6, 7 and 8, before phase 9's
-ingest and its training run, and before each serving run of phases 10, 11
-and 12, and read after each; every kernel must launch in one of them, and
-each phase must launch the kernels of its own path (phase 12's path has
-none).  The ``kernels`` line sums them.
+ingest and its training run, before each serving run of phases 10, 11
+and 12, and before phase 13's ``mesh=`` ingest, and read after each;
+every kernel must launch in one of them, and each phase must launch the
+kernels of its own path (phase 12's path has none; phase 13's ``mesh=``
+ingest launches the fused pipeline kernel).  The ``kernels`` line sums
+them.
 
 It exits non-zero, with no result line, without a CUDA card, outside a
 checkout of the repo, or when any phase fails.
@@ -1322,7 +1337,15 @@ def make_tree(seed: int, versions: int, files: int,
     return out
 
 
-def sharded_phase(p, seed: int, kernels) -> dict:
+def sharded_phase(p, seed: int, kernels, mesh=None,
+                  verify: bool = True) -> dict:
+    """Phase 5's run: the tree through ``ShardedDedupService`` with 4 local
+    shards, host-routed; with ``mesh`` (phase 13) its fingerprint records
+    take the mesh's ``all_to_all`` route instead.  ``verify`` restores
+    the last version and checks sampled recipes against the oracle (phase
+    13 compares its recipes' digest with phase 5's instead)."""
+    import hashlib
+
     import numpy as np
     import torch
 
@@ -1345,6 +1368,7 @@ def sharded_phase(p, seed: int, kernels) -> dict:
             root, num_shards=SHARDS, transport="local", params=p,
             device="cuda", slots=8, packing_impl="segments",
             pipeline_impl="fused", cross_check_packing=True,
+            **({} if mesh is None else {"mesh": mesh}),
         )
         try:
             for k in kernels:
@@ -1359,29 +1383,34 @@ def sharded_phase(p, seed: int, kernels) -> dict:
             launches = {k.name: k.launches for k in kernels}
             last = len(tree) - 1
             last_bytes = sum(o.size for o in tree[last].values())
-            t0 = time.perf_counter()
-            for path, obj in tree[last].items():
-                if svc.get(f"v{last}/{path}") != obj.tobytes():  # SHA-verified
-                    raise AssertionError(f"restore of v{last}/{path} differs")
-            restore_s = time.perf_counter() - t0
-            rng = np.random.default_rng(seed + 1)
-            for v, files in enumerate(tree):  # recipes against the oracle
-                names = sorted(files)
-                picks = [names[int(i)] for i in rng.integers(0, len(names), 6)]
-                picks += [n for n in names if files[n].size < 1024][:2]
-                for path in picks:
-                    obj = files[path]
-                    r = svc.recipes.get(f"v{v}/{path}")
-                    ob = boundaries_numpy(obj, p)
-                    if r.chunk_lens != np.diff(
-                            np.concatenate([[0], ob])).tolist():
-                        raise AssertionError(f"recipe v{v}/{path}: chunking")
-                    if r.fps != pack_fps(fingerprints_numpy(obj, ob)):
-                        raise AssertionError(f"recipe v{v}/{path}: fps")
-                    starts = np.concatenate([[0], ob[:-1]])
-                    if r.keys != [sha256_key(obj[s:e].tobytes())
-                                  for s, e in zip(starts, ob)]:
-                        raise AssertionError(f"recipe v{v}/{path}: keys")
+            restore_s = math.nan
+            if verify:
+                t0 = time.perf_counter()
+                for path, obj in tree[last].items():
+                    if svc.get(f"v{last}/{path}") != obj.tobytes():
+                        raise AssertionError(  # the get is SHA-verified
+                            f"restore of v{last}/{path} differs")
+                restore_s = time.perf_counter() - t0
+                rng = np.random.default_rng(seed + 1)
+                for v, files in enumerate(tree):  # recipes against the oracle
+                    names = sorted(files)
+                    picks = [names[int(i)]
+                             for i in rng.integers(0, len(names), 6)]
+                    picks += [n for n in names if files[n].size < 1024][:2]
+                    for path in picks:
+                        obj = files[path]
+                        r = svc.recipes.get(f"v{v}/{path}")
+                        ob = boundaries_numpy(obj, p)
+                        if r.chunk_lens != np.diff(
+                                np.concatenate([[0], ob])).tolist():
+                            raise AssertionError(
+                                f"recipe v{v}/{path}: chunking")
+                        if r.fps != pack_fps(fingerprints_numpy(obj, ob)):
+                            raise AssertionError(f"recipe v{v}/{path}: fps")
+                        starts = np.concatenate([[0], ob[:-1]])
+                        if r.keys != [sha256_key(obj[s:e].tobytes())
+                                      for s, e in zip(starts, ob)]:
+                            raise AssertionError(f"recipe v{v}/{path}: keys")
             st = svc.stats()
             sched = svc.scheduler.stats
             m = svc.metrics()["service"]
@@ -1398,7 +1427,14 @@ def sharded_phase(p, seed: int, kernels) -> dict:
                          if k.startswith("sched.occupancy")}
             if not svc.scheduler._packing_checked:
                 raise AssertionError("the packing cross-check never ran")
+            digest = hashlib.sha256()
+            for name in sorted(svc.recipes.names()):
+                digest.update(json.dumps(svc.recipes.get(name).to_json(),
+                                         sort_keys=True).encode())
             return dict(
+                recipes_sha256=digest.hexdigest(),
+                fp_estimated_savings=st.fp_estimated_savings,
+                overflow_rerouted=svc.overflow_rerouted,
                 logical_bytes=logical,
                 ingest_s=ingest_s,
                 ingest_mb_s=logical / ingest_s / 1e6,
@@ -1899,9 +1935,10 @@ TRAIN_BATCH = 8
 TRAIN_SEQ = 2048
 #: the restart check: llama3.2-1b's widths, its depth cut to this many
 #: layers (the 128,256 x 2048 embedding stays whole), 4 steps with a
-#: checkpoint every 2; 8 of 16 layers keeps phase 9 under 4 minutes (each
-#: layer adds 0.61 GB of state to each of 4 saves and a restore)
-RESTART_LAYERS = 8
+#: checkpoint every 2; each layer adds 0.61 GB of state to each of 4 saves
+#: and a restore (about 15 s on the card machine's filesystem), so 2 of 16
+#: layers keep the whole script well inside its time limit as it grows
+RESTART_LAYERS = 2
 RESTART_STEPS = 4
 RESTART_EVERY = 2
 #: the restart check's checkpoint chunks: avg 1 MiB (the store's default
@@ -2805,6 +2842,147 @@ def mla_phase(seed: int, kernels) -> dict:
     return dict(latent_per_token=latent, **r)
 
 
+# -- phase 13: distribution on one card ---------------------------------------
+
+#: phase 13's fingerprint records: 8 shards x 2^20 rows, drawn from a pool
+#: of 2^22 distinct fingerprints (more than half the rows repeat one), and
+#: a skewed batch of 8 x 2^16 rows half of which one owner takes
+ROUTE_SHARDS = 8
+ROUTE_ROWS = 1 << 20
+ROUTE_POOL = 1 << 22
+SKEW_ROWS = 1 << 16
+
+
+def route_records(seed: int, rows: int, pool: int, skew: bool):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = ROUTE_SHARDS * rows
+    fps = rng.integers(0, 1 << 32, (pool, 2), dtype=np.uint64)
+    fp = fps[rng.integers(0, pool, n)].astype(np.uint32)
+    if skew:  # half the rows owned by shard 0
+        fp[: n // 2, 0] = fp[: n // 2, 0] // ROUTE_SHARDS * ROUTE_SHARDS
+    lengths = rng.integers(1, 65536, n).astype(np.int32)
+    lengths[::17] = 0  # padding rows
+    return fp, lengths
+
+
+def route_phase(seed: int) -> dict:
+    """(a) ``routed_fp_tables`` and ``distributed_dedup`` over an 8-shard
+    mesh of ``cuda:0`` against the same functions over an 8-shard CPU mesh
+    (tables bit-equal, overflow equal) and against ``dedup_stats``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.dedup.dist_index import (
+        distributed_dedup,
+        routed_fp_tables,
+    )
+    from repro_torch.dedup.index import dedup_stats
+    from repro_torch.launch.mesh import make_host_mesh
+
+    card = make_host_mesh(shards=ROUTE_SHARDS, device="cuda:0")
+    host = make_host_mesh(shards=ROUTE_SHARDS, device="cpu")
+    out = {}
+    for label, rows, skew in (("uniform", ROUTE_ROWS, False),
+                              ("skewed", SKEW_ROWS, True)):
+        fp, ln = route_records(seed + 13, rows, ROUTE_POOL, skew)
+        fp_d = torch.from_numpy(fp.astype(np.int64)).cuda()
+        ln_d = torch.from_numpy(ln).cuda()
+        route = routed_fp_tables(card)
+        tables, overflow = route(fp_d, ln_d)
+        want, want_over = routed_fp_tables(host)(fp, ln)
+        if overflow != want_over:
+            raise AssertionError(f"{label}: overflow {overflow} on the card, "
+                                 f"{want_over} on the CPU")
+        if not np.array_equal(tables.cpu().numpy(), want.numpy()):
+            raise AssertionError(f"{label}: routed tables differ from the "
+                                 f"CPU's")
+        stats = distributed_dedup(card)(fp_d, ln_d)
+        r = dict(records=int(fp.shape[0]), overflow=overflow,
+                 tables_shape=list(tables.shape), stats=stats)
+        if label == "uniform":
+            if overflow:
+                raise AssertionError(f"uniform draw overflowed: {overflow}")
+            ref = {k: int(v) for k, v in dedup_stats(fp_d, ln_d).items()}
+            if {k: stats[k] for k in ref} != ref:
+                raise AssertionError(f"distributed_dedup {stats} != "
+                                     f"dedup_stats {ref}")
+            r["routed_ms"] = cuda_ms(lambda: route(fp_d, ln_d), reps=5)
+            dd = distributed_dedup(card)
+            r["dedup_ms"] = cuda_ms(lambda: dd(fp_d, ln_d), reps=5)
+            r["stats_ms"] = cuda_ms(lambda: dedup_stats(fp_d, ln_d), reps=5)
+        elif overflow == 0:
+            raise AssertionError("the skewed draw did not overflow")
+        out[label] = r
+        del tables, fp_d, ln_d
+    torch.cuda.empty_cache()
+    return out
+
+
+def prefill_count_phase(seed: int) -> dict:
+    """(c) the op counter on llama3.2-1b's 4,096-token prefill at full
+    width (bf16, random weights): the FLOPs and bytes of the aten ops it
+    sees, plus the flash kernel's, which runs outside aten (its FLOPs from
+    the pairs its causal mask keeps, its bytes q, k, v and the output once),
+    and the H100 bound of the sum."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn
+    from repro_torch.models import lm
+    from repro_torch.roofline import CostCounter, constants
+
+    cfg = get_config("llama3.2-1b")
+    params = lm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(seed))
+    tokens = torch.randint(0, cfg.vocab_size, (1, 4096), device="cuda",
+                           generator=torch.Generator(
+                               device="cuda").manual_seed(seed + 5))
+    flash_attn.KERNEL.launches = 0
+    counter = CostCounter()
+    with torch.no_grad(), counter:
+        lm.prefill_step(cfg, params, {"tokens": tokens},
+                        cache_len=SERVE_CACHE)
+    torch.cuda.synchronize()
+    flash_n = flash_attn.KERNEL.launches
+    if flash_n != cfg.n_layers:
+        raise AssertionError(f"flash launched {flash_n} times in the counted "
+                             f"prefill, not {cfg.n_layers}")
+    H, hd, KV = cfg.n_heads, cfg.head_dim, cfg.n_kv_heads
+    pairs = flash_pairs(4096, True, 0)
+    flash_flops = cfg.n_layers * 4 * H * hd * pairs
+    flash_bytes = cfg.n_layers * 2 * 4096 * hd * (2 * H + 2 * KV)
+    flops = counter.flops + flash_flops
+    nbytes = counter.bytes + flash_bytes
+    del params
+    torch.cuda.empty_cache()
+    return dict(
+        aten_flops=counter.flops, aten_bytes=counter.bytes,
+        flash_flops=flash_flops, flash_bytes=flash_bytes,
+        flops=flops, bytes=nbytes, ops=sum(counter.ops.values()),
+        bound_ms=max(flops / constants.PEAK_FLOPS_BF16,
+                     nbytes / constants.HBM_BW) * 1e3,
+        compute_ms=flops / constants.PEAK_FLOPS_BF16 * 1e3,
+        memory_ms=nbytes / constants.HBM_BW * 1e3,
+        top=counter.flops_by_op.most_common(4),
+    )
+
+
+def dryrun_cell_phase() -> dict:
+    """(d) one published-size dry-run cell: llama3.2-1b x decode_32k on
+    the single-pod (16, 16) mesh, on the fake backend (no card)."""
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import make_production_mesh
+
+    rec = run_cell("llama3.2-1b", "decode_32k", make_production_mesh(),
+                   "pod16x16")
+    if rec["status"] != "ok":
+        raise AssertionError(f"dry-run cell: {rec['status']}: "
+                             f"{rec.get('error')}")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3251,13 +3429,71 @@ def main(argv=None) -> int:
         f"kernel launched (MLA takes no flash route)")
     log(f"phase 12: {time.perf_counter() - t12:.1f} s")
 
+    # 13. distribution on one card
+    t13 = time.perf_counter()
+    from repro_torch.roofline import constants as roofline_constants
+
+    log(f"distribution: {card}: total_memory "
+        f"{torch.cuda.get_device_properties(0).total_memory} bytes (the "
+        f"roofline's CHIP_HBM_BYTES {roofline_constants.CHIP_HBM_BYTES})")
+    rt = route_phase(args.seed)
+    u, k = rt["uniform"], rt["skewed"]
+    log(f"distribution (a): routed_fp_tables over {ROUTE_SHARDS} shards of "
+        f"cuda:0, {u['records']} records (tables {u['tables_shape']}): "
+        f"bit-equal to the CPU mesh's, overflow 0, {u['routed_ms']:.3f} ms; "
+        f"distributed_dedup {u['dedup_ms']:.3f} ms, stats {u['stats']} equal "
+        f"to dedup_stats ({u['stats_ms']:.3f} ms); skewed batch of "
+        f"{k['records']} records: overflow {k['overflow']} on the card and "
+        f"the CPU, tables bit-equal")
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh_sh = sharded_phase(p, args.seed, KERNELS,
+                            mesh=make_host_mesh(shards=SHARDS), verify=False)
+    for key in ("recipes_sha256", "stored_bytes", "fp_estimated_savings",
+                "shard_stored_bytes"):
+        if mesh_sh[key] != sh[key]:
+            raise AssertionError(f"mesh= ingest {key} {mesh_sh[key]!r} != the "
+                                 f"host route's {sh[key]!r}")
+    if mesh_sh["launches"][fused_pipeline.KERNEL.name] == 0:
+        raise AssertionError("the mesh= ingest never launched the fused "
+                             "pipeline kernel")
+    log(f"distribution (b): phase 5's tree through ShardedDedupService("
+        f"mesh=make_host_mesh(shards={SHARDS})): recipes sha256 "
+        f"{mesh_sh['recipes_sha256'][:16]}, stored {mesh_sh['stored_bytes']} "
+        f"bytes, fp_estimated_savings {mesh_sh['fp_estimated_savings']!r}, "
+        f"all equal to the host route's; overflow_rerouted "
+        f"{mesh_sh['overflow_rerouted']}; ingest {mesh_sh['ingest_mb_s']:.2f} "
+        f"MB/s against phase 5's {sh['ingest_mb_s']:.2f} MB/s; launches "
+        f"{mesh_sh['launches']}")
+    pc = prefill_count_phase(args.seed)
+    pre = sv["prefill_ms"][4096]
+    log(f"distribution (c): op counter on llama3.2-1b's 4,096-token prefill "
+        f"at full width: {pc['flops']:.4e} FLOPs ({pc['aten_flops']:.4e} in "
+        f"{pc['ops']} aten ops, {pc['flash_flops']:.4e} in the flash "
+        f"kernel), {pc['bytes']:.4e} bytes (unfused: each op's operands and "
+        f"outputs), H100 bound {pc['bound_ms']:.3f} ms (compute "
+        f"{pc['compute_ms']:.3f}, memory {pc['memory_ms']:.3f}) against "
+        f"phase 7's prefill of 4,096 tokens " + "/".join(
+            f"{t:.2f}" for t in pre) + " ms; largest: " + ", ".join(
+            f"{n} {f:.3e}" for n, f in pc["top"]))
+    dr = dryrun_cell_phase()
+    log(f"distribution (d): dry-run cell llama3.2-1b x decode_32k "
+        f"pod16x16: {dr['status']} in {dr['elapsed_s']} s, "
+        f"flops/dev {dr['flops_per_device']:.4e}, bytes/dev "
+        f"{dr['bytes_per_device']:.4e}, collective bytes/dev "
+        f"{dr['collective_bytes_per_device']:.4e}, t_compute "
+        f"{dr['t_compute']:.4e} s, t_memory {dr['t_memory']:.4e} s, "
+        f"t_collective {dr['t_collective']:.4e} s, bottleneck "
+        f"{dr['bottleneck']}, fallbacks {dr['fallbacks']}")
+    log(f"phase 13: {time.perf_counter() - t13:.1f} s")
+
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith(("jax.", "repro."))
               or m == "repro"]
     if leaked:
         raise AssertionError(f"the port imported {leaked[:5]}")
 
-    # 13. the kernels line and the result
+    # 14. the kernels line and the result
     row_of = {
         packed_pipeline.KERNEL: ("16KiBx8 packed all-tiny",
                                  packed["all-tiny"]),
@@ -3323,7 +3559,8 @@ def main(argv=None) -> int:
                     + tr["train_launches"][k.name]
                     + sum(r["launches"][k.name] for r in rec.values())
                     + sum(r["launches"][k.name] for r in fam.values())
-                    + ds["launches"][k.name])
+                    + ds["launches"][k.name]
+                    + mesh_sh["launches"][k.name])
         if launches == 0:
             raise AssertionError(f"kernel {k.name} never launched")
         rows.append(dict(
@@ -3342,7 +3579,10 @@ def main(argv=None) -> int:
             json.dump(dict(card=card, build_s=build_s, kernels=measured,
                            service=svc, sharded=sh, registry=rg,
                            serving=sv, scenarios=sc, training=tr,
-                           recurrent=rec, family=fam, mla=ds), f,
+                           recurrent=rec, family=fam, mla=ds,
+                           distribution=dict(route=rt, mesh_ingest=mesh_sh,
+                                             prefill_count=pc, dryrun=dr)),
+                      f,
                       indent=1, default=float)
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,9 @@ Durability contract (the reference's):
 
 Manifests record logical leaf paths, shapes and dtypes, never a device,
 so :meth:`CheckpointManager.restore_on_device` places a checkpoint on any
-device (the reference's ``restore_sharded`` places it on a mesh).
+device and :meth:`CheckpointManager.restore_sharded` on any mesh: every
+leaf becomes a DTensor with the placements asked for, whatever mesh saved
+it (elastic restore).
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ from typing import Any, Dict, Iterator, Tuple
 import numpy as np
 import torch
 
-from repro_torch._tree import is_namedtuple, tree_map, unflatten
+from repro_torch._tree import is_namedtuple, leaves, tree_map, unflatten
 from repro_torch.core.chunker import make_chunker
 from repro_torch.dedup.store import DirBlockStore
 
@@ -230,6 +232,34 @@ class CheckpointManager:
             return None, None, None
         placed = {name: tree_map(lambda t: t.to(device), tree)
                   for name, tree in out.items()}
+        return step, placed, extra
+
+    def restore_sharded(self, tree_like, placements_tree, mesh,
+                        step: int | None = None):
+        """Elastic restore: every leaf placed as a DTensor.
+
+        ``placements_tree`` maps each tree's name to a tree of placements
+        mirroring ``tree_like[name]`` (``ShardingRules.sharding_tree``) for
+        ``mesh`` (a ``DeviceMesh``, or a ``launch.mesh.Mesh`` once a
+        process group is up), which need not be the mesh that saved the
+        checkpoint.  Each rank keeps its own shard of the leaf it read, so
+        the placement moves no data between ranks.
+        """
+        from torch.distributed.tensor import distribute_tensor
+
+        from repro_torch.distributed.sharding import placement_leaves
+
+        dm = mesh.to_device_mesh() if hasattr(mesh, "to_device_mesh") else mesh
+        step, out, extra = self.restore(step, tree_like)
+        if step is None:
+            return None, None, None
+        placed = {}
+        for name, tree in out.items():
+            vals = [distribute_tensor(t.to(dm.device_type), dm, list(p),
+                                      src_data_rank=None)
+                    for t, p in zip(leaves(tree),
+                                    placement_leaves(placements_tree[name]))]
+            placed[name] = unflatten(tree, vals)
         return step, placed, extra
 
     # -- accounting ------------------------------------------------------------

@@ -7,10 +7,11 @@ cores and the decode core are plain torch, as the reference leaves them to
 XLA; prompts longer than ``cfg.attn_kv_block`` take :func:`_flash_attention`,
 which is the hand-written CUDA kernel on a CUDA tensor
 (``kernels/flash_attn.py``) and its plain block loop on a CPU tensor.
-The reference's ``constrain`` sharding hints are dropped (without a mesh
-they are no-ops), and so are its ``tp_head_pad`` heads: zeros appended to
-the activations and sliced off after the context, they change no real
-head's result.
+The reference's ``constrain`` sharding hints stand where it has them
+(``distributed/sharding.py``: under ``use_rules`` they redistribute a
+DTensor activation, elsewhere they return their input).  Its
+``tp_head_pad`` heads are dropped: zeros appended to the activations and
+sliced off after the context, they change no real head's result.
 
 KV cache layout: ``(B, S_max, n_kv, head_dim)`` per layer; local-window
 configurations keep a rolling cache of ``window`` entries instead.  Unlike
@@ -25,6 +26,7 @@ from typing import Dict, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import constrain, heads_local
 from ..kernels import flash_attn
 from .layers import PT, apply_rope, rmsnorm
 
@@ -78,6 +80,9 @@ def _scores_softmax_ctx(q, k, v, mask, scale):
     if KV != H:
         k = k.repeat_interleave(H // KV, dim=2)
         v = v.repeat_interleave(H // KV, dim=2)
+    q = constrain(q, "batch", None, "heads_act", None)
+    k = constrain(k, "batch", None, "heads_act", None)
+    v = constrain(v, "batch", None, "heads_act", None)
     s = torch.einsum("bqhd,bshd->bhqs", q, k).to(torch.float32) * scale
     s = s + _bias(mask[:, None, :, :])
     w = torch.softmax(s, dim=-1).to(v.dtype)
@@ -111,9 +116,18 @@ def _flash_attention(q, k, v, cfg, scale, *, window: int = 0):
     qb = min(cfg.attn_q_block, S)
     kvb = min(cfg.attn_kv_block or S, S)
     assert S % qb == 0 and S % kvb == 0, (S, qb, kvb)
-    return flash_attn.flash_attention(q, k, v, scale=scale, causal=True,
-                                      window=window, q_block=qb,
-                                      kv_block=kvb)
+    q = constrain(q, "batch", None, "heads_act", None)
+    k = constrain(k, "batch", None, "heads_act", None)
+    v = constrain(v, "batch", None, "heads_act", None)
+
+    def flash(q, k, v):
+        return flash_attn.flash_attention(q, k, v, scale=scale, causal=True,
+                                          window=window, q_block=qb,
+                                          kv_block=kvb)
+
+    # sharded (DTensor) activations: each rank runs the kernel on its heads
+    out = heads_local(flash, q, k, v)
+    return flash(q, k, v) if out is None else out
 
 
 def causal_attention(q, k, v, cfg, *, window: int = 0):
@@ -220,6 +234,10 @@ def decode_attention(p, x, cfg, cache: KVCache, pos, *, window: int = 0):
     rows = torch.arange(B, device=x.device)
     cache.k[rows, slot] = k[:, 0].to(cache.k.dtype)
     cache.v[rows, slot] = v[:, 0].to(cache.v.dtype)
+    # decode shards the cache's *sequence* dim (seq_kv -> model): the KV
+    # cache is decode's working set and is not replicated over model
+    ck = constrain(cache.k, "batch", "seq_kv", "kv_heads", "head_dim")
+    cv = constrain(cache.v, "batch", "seq_kv", "kv_heads", "head_dim")
 
     scale = 1.0 / (cfg.head_dim**0.5)
     idx = torch.arange(S_c, device=x.device)
@@ -228,6 +246,6 @@ def decode_attention(p, x, cfg, cache: KVCache, pos, *, window: int = 0):
         valid = (idx[None, :] <= slot[:, None]) | (pos[:, None] >= S_c)
     else:
         valid = idx[None, :] <= pos[:, None]
-    ctx = _decode_ctx(q, cache.k, cache.v, valid[:, None, :], scale)
+    ctx = _decode_ctx(q, ck, cv, valid[:, None, :], scale)
     out = torch.einsum("bshk,hkd->bsd", ctx, p["wo"])
     return out, cache

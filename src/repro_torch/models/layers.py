@@ -38,13 +38,17 @@ class PT:
 
 
 def template_map(fn: Callable, template):
-    """Map over the PT leaves of a template tree (dicts, lists, tuples)."""
+    """Map over the PT leaves of a template tree (dicts, lists, tuples and
+    NamedTuples)."""
     if isinstance(template, PT):
         return fn(template)
     if isinstance(template, dict):
         return {k: template_map(fn, v) for k, v in template.items()}
     if isinstance(template, (list, tuple)):
-        return type(template)(template_map(fn, v) for v in template)
+        out = [template_map(fn, v) for v in template]
+        if hasattr(template, "_fields"):  # a NamedTuple
+            return type(template)(*out)
+        return type(template)(out)
     raise TypeError(f"not a template node: {type(template)}")
 
 

@@ -25,6 +25,7 @@ from typing import Any, Dict
 
 import torch
 
+from ..distributed.sharding import constrain, gather_fsdp
 from . import transformer as tfm
 from .layers import PT, embed_template, init_tree, norm_template, rmsnorm, unembed_apply
 
@@ -67,18 +68,22 @@ def embed_inputs(cfg, params: Params, batch: Dict[str, torch.Tensor]):
     """(B, S, D) input activations from the arch's input mode."""
     dt = compute_dtype(cfg)
     if cfg.input_mode == "tokens":
-        return params["embed"][batch["tokens"]].to(dt)
-    if cfg.input_mode == "embeddings":
-        return batch["embeds"].to(dt)
-    if cfg.input_mode == "mixed":
+        x = params["embed"][batch["tokens"]].to(dt)
+    elif cfg.input_mode == "embeddings":
+        x = batch["embeds"].to(dt)
+    elif cfg.input_mode == "mixed":
         xt = params["embed"][batch["tokens"]].to(dt)
-        return torch.cat([batch["embeds"].to(dt), xt], dim=1)
-    raise ValueError(cfg.input_mode)
+        x = torch.cat([batch["embeds"].to(dt), xt], dim=1)
+    else:
+        raise ValueError(cfg.input_mode)
+    # (batch, seq, -): the activations do not take the table's sharding
+    return constrain(x, "batch", "seq", None)
 
 
 def _head(cfg, params: Params, x: torch.Tensor) -> torch.Tensor:
     x = rmsnorm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
-    return unembed_apply(params, x, cfg)
+    # the (B, S, V) logits are the largest activation: vocab on model
+    return constrain(unembed_apply(params, x, cfg), "batch", "seq", "vocab")
 
 
 def _positions(x: torch.Tensor) -> torch.Tensor:
@@ -88,6 +93,7 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
 
 def forward(cfg, params: Params, batch: Dict[str, torch.Tensor]):
     """Full-sequence logits (B, S, V)."""
+    params = gather_fsdp(cfg, params)  # sharded runs only
     x = embed_inputs(cfg, params, batch)
     x, _, _ = tfm.forward_stack(cfg, params["segments"], x, _positions(x))
     return _head(cfg, params, x)
@@ -99,6 +105,7 @@ def loss_and_metrics(cfg, params: Params, batch: Dict[str, torch.Tensor]):
     ``batch["labels"]`` is (B, S) int with -1 = masked (padding, image
     positions).  Returns (loss, metrics dict), 0-d float32 tensors.
     """
+    params = gather_fsdp(cfg, params)  # sharded runs only
     x = embed_inputs(cfg, params, batch)
     x, _, aux = tfm.forward_stack(cfg, params["segments"], x, _positions(x))
     logits = _head(cfg, params, x)
@@ -135,6 +142,7 @@ def prefill_step(cfg, params: Params, batch: Dict[str, torch.Tensor],
     """Process the prompt; returns (last-token logits (B, V), caches).
 
     Only the final position's logits are computed."""
+    params = gather_fsdp(cfg, params)  # sharded runs only
     x = embed_inputs(cfg, params, batch)
     x, caches = tfm.prefill_stack(cfg, params["segments"], x, _positions(x),
                                   cache_len)
@@ -149,6 +157,7 @@ def decode_step(cfg, params: Params, caches, tokens: torch.Tensor, pos):
     in place.  In the ``embeddings`` mode the generated codec ids are
     embedded with the output head's transpose (the frontend stub has no
     encoder at decode time)."""
+    params = gather_fsdp(cfg, params)  # sharded runs only
     if cfg.input_mode in ("tokens", "mixed") or cfg.tie_embeddings:
         w = params["embed"]
     else:

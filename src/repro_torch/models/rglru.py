@@ -17,6 +17,7 @@ from typing import Dict, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import batch_local
 from ..kernels.linear_scan import linear_scan
 from .layers import PT
 
@@ -82,7 +83,8 @@ def rglru_scan(p, u, h0):
     the last h in float32).  h0 enters folded into the first input term,
     as the reference folds it."""
     a, b = _lru_coeffs(p, u)
-    hh, h_last = linear_scan(a, b, h0)
+    res = batch_local(linear_scan, (a, b, h0))  # sharded: a rank's rows
+    hh, h_last = linear_scan(a, b, h0) if res is None else res
     return hh.to(u.dtype), h_last
 
 

@@ -28,6 +28,7 @@ from typing import Dict, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import batch_local
 from ..kernels.mlstm_scan import mlstm_scan
 from ..kernels.slstm_scan import SLSTMState, slstm_scan, slstm_step
 from .layers import PT, rmsnorm
@@ -117,8 +118,10 @@ def mlstm_chunkwise(p, xu, cfg, state: MLSTMState | None = None):
     kv_sum = torch.einsum("bclhd,bclhe->bchde", wk, v)
     k_sum = wk.sum(dim=2)
     C0, n0, m0 = (t.to(f32) for t in state)
-    C_start, n_start, m_start, C1, n1, m1 = mlstm_scan(
-        btot, mc, kv_sum, k_sum, C0, n0, m0)
+    ins = (btot, mc, kv_sum, k_sum, C0, n0, m0)
+    res = batch_local(mlstm_scan, ins)  # sharded runs: a rank's own rows
+    C_start, n_start, m_start, C1, n1, m1 = (mlstm_scan(*ins) if res is None
+                                             else res)
 
     # in-chunk weights D[j, l] = b_j - b_l + a_l (l <= j)
     tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=xu.device))
@@ -224,6 +227,10 @@ def slstm_block(p, x, cfg, *, state=None, decode=False):
         st = slstm_step(xg[:, 0], r, SLSTMState(*state))
         out = st.h[:, None, :]
     else:
-        out, st = slstm_scan(xg, r, state)
+        # sharded runs: each rank scans its own batch rows
+        res = batch_local(lambda xg, *st: slstm_scan(xg, st[-1],
+                                                     SLSTMState(*st[:-1])),
+                          (xg, *state), (r,))
+        out, st = slstm_scan(xg, r, state) if res is None else res
     out = rmsnorm(out.to(x.dtype), p["out_norm"], cfg.norm_eps)
     return out, st

@@ -24,6 +24,7 @@ from typing import Any, Dict, List, Tuple
 import torch
 from torch.utils import checkpoint as torch_checkpoint
 
+from ..distributed.sharding import constrain
 from . import attention as attn_mod
 from . import mla as mla_mod
 from . import moe as moe_mod
@@ -183,6 +184,9 @@ def _ffn(kind: str, cfg, p, x):
 def block_forward(kind: str, cfg, p, x, positions, state=None):
     """Full-sequence pass.  Returns (x, new_state_or_None, aux): aux is the
     MoE's load-balance loss, 0 for the other kinds."""
+    # anchor the residual stream once a block: batch on (pod, data),
+    # d_model replicated
+    x = constrain(x, "batch", "seq", None)
     if kind in ATTENTION_KINDS:
         win = cfg.window_size if kind == "attn" else 0
         h = attn_mod.attention(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps),
@@ -375,4 +379,61 @@ def init_stack_states(cfg, batch: int, cache_len: int, dtype,
         one = init_block_cache(kind, cfg, batch, cache_len, dtype, device)
         out.append(type(one)(*(torch.stack([a] * n) for a in one))
                    if n > 1 else one)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# cache templates (shapes + logical sharding axes, for the dry run)
+# ---------------------------------------------------------------------------
+
+
+def cache_template(kind: str, cfg, batch: int, cache_len: int):
+    """PT template mirroring :func:`init_block_cache` (the same tree), with
+    logical axes on every leaf so ``distributed.sharding`` derives decode
+    inputs' specs as it does parameters'."""
+    from .layers import PT
+
+    B = batch
+    if kind in ("dense", "moe", "attn"):
+        S = cache_len
+        if kind == "attn":
+            S = min(cfg.window_size, cache_len) or cache_len
+        kv, hd = cfg.n_kv_heads, cfg.head_dim
+        leaf = PT((B, S, kv, hd), ("batch", "seq_kv", "kv_heads", "head_dim"),
+                  "zeros")
+        return attn_mod.KVCache(leaf, leaf)
+    if kind in MLA_KINDS:
+        return mla_mod.MLACache(
+            PT((B, cache_len, cfg.kv_lora_rank), ("batch", "seq_kv", None),
+               "zeros"),
+            PT((B, cache_len, cfg.qk_rope_dim), ("batch", "seq_kv", None),
+               "zeros"),
+        )
+    if kind == "mlstm":
+        du = int(cfg.d_model * cfg.mlstm_proj_factor)
+        hd = du // cfg.n_heads
+        return ssm_mod.MLSTMState(
+            PT((B, cfg.n_heads, hd, hd), ("batch", "heads", None, None),
+               "zeros"),
+            PT((B, cfg.n_heads, hd), ("batch", "heads", None), "zeros"),
+            PT((B, cfg.n_heads), ("batch", "heads"), "zeros"),
+        )
+    if kind == "slstm":
+        leaf = PT((B, cfg.d_model), ("batch", None), "zeros")
+        return ssm_mod.SLSTMState(leaf, leaf, leaf, leaf)
+    if kind == "rglru":
+        return rglru_mod.RGLRUState(
+            PT((B, cfg.lru_width), ("batch", "lru"), "zeros"),
+            PT((B, cfg.conv_width - 1, cfg.lru_width), ("batch", None, "lru"),
+               "zeros"),
+        )
+    raise _unported(kind)
+
+
+def stack_cache_template(cfg, batch: int, cache_len: int):
+    """Cache templates parallel to :func:`init_stack_states`' structure."""
+    out = []
+    for kind, n, _ in stack_templates(cfg):
+        one = cache_template(kind, cfg, batch, cache_len)
+        out.append(stack_template(one, n) if n > 1 else one)
     return out

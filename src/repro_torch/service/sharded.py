@@ -23,10 +23,15 @@ embarrassingly parallel:
 **Routing.**  ``owner_of`` (fp.h1 mod N) is the single partition rule; equal
 chunks have equal fingerprints, land on the same owner, and dedup there —
 owner-local dedup is therefore globally exact, and an N-shard service stores
-byte-for-byte the same unique chunks as the 1-shard service.
-:func:`~repro_torch.dedup.dist_index.route_host` routes on the host.  The
-reference's other route, fingerprint records over a device mesh's
-``all_to_all`` (``mesh=``), is not ported yet: passing a mesh raises.
+byte-for-byte the same unique chunks as the 1-shard service.  When a
+:class:`~repro_torch.launch.mesh.Mesh` whose ``mesh_axis`` has N positions
+is supplied (``make_host_mesh(shards=N)``: N logical shards of one card),
+per-flush fingerprint records travel the capacity-padded ``all_to_all``
+(:func:`~repro_torch.dedup.dist_index.routed_fp_tables`) into per-owner
+tables; a batch that overflows the buckets is re-routed on the host
+(counted in ``overflow_rerouted``, never dropped — see docs/SHARDING.md).
+Without a mesh, :func:`~repro_torch.dedup.dist_index.route_host` routes on
+the host.  Both derive from the same ``owner_of``.
 
 **Async flush.**  Store writes run on per-shard writer threads behind a
 bounded queue (``max_pending`` chunks of backpressure), so SHA-256 hashing
@@ -63,7 +68,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.params import SeqCDCParams, derived_params
-from repro_torch.dedup.dist_index import route_host
+from repro_torch.dedup.dist_index import route_host, routed_fp_tables
 from repro_torch.dedup.index import FingerprintIndex
 from repro_torch.dedup.store import (
     BlockCorruptionError,
@@ -119,16 +124,11 @@ class ShardedDedupService(ServiceBase):
         async_flush: bool = True,
         max_pending: int = 256,
         mesh=None,
+        mesh_axis: str = "data",
+        capacity_factor: float = 1.5,
         transport: str = "local",
         codec: Optional[str] = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (fingerprint records over a device mesh's "
-                "all_to_all) is not ported yet (ROADMAP.md, 'Modules to "
-                "port', item 4: launch, distribution, analysis); the host "
-                "route serves every shard count"
-            )
         if stores is not None and len(stores) != num_shards:
             raise ValueError(f"{len(stores)} stores for {num_shards} shards")
         if transport not in TRANSPORTS:
@@ -182,6 +182,26 @@ class ShardedDedupService(ServiceBase):
             cross_check_packing=cross_check_packing,
         )
         self.device = self.scheduler.device
+        # validate the mesh before anything spawns threads: a constructor
+        # that raises must not leak per-shard writer workers
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        if mesh is not None:
+            if mesh_axis not in mesh.shape:
+                raise ValueError(
+                    f"mesh has no axis {mesh_axis!r} (axes: "
+                    f"{list(mesh.shape)}); pass mesh_axis=<name>"
+                )
+            if mesh.shape[mesh_axis] != self.num_shards:
+                raise ValueError(
+                    f"mesh axis {mesh_axis!r} has {mesh.shape[mesh_axis]} "
+                    f"devices but the service has {self.num_shards} shards; "
+                    f"the all_to_all route needs one device per owner shard"
+                )
+        self._routed_fn = (
+            routed_fp_tables(mesh, mesh_axis, capacity_factor=capacity_factor)
+            if mesh is not None else None
+        )
         self.async_flush = bool(async_flush)
         self.writers = WriterPool(
             self.num_shards, max_pending if self.async_flush else 0,
@@ -192,6 +212,9 @@ class ShardedDedupService(ServiceBase):
         self.fp_index: List[FingerprintIndex] = [
             FingerprintIndex() for _ in range(self.num_shards)
         ]
+        #: fp records that overflowed the mesh all_to_all capacity and were
+        #: re-routed on the host (never dropped; docs/SHARDING.md)
+        self.overflow_rerouted = 0
         self._in_flight: set[str] = set()  # names submitted, not yet flushed
 
     @classmethod
@@ -418,12 +441,14 @@ class ShardedDedupService(ServiceBase):
 
     # -- fingerprint-estimator ingestion ---------------------------------------
     def _ingest_fps(self, results: List[ChunkResult]):
-        """Feed owner-local fp indexes, routed on the host."""
+        """Feed owner-local fp indexes, via the mesh all_to_all when present."""
         live = [r for r in results if r.fps.size]
         if not live:
             return
         fps = np.concatenate([r.fps for r in live])
         lengths = np.concatenate([r.lengths for r in live]).astype(np.int32)
+        if self._routed_fn is not None and self._mesh_ingest(fps, lengths):
+            return
         owners = route_host(fps, self.num_shards)
         for s in range(self.num_shards):
             m = owners == s
@@ -435,6 +460,45 @@ class ShardedDedupService(ServiceBase):
                 # store.dedup_hit_chunks
                 self.obs.inc("ingest.fp_dup_chunks",
                              int(len(new) - np.count_nonzero(new)))
+
+    def _mesh_ingest(self, fps: np.ndarray, lengths: np.ndarray) -> bool:
+        """Route fp records through the all_to_all path into owner tables.
+
+        Returns False (the caller re-routes with :func:`route_host`) when
+        the capacity-padded buckets overflowed: the overflow is counted in
+        ``overflow_rerouted`` and the whole batch is re-routed on the host
+        so no record is lost (the contract in docs/SHARDING.md).
+        """
+        ns = self.mesh.shape[self.mesh_axis]
+        rows = len(lengths)
+        # pad to ns * next-power-of-two rows a shard, as the reference does
+        # (it bounds its compile cache so); zero-length rows go nowhere
+        per_shard = max(1, -(-rows // ns))
+        target = ns * (1 << (per_shard - 1).bit_length())
+        pad = target - rows
+        if pad:
+            fps = np.concatenate([fps, np.zeros((pad, 2), dtype=fps.dtype)])
+            lengths = np.concatenate([lengths,
+                                      np.zeros(pad, dtype=lengths.dtype)])
+        with span("service.mesh_route", rows=rows, shards=ns):
+            tables, overflow = self._routed_fn(fps, lengths)
+        if overflow > 0:
+            self.overflow_rerouted += overflow
+            self.obs.inc("ingest.mesh_overflow_rerouted", overflow)
+            return False
+        if not isinstance(tables, tuple):  # one tensor: one copy to host
+            tables = tables.cpu()
+        for s in range(self.num_shards):
+            flat = tables[s].cpu().numpy().reshape(-1, 3)  # (src*cap, 3)
+            valid = flat[:, 2] > 0
+            if valid.any():
+                new = self.fp_index[s].add_batch(
+                    flat[valid, :2].astype(np.uint32),
+                    flat[valid, 2].astype(np.int64),
+                )
+                self.obs.inc("ingest.fp_dup_chunks",
+                             int(len(new) - np.count_nonzero(new)))
+        return True
 
     # -- serve ------------------------------------------------------------------
     def get(self, name: str) -> bytes:

@@ -277,6 +277,25 @@ def test_port_imports_no_jax_and_no_repro():
         "w = {'w': torch.ones(64, 64)}\n"
         "ck.save(1, {'params': w, 'opt': opt_init(OptConfig(), w)})\n"
         "assert ck.restore(tree_like={'params': w})[0] == 1\n"
+        "from repro_torch.launch.mesh import make_host_mesh\n"
+        "mesh = make_host_mesh(shards=2, device='cpu')\n"
+        "with ShardedDedupService(2, params=p, device='cpu', "
+        "min_bucket=1024, mesh=mesh) as sh:\n"
+        "    sh.submit('a', d)\n"
+        "    sh.flush()\n"
+        "    assert sh.get('a') == d.tobytes()\n"
+        "from repro_torch.dedup.dist_index import distributed_dedup\n"
+        "fp = np.arange(64, dtype=np.uint32).reshape(32, 2) % 5\n"
+        "st = distributed_dedup(mesh)(fp, np.ones(32, np.int32))\n"
+        "assert st['total_chunks'] == 32, st\n"
+        "from repro_torch.distributed import ShardingRules, rules_for_config\n"
+        "from repro_torch.launch import specs\n"
+        "from repro_torch.launch.mesh import make_production_mesh\n"
+        "m = make_production_mesh()\n"
+        "r = ShardingRules(m, rules_for_config(m, c))\n"
+        "r.pspec_tree(specs.params_template(c))\n"
+        "from repro_torch.launch import dryrun\n"
+        "from repro_torch.roofline import CostCounter, analyze, constants\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
         "m.startswith('repro.')]\n"

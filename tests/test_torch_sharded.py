@@ -143,8 +143,18 @@ def test_dist_index_host_half_matches_reference(num_shards):
 
 
 def test_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ShardedDedupService(2, params=TP, device="cpu", mesh=object())
+    """``mesh=`` no longer raises: it takes the ``all_to_all`` route (held
+    against the reference in test_torch_distributed.py), and a mesh whose
+    axis does not match the service is refused by name."""
+    from repro_torch.launch.mesh import Mesh, make_host_mesh
+
+    with pytest.raises(ValueError, match="no axis 'data'"):
+        ShardedDedupService(2, params=TP, device="cpu",
+                            mesh=Mesh({"x": 2}, ["cpu"] * 2))
+    svc = ShardedDedupService(2, params=TP, device="cpu",
+                              mesh=make_host_mesh(shards=2, device="cpu"))
+    assert svc.overflow_rerouted == 0
+    svc.close()
 
 
 @pytest.mark.timeout(240)

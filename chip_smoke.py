@@ -43,7 +43,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It drives only
    RG-LRU's linear scan at 1 x 4,096 and 1 x 32,768 x 2,560 from a
    non-zero h0, the mLSTM's chunk carry over 16 and 128 chunks of 4 heads
    of 384, the sLSTM's recurrence over 4,096 and 32,768 steps at D 768
-   (bfloat16); and the count of tensor-core instructions
+   (bfloat16); their backward kernels at the shapes phase 14 launches
+   them, with kernel, plain and bound times: the linear scan's at 1 x
+   4,096 x 2,560 (a recurrentgemma-2b microbatch) and the mLSTM's over 8
+   rows of 8 chunks of 4 heads of 384, each within its stated tolerance of
+   its plain backward, and the sLSTM's over 8 rows of 2,048 steps at D 768
+   (bfloat16), its gradients held to float64 autograd of the plain loop by
+   ``ACCURACY``; and the count of tensor-core instructions
    (``HMMA``/``HGMMA``) in the built flash library's bfloat16 and float32
    kernels, from ``cuobjdump -sass``; the fused kernel also on two
    adversarial 1 MiB x 8 batches (constant bytes, where only max-size cuts
@@ -126,9 +132,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It drives only
    (or near-ties within twice the routes' difference);
 11. the rest of the dense family, the embedding input modes and MoE at
    their published width, random bfloat16 weights from the seed, each
-   model freed before the next: ``granite-8b``, ``phi3-medium-14b``,
-   ``qwen2-72b`` (its depth cut to the deepest that fits beside the
-   cache: 145 GB whole) and ``qwen3-moe-30b-a3b`` (128 experts, top 8)
+   model freed before the next: ``granite-8b`` (18 of 36 layers),
+   ``phi3-medium-14b`` (20 of 40), ``qwen2-72b`` (10 of 80: 38 fit beside
+   the cache, 145 GB whole) and ``qwen3-moe-30b-a3b`` (128 experts, top
+   8; 12 of 48), their depth cut for the script's time
+   (``FAMILY_DEPTH_CAP``)
    through ``Engine`` with 4 slots and a 4,160-token cache, 4 requests of
    4096, 2048, 1024 and 37 prompt tokens, 16 new each, with the device's
    busy share over the decode-only steps and, for the MoE, the pairs each
@@ -165,7 +173,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It drives only
    at full width: FLOPs, bytes and the H100 bound beside phase 7's
    prefill ms; (d) one published-size dry-run cell (llama3.2-1b x
    decode_32k on the (16, 16) mesh, fake backend): status ``ok``;
-14. the ``kernels`` JSON line, then the result line.
+14. the recurrent families trained at their published width:
+   ``Trainer``, random bf16 weights from the seed, AdamW, 4 steps of
+   ``xlstm-125m`` at 8 x 2,048 tokens (remat ``dots``) and
+   ``recurrentgemma-2b`` at 8 x 4,096 (remat ``full``, 8 microbatches,
+   the 2,048 window sliding), each model freed before the next (depth cut
+   only where training does not fit the card): step ms, tokens/s, peak
+   GB, loss and grad norm a step (finite), every scan kernel's forward and
+   backward launches equal to what the model makes (layers of the kind x
+   microbatches, the forward again under remat), one more step traced by
+   kernel group (matmul, flash, scan forward, scan backward, other); then
+   the gradient gate: one pattern period (3 and 6 layers) at full width in
+   float32 on one row of 2,304 tokens, the card's gradient (the kernels)
+   against the CPU's (the plain versions) leaf by leaf, the worst leaf
+   printed;
+15. the ``kernels`` JSON line, then the result line.
 
 Phases 7, 10, 11 and 12 count, in the traced replay of their decode
 steps, the kernel launches the host issued against the kernels the trace
@@ -173,11 +195,12 @@ recorded, and print both beside the busy share where they differ (the
 share is then a lower bound).  The launch counts are set to 0 before the
 block-max op in phase 3, before phases 4, 5, 6, 7 and 8, before phase 9's
 ingest and its training run, before each serving run of phases 10, 11
-and 12, and before phase 13's ``mesh=`` ingest, and read after each;
-every kernel must launch in one of them, and each phase must launch the
-kernels of its own path (phase 12's path has none; phase 13's ``mesh=``
-ingest launches the fused pipeline kernel).  The ``kernels`` line sums
-them.
+and 12, before phase 13's ``mesh=`` ingest and before each training run
+of phase 14, and read after each; every kernel must launch in one of
+them, and each phase must launch the kernels of its own path (phase 12's
+path has none; phase 13's ``mesh=`` ingest launches the fused pipeline
+kernel; phase 14's its arch's scans forward and backward, and flash for
+the hybrid).  The ``kernels`` line sums them.
 
 It exits non-zero, with no result line, without a CUDA card, outside a
 checkout of the repo, or when any phase fails.
@@ -241,14 +264,16 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, reps: int, kernel: str) -> tuple[float | None, int]:
+def device_ms(fn, reps: int, kernel: str,
+              names: int = 1) -> tuple[float | None, int]:
     """Mean device milliseconds per call of the CUDA kernels whose names
     contain ``kernel``, each launched once a call, from a
     ``torch.profiler`` trace of ``reps`` calls: per kernel name its device
     time over the launches the trace recorded, summed over the names (a
     trace late in a long process can miss launches, so a sum over ``reps``
     would undercount).  Also the fewest launches recorded for a name; None
-    and 0 if the trace holds no device time for them."""
+    and 0 if the trace holds no device time for them, or for fewer than
+    the ``names`` kernels a call launches (the sum would leave one out)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -265,15 +290,15 @@ def device_ms(fn, reps: int, kernel: str) -> tuple[float | None, int]:
         if kernel in ev.key and us > 0 and ev.count:
             ms += us / ev.count / 1e3
             records.append(ev.count)
-    return (ms, min(records)) if records else (None, 0)
+    return (ms, min(records)) if len(records) >= names else (None, 0)
 
 
-def kernel_times(run, reps: int, kernel: str) -> dict:
+def kernel_times(run, reps: int, kernel: str, names: int = 1) -> dict:
     """A kernel wrapper's per-call time (CUDA events, host launch overhead
-    included) and its kernel's device time (profiler) with the launches
-    the trace recorded of the ``reps``."""
+    included) and its kernel's device time (profiler; ``names`` kernels a
+    call) with the launches the trace recorded of the ``reps``."""
     call = cuda_ms(run, reps, 3)
-    dev, records = device_ms(run, reps, kernel)
+    dev, records = device_ms(run, reps, kernel, names)
     return dict(call_ms=call, device_ms=dev, device_records=records,
                 device_reps=reps)
 
@@ -1159,6 +1184,163 @@ def scan_phase(seed: int) -> dict:
     return out
 
 
+#: (label, B, T, N): the RG-LRU's backward at phase 14's shape, a
+#: microbatch of recurrentgemma-2b (8 rows in 8 microbatches: 1 row) x
+#: 4,096 tokens x its LRU width
+LINEAR_BWD_CASES = [("T4096", 1, 4096, 2560)]
+#: (label, B, nc, H, hd): the mLSTM's backward at phase 14's shape,
+#: xlstm-125m's 8 rows of 2,048 tokens: 8 chunks of 256, 4 heads of 384
+MLSTM_BWD_CASES = [("8 chunks", 8, 8, 4, 384)]
+#: (label, B, S, H, hd): the sLSTM's backward at phase 14's shape: 8 rows
+#: of 2,048 steps at D 768 (4 heads of 192), bfloat16 gates and weights
+SLSTM_BWD_CASES = [("S2048", 8, 2048, 4, 192)]
+
+
+def scan_bwd_phase(seed: int) -> dict:
+    """The three scans' backward kernels against their plain backwards at
+    the shapes phase 14 launches them, with kernel, plain and bound times
+    (no single PyTorch call computes any of them: ``library_ms`` None).
+    The linear and mLSTM kernels are held elementwise to their plain
+    backwards on the forward kernels' saved outputs; the sLSTM's gradients
+    (its forward and backward kernels under autograd) to float64 autograd
+    of the plain loop by ``accuracy_ratio``, the float32 plain loop's own
+    error the yardstick."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import linear_scan as kscan
+    from repro_torch.kernels import mlstm_scan as kmlstm
+    from repro_torch.kernels import slstm_scan as kslstm
+
+    def f32(rng, shape, lo=None, hi=None, std=1.0):
+        x = (rng.uniform(lo, hi, shape) if lo is not None
+             else rng.standard_normal(shape) * std)
+        return torch.from_numpy(x.astype(np.float32)).cuda()
+
+    out = {}
+    for label, B, T, N in LINEAR_BWD_CASES:
+        rng = np.random.default_rng(seed + T + 1)
+        a, b = f32(rng, (B, T, N), 0.0, 0.95), f32(rng, (B, T, N), std=0.5)
+        h0, g, g_last = f32(rng, (B, N)), f32(rng, (B, T, N)), f32(rng, (B, N))
+        h, _ = kscan.linear_scan(a, b, h0)
+        ins = (a, h, h0, g, g_last)
+        got = kscan._launch_bwd(*ins)
+        err, worst = float_err(f"linear_scan_bwd {label}", got,
+                               kscan.linear_scan_bwd_plain(*ins),
+                               kscan.TOLERANCE)
+        again = kscan._launch_bwd(*ins)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"linear_scan_bwd {label}: two launches on "
+                                 f"the same inputs differ")
+        del got, again
+        # read: a, g and h, then g_last and h0; written: da, db and dh0
+        bms, by = bound_ms(4 * (5 * B * T * N + 3 * B * N), 3 * B * T * N)
+        out[f"linear_scan_bwd {label}"] = timed(dict(
+            max_abs_err=err, tol_used=worst, tolerance=kscan.TOLERANCE,
+            bound_ms=bms, bound_by=by, library_ms=None,
+            shape=f"{B}x{T}x{N} float32, h0 non-zero",
+            **kernel_times(lambda: kscan._launch_bwd(*ins), 5,
+                           "linear_scan_bwd_kernel"),
+            plain_ms=cuda_ms(lambda: kscan.linear_scan_bwd_plain(*ins), 3)))
+        del a, b, h, g, ins
+    for label, B, nc, H, hd in MLSTM_BWD_CASES:
+        rng = np.random.default_rng(seed + nc + 1)
+        fwd = (-f32(rng, (B, nc, H), 0.0, 80.0), f32(rng, (B, nc, H)),
+               f32(rng, (B, nc, H, hd, hd)), f32(rng, (B, nc, H, hd)),
+               torch.zeros((B, H, hd, hd), device="cuda"),
+               torch.zeros((B, H, hd), device="cuda"),
+               torch.full((B, H), -1e30, device="cuda"))
+        outs = kmlstm.mlstm_scan(*fwd)
+        ins = (*fwd[:4], *outs[:3], *(f32(rng, tuple(o.shape))
+                                      for o in outs))
+        del outs
+        got = kmlstm._launch_bwd(*ins)
+        want = kmlstm.mlstm_scan_bwd_plain(*ins)
+        worst = kmlstm.bwd_tolerance_used(got, want)
+        if not worst <= 1.0:
+            raise AssertionError(f"mlstm_scan_bwd {label}: {worst:.3f} of "
+                                 f"its tolerance {kmlstm.BWD_TOLERANCE}")
+        err = max(float((x - w).abs().max()) for x, w in zip(got, want))
+        del got, want
+        entries = B * H * (hd * hd + hd)
+        # read: each chunk's state, sums and gradient at its start, the
+        # final gradient and the scalars; written: the sums' gradients, the
+        # initial state's and the scalars'
+        nbytes = 4 * (4 * entries * nc + 2 * entries + 6 * B * nc * H
+                      + 2 * B * H)
+        bms, by = bound_ms(nbytes, 6 * entries * nc)
+        out[f"mlstm_scan_bwd {label}"] = timed(dict(
+            max_abs_err=err, tol_used=worst,
+            tolerance=f"|got - want| <= {kmlstm.BWD_TOLERANCE['rtol']:g} "
+                      f"|want| + {kmlstm.BWD_TOLERANCE['atol']:g} max|want| "
+                      f"per output",
+            bound_ms=bms, bound_by=by, library_ms=None,
+            shape=f"{B}x{nc} chunks x{H} heads of {hd} float32",
+            **kernel_times(lambda: kmlstm._launch_bwd(*ins), 5, "mlstm_bwd_",
+                           names=2),
+            plain_ms=cuda_ms(lambda: kmlstm.mlstm_scan_bwd_plain(*ins), 3)))
+        del fwd, ins
+    for label, B, S, H, hd in SLSTM_BWD_CASES:
+        rng = np.random.default_rng(seed + S + 1)
+        D = H * hd
+        xg = f32(rng, (B, S, 4, D), std=0.5).to(torch.bfloat16)
+        r = f32(rng, (4, H, hd, hd), std=0.02).to(torch.bfloat16)
+        st = [torch.zeros((B, D), device="cuda") for _ in range(3)] + [
+            torch.full((B, D), -1e30, device="cuda")]
+        ups = [f32(rng, (B, S, D))] + [f32(rng, (B, D)) for _ in range(4)]
+
+        def vjp(fn, xg, r, st):
+            ins = [t.detach().requires_grad_(True) for t in (xg, r, *st)]
+            hs, fin = fn(ins[0], ins[1], kslstm.SLSTMState(*ins[2:]))
+            gs = torch.autograd.grad(
+                sum((o * u.to(o.dtype)).sum()
+                    for o, u in zip((hs, *fin), ups)), ins)
+            return gs[0], gs[1], gs[2:]
+
+        got = vjp(kslstm.slstm_scan, xg, r, st)
+        plain32 = vjp(kslstm.slstm_scan_plain, xg, r, st)
+        plain64 = vjp(kslstm.slstm_scan_plain, xg.double(), r.double(),
+                      [t.double() for t in st])
+        worst = kslstm.accuracy_ratio(got, plain32, plain64)
+        names = ("xg", "r", "h0", "c0", "n0", "m0")
+        flat = lambda x: [x[0], x[1], *x[2]]  # noqa: E731
+        own = {n: float((p.double() - w).abs().max()) for n, p, w in zip(
+            names, flat(plain32), flat(plain64))}
+        err = max(float((g.double() - w).abs().max())
+                  for g, w in zip(flat(got), flat(plain64)))
+        if not worst <= 1.0 or not all(bool(torch.isfinite(g).all())
+                                       for g in flat(got)):
+            raise AssertionError(f"slstm_scan_bwd {label}: {worst:.3f} of "
+                                 f"its accuracy bound; the float32 plain "
+                                 f"loop's own error {own}")
+        del got, plain32, plain64
+        hs, _, cnm = kslstm._launch(xg, r, kslstm.SLSTMState(*st), keep=True)
+        bwd_ins = (xg, r, kslstm.SLSTMState(*st), hs, cnm, ups[0],
+                   kslstm.SLSTMState(*ups[1:]))
+        t0 = time.perf_counter()
+        kslstm.slstm_scan_bwd_plain(*bwd_ins)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3  # one call, host clock
+        # the kernel's work: read every step's pre-activations, kept state
+        # and hs gradient, r once; write dpre and the initial state's
+        # gradient; a step's products of r with dpre
+        nbytes = (4 * B * S * D * (4 + 3 + 1 + 4) + r.numel() * 2
+                  + 4 * 12 * B * D)
+        bms, by = bound_ms(nbytes, B * S * (8 * D * hd + 40 * D))
+        out[f"slstm_scan_bwd {label}"] = timed(dict(
+            max_abs_err=err, tol_used=worst, plain_f32_err=own,
+            tolerance=f"error against float64 autograd of the plain loop at "
+                      f"most {kslstm.ACCURACY:g} x the float32 plain loop's "
+                      f"own + {kslstm.TOLERANCE['atol']:g}",
+            bound_ms=bms, bound_by=by, library_ms=None, plain_ms=plain_ms,
+            shape=f"{B}x{S}, D {D}, {H} heads of {hd}, bfloat16 gates and "
+                  f"weights",
+            **kernel_times(lambda: kslstm._launch_bwd(*bwd_ins), 3,
+                           "slstm_scan_bwd_kernel")))
+        del xg, hs, cnm, bwd_ins
+    return out
+
+
 # -- phase 4: the service ------------------------------------------------------
 
 def make_corpus(seed: int, versions: int, objects: int,
@@ -2007,9 +2189,11 @@ def device_split(prof, groups) -> dict:
                 kernels=kernels, top=sorted(top, reverse=True)[:10])
 
 
-def traced_step(trainer, params, opt_state, step: int) -> dict:
+def traced_step(trainer, params, opt_state, step: int,
+                groups=STEP_KERNEL_GROUPS) -> dict:
     """One more training step traced with ``torch.profiler``: its wall
-    ms, the device ms by kernel group, and the device's busy share."""
+    ms, the device ms by kernel group (``groups``), and the device's busy
+    share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2021,7 +2205,7 @@ def traced_step(trainer, params, opt_state, step: int) -> dict:
         float(out[2]["loss"])
         wall = time.perf_counter() - t0
     del out
-    split = device_split(prof, STEP_KERNEL_GROUPS)
+    split = device_split(prof, groups)
     return dict(wall_ms=wall * 1e3,
                 busy_share=split["device_ms"] / (wall * 1e3), **split)
 
@@ -2445,6 +2629,15 @@ FAMILY_POSITIONS = 4096
 #: engine's cache: prefill activations, one request's caches, the
 #: allocator's slack
 FAMILY_HEADROOM_BYTES = 10e9
+#: depth caps for the script's time limit, which phase 14 shares: whole or
+#: at the deepest that fits (38 of qwen2-72b's 80 layers), granite-8b,
+#: phi3-medium-14b, qwen2-72b and qwen3-moe-30b-a3b took 32.6, 31.1, 30.7
+#: and 102.7 s of phase 11's 205.0 s on the card, their prefills and decode
+#: steps scaling with depth; the script's time varies by up to 1.31x
+#: between hosts (the store's file writes), so it is kept near 850 s on a
+#: fast one
+FAMILY_DEPTH_CAP = {"granite-8b": 18, "phi3-medium-14b": 20,
+                    "qwen2-72b": 10, "qwen3-moe-30b-a3b": 12}
 #: the gate: 2 layers at full width (a model with leading dense layers:
 #: those and one MoE layer), a 2,048-position prompt (llava: 2,880 +
 #: 1,216), 8 greedy steps; MoE with the capacity lifted, as the
@@ -2675,7 +2868,8 @@ def family_gate(seed: int, arch: str) -> dict:
 
 def family_phase(seed: int, arch: str, kernels) -> dict:
     """``arch`` at its published width (random bf16 weights from the seed;
-    qwen2-72b with its depth cut to the deepest that fits): the token
+    its depth cut to the deepest that fits beside the cache, and to
+    ``FAMILY_DEPTH_CAP``): the token
     models through ``Engine`` (FAMILY_PROMPTS on 4 slots, ``serve_checked``
     with its busy share), the MoE's dropped pairs a prefill; the embedding
     models through ``embedding_serving``; the flash launches equal to
@@ -2695,7 +2889,8 @@ def family_phase(seed: int, arch: str, kernels) -> dict:
     slots, cache_len = ((SERVE_SLOTS, FAMILY_CACHE)
                         if cfg.input_mode == "tokens" else
                         (FAMILY_ROWS, FAMILY_POSITIONS + FAMILY_NEW))
-    cfg = cfg.replace(n_layers=deepest_that_fits(cfg, slots, cache_len))
+    fits = deepest_that_fits(cfg, slots, cache_len)
+    cfg = cfg.replace(n_layers=min(fits, FAMILY_DEPTH_CAP.get(arch, fits)))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2736,6 +2931,7 @@ def family_phase(seed: int, arch: str, kernels) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return dict(arch=arch, layers=cfg.n_layers, published_layers=published,
+                fits_layers=fits,
                 kinds=layer_kinds(cfg), params=n_params_of(cfg),
                 weights_gb=weights_gb, cache_len=cache_len,
                 state_bytes_per_slot=state_bytes_per_slot(cfg, cache_len),
@@ -2750,7 +2946,11 @@ def log_family(arch: str, r: dict) -> None:
     """Print one model's serving numbers from ``family_phase``."""
     cut = ("nothing cut" if r["layers"] == r["published_layers"] else
            f"depth cut to {r['layers']} of {r['published_layers']} "
-           f"layers (the deepest that fits beside the cache)")
+           f"layers (the deepest that fits beside the cache)"
+           if r["layers"] == r["fits_layers"] else
+           f"depth cut to {r['layers']} of {r['published_layers']} layers "
+           f"for the script's time ({r['fits_layers']} fit beside the "
+           f"cache)")
     how = (f"Engine, {len(FAMILY_PROMPTS)} requests on {SERVE_SLOTS} "
            f"slots, cache {FAMILY_CACHE}"
            if "busy_share" in r else
@@ -2983,6 +3183,268 @@ def dryrun_cell_phase() -> dict:
     return rec
 
 
+# -- phase 14: the recurrent families trained at published width --------------
+
+#: (arch, rows, tokens a row): xlstm-125m at 8 x 2,048, recurrentgemma-2b at
+#: 8 x 4,096 (so its 2,048-token window slides), each at its published
+#: microbatch (recurrentgemma: 8 microbatches of a row; xlstm: none) and
+#: remat (``dots``, ``full``)
+RECURRENT_TRAIN = (("xlstm-125m", 8, 2048), ("recurrentgemma-2b", 8, 4096))
+RECURRENT_TRAIN_STEPS = 4
+#: bytes a parameter at the update's peak, bf16 parameters and float32
+#: moments: the parameters, their gradient, the moments, and the new
+#: parameters and moments (``optim.update`` builds the new tree before the
+#: old one is dropped): 2 + 2 + 8 + 8 + 2; and beside them, the float32
+#: temporaries of the largest leaf's update (its gradient, both moments,
+#: their squares and quotients, the step, the parameter), which for
+#: recurrentgemma-2b's untied head (655 M parameters) is the last leaf
+#: updated: at 17 of 26 layers it ran out of memory there with 76.0 GB
+#: allocated, about 21 GB of them its temporaries, asking 2.6 GB more
+UPDATE_BYTES_PER_PARAM = 22
+UPDATE_TEMP_BYTES_PER_ELEMENT = 28
+#: the backward's peak: parameters, moments, the float32 accumulator and a
+#: microbatch's gradient (2 + 8 + 4 + 2), beside a microbatch's logits
+#: chain (bf16 logits, their float32 copy, exp and gradients: about 18
+#: bytes a logit)
+BACKWARD_BYTES_PER_PARAM = 16
+BYTES_PER_LOGIT = 18
+#: device memory kept free beside either: the allocator's fragmentation
+#: (6.9 and 11.1 GB reserved but unallocated when recurrentgemma-2b at 17
+#: and 26 layers ran out of memory on the card) and the layers' saved
+#: inputs
+TRAIN_HEADROOM_BYTES = 10e9
+#: the gradient gate: one pattern period of layers (``GATE_LAYERS``) at
+#: full width in float32 (remat and microbatching off: neither changes a
+#: gradient), one row of 2,304 tokens (past recurrentgemma's 2,048 window,
+#: 9 mLSTM chunks of 256), the card's gradient (the kernels) against the
+#: CPU's (the plain versions) leaf by leaf: ``max|g_card - g_cpu|`` at most
+#: ``GRAD_GATE_TOL`` times the whole CPU gradient's largest value.  Both
+#: are float32 forms that differ in summation order (cuBLAS against the
+#: CPU's products, the kernels' scans and sums against the plain loops)
+#: through 2,304 recurrent steps (measured on the card: 1.6e-5 for
+#: xlstm-125m, 4.3e-6 for recurrentgemma-2b); the CPU tests hold the port
+#: to the reference at 1e-6 of it over 40 tokens
+GRAD_GATE_TOKENS = 2304
+GRAD_GATE_TOL = 1e-4
+#: the gate's attention tiles: the flash route wants S a multiple of them
+#: (the reference's tile assert), and 2,304 = 9 x 256 is no multiple of the
+#: published 1,024; tiles change no value the kernel computes, only the
+#: plain version's blocking (its CPU forward and the recomputing backward)
+GRAD_GATE_BLOCK = 256
+#: device kernels of a traced recurrent training step: phase 9's groups,
+#: then the scans' backward kernels before their forward ones (a backward's
+#: name holds its forward's but for ``bwd``)
+RECURRENT_STEP_GROUPS = STEP_KERNEL_GROUPS + (
+    ("scan backward", ("linear_scan_bwd_kernel", "mlstm_bwd_",
+                       "slstm_scan_bwd_kernel")),
+    ("scan forward", ("linear_scan_kernel", "mlstm_scan_kernel",
+                      "slstm_scan_kernel")))
+#: each recurrent kind's scan
+SCAN_OF_KIND = {"rglru": "linear_scan", "mlstm": "mlstm_scan",
+                "slstm": "slstm_scan"}
+
+
+def allocator_settings(settings: str) -> None:
+    """Set the CUDA caching allocator's options for allocations from now on
+    (``PYTORCH_CUDA_ALLOC_CONF``'s syntax), its cached blocks released
+    first."""
+    import gc
+    import warnings
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with warnings.catch_warnings():  # deprecated for an accelerator API
+        warnings.simplefilter("ignore", FutureWarning)
+        torch.cuda.memory._set_allocator_settings(settings)
+
+
+def train_layers_that_fit(cfg, rows: int, seq: int) -> int:
+    """The most layers of ``cfg`` (at most the published depth) whose
+    training fits on the card: the update's bytes (a parameter's and the
+    largest leaf's temporaries) or the backward's beside a microbatch's
+    logits, whichever is more, plus ``TRAIN_HEADROOM_BYTES``."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.models.layers import template_map
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    logits = (rows // max(cfg.microbatch, 1)) * seq * cfg.vocab_size
+    for n in range(cfg.n_layers, 0, -1):
+        c = cfg.replace(n_layers=n)
+        shapes = []
+        template_map(shapes.append, lm.lm_template(c))
+        biggest = max(math.prod(t.shape) for t in shapes)
+        p = n_params_of(c)
+        need = max(UPDATE_BYTES_PER_PARAM * p
+                   + UPDATE_TEMP_BYTES_PER_ELEMENT * biggest,
+                   BACKWARD_BYTES_PER_PARAM * p + BYTES_PER_LOGIT * logits)
+        if need + TRAIN_HEADROOM_BYTES <= total:
+            return n
+    return 0
+
+
+def expected_train_launches(cfg, steps: int, seq: int) -> dict:
+    """The scan and flash launches ``steps`` training steps make, a
+    microbatch: each recurrent layer's forward scan (twice under remat:
+    the forward and the backward's recompute) and its backward, a call each
+    a run of whole chunks (the mLSTM's ragged tail is one more); an
+    attention layer's flash forward (and its recompute: its backward
+    recomputes the plain loop)."""
+    from repro_torch.models.transformer import layer_kinds
+
+    passes = 1 if cfg.remat == "none" else 2
+    runs = steps * max(cfg.microbatch, 1)
+    want = {}
+    for kind in layer_kinds(cfg):
+        if kind == "attn":
+            want["flash_attn"] = want.get("flash_attn", 0) + runs * passes
+            continue
+        name = SCAN_OF_KIND[kind]
+        calls = (1 + (seq % min(cfg.mlstm_chunk, seq) != 0)
+                 if kind == "mlstm" else 1)
+        want[name] = want.get(name, 0) + runs * passes * calls
+        want[f"{name}_bwd"] = want.get(f"{name}_bwd", 0) + runs * calls
+    return want
+
+
+def _leaf_names(tree, prefix: str = "") -> list:
+    """Dotted paths of a parameter tree's leaves, in ``leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, t in enumerate(tree)
+                for n in _leaf_names(t, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def recurrent_grad_gate(seed: int, arch: str) -> dict:
+    """One pattern period of ``arch`` at full width in float32, one row of
+    ``GRAD_GATE_TOKENS``: ``grads_and_metrics`` on the card (the scans'
+    kernels, flash under autograd; TF32 off) against the CPU (the plain
+    versions), leaf by leaf."""
+    import numpy as np
+    import torch
+
+    from repro_torch._tree import leaves, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.train import grads_and_metrics
+
+    cfg = get_config(arch).replace(
+        n_layers=GATE_LAYERS[arch], param_dtype="float32",
+        compute_dtype="float32", remat="none", microbatch=0,
+        attn_q_block=GRAD_GATE_BLOCK, attn_kv_block=GRAD_GATE_BLOCK)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(seed),
+                            device="cpu")
+    row = torch.from_numpy(np.random.default_rng(seed + 41).integers(
+        0, cfg.vocab_size, (1, GRAD_GATE_TOKENS + 1)))
+    batch = {"tokens": row[:, :-1], "labels": row[:, 1:]}
+    t0 = time.perf_counter()
+    want, wm = grads_and_metrics(cfg, params, batch)
+    cpu_s = time.perf_counter() - t0
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        got, gm = grads_and_metrics(
+            cfg, tree_map(lambda t: t.cuda(), params),
+            {k: t.cuda() for k, t in batch.items()})
+        got = [g.cpu() for g in leaves(got)]
+        card_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    g_max = max(float(w.abs().max()) for w in leaves(want))
+    names = _leaf_names(params)
+    errs = []
+    for name, g, w in zip(names, got, leaves(want)):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{arch} gradient gate: {name} not finite")
+        errs.append((float((g - w).abs().max()) / g_max, name))
+    worst, leaf = max(errs)
+    if not worst <= GRAD_GATE_TOL:
+        raise AssertionError(
+            f"{arch} gradient gate: leaf {leaf} differs by {worst:.3g} of "
+            f"the largest gradient {g_max:.4g} (tolerance {GRAD_GATE_TOL:g})")
+    return dict(layers=cfg.n_layers, tokens=GRAD_GATE_TOKENS, g_max=g_max,
+                worst=worst, worst_leaf=leaf, leaves=len(names),
+                loss_card=float(gm["loss"]), loss_cpu=float(wm["loss"]),
+                cpu_s=cpu_s, card_s=card_s)
+
+
+def recurrent_training_phase(seed: int, arch: str, rows: int, seq: int,
+                             kernels) -> dict:
+    """``Trainer`` at ``arch``'s published configuration (its depth cut
+    only where the training state does not fit), random weights from
+    ``seed``, AdamW, ``RECURRENT_TRAIN_STEPS`` steps of ``rows`` x ``seq``
+    tokens of the DEB-like corpus: step ms, tokens/s, peak GB, loss and
+    grad norm a step (finite), and every scan kernel's forward and
+    backward launches equal to what the model makes (the counts set to 0
+    just before the run and read just after); one more step traced by
+    kernel group; the model freed, then the gradient gate."""
+    import gc
+
+    import torch
+
+    from repro_torch._tree import leaves
+    from repro_torch.configs import get_config
+    from repro_torch.data import LoaderConfig, TokenLoader, load_dataset
+    from repro_torch.train import LoopConfig, OptConfig, Trainer
+
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    published = cfg.n_layers
+    cfg = cfg.replace(n_layers=train_layers_that_fit(cfg, rows, seq))
+    loader = TokenLoader(load_dataset("DEB", 16),
+                         LoaderConfig(batch_size=rows, seq_len=seq))
+    opt = OptConfig(lr=3e-4, warmup_steps=1,
+                    total_steps=RECURRENT_TRAIN_STEPS)
+    trainer = Trainer(cfg, opt, LoopConfig(total_steps=RECURRENT_TRAIN_STEPS,
+                                           log_every=0), loader, None,
+                      device="cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    params, opt_state = trainer.run(
+        torch.Generator(device="cuda").manual_seed(seed),
+        steps=RECURRENT_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(t.numel() for t in leaves(params))
+    trace = traced_step(trainer, params, opt_state, RECURRENT_TRAIN_STEPS,
+                        RECURRENT_STEP_GROUPS)
+    hist = trainer.history
+    del params, opt_state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    if len(hist) != RECURRENT_TRAIN_STEPS or not all(
+            math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+            for h in hist):
+        raise AssertionError(f"{arch}: training steps not finite: {hist}")
+    want = expected_train_launches(cfg, RECURRENT_TRAIN_STEPS, seq)
+    got = {k: v for k, v in launches.items() if v}
+    if got != want:
+        raise AssertionError(f"{arch}: kernel launches {got} in "
+                             f"{RECURRENT_TRAIN_STEPS} steps, the model "
+                             f"makes {want}")
+    gate = recurrent_grad_gate(seed, arch)
+    return dict(arch=arch, layers=cfg.n_layers, published_layers=published,
+                params=n_params, rows=rows, seq=seq,
+                microbatch=cfg.microbatch, remat=cfg.remat, steps=hist,
+                train_s=train_s, step_ms=[h["dt"] * 1e3 for h in hist],
+                tokens_per_s=[rows * seq / h["dt"] for h in hist],
+                peak_gb=peak_gb, launches=launches, trace=trace, gate=gate,
+                s=time.perf_counter() - t_phase)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3138,6 +3600,19 @@ def main(argv=None) -> int:
                  "; the float32 plain version's own error against float64 "
                  + ", ".join(f"{k} {v:.3g}"
                              for k, v in r["plain_f32_err"].items()))
+        log(f"kernel {name} ({r['shape']}): max_abs_err "
+            f"{r['max_abs_err']:.3g} (tolerance {r['tolerance']}, "
+            f"{r['tol_used']:.3f} of it used{drift}), {r['ms']:.4f} ms "
+            f"({r['ms_source']}; {r['call_ms']:.4f} ms per call), plain "
+            f"{r['plain_ms']:.4f} ms, no library call, bound "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']})")
+    scans_bwd = scan_bwd_phase(args.seed)
+    measured["scans_bwd"] = scans_bwd
+    for name, r in scans_bwd.items():
+        drift = ("" if "plain_f32_err" not in r else
+                 "; the float32 plain loop's own error against float64 "
+                 "autograd " + ", ".join(
+                     f"{k} {v:.3g}" for k, v in r["plain_f32_err"].items()))
         log(f"kernel {name} ({r['shape']}): max_abs_err "
             f"{r['max_abs_err']:.3g} (tolerance {r['tolerance']}, "
             f"{r['tol_used']:.3f} of it used{drift}), {r['ms']:.4f} ms "
@@ -3409,8 +3884,10 @@ def main(argv=None) -> int:
     fam = {}
     t11 = time.perf_counter()
     for arch in FAMILY_TOKEN_ARCHS + FAMILY_EMBED_ARCHS:
+        t_arch = time.perf_counter()
         r = fam[arch] = family_phase(args.seed, arch, KERNELS)
         log_family(arch, r)
+        log(f"family {arch}: {time.perf_counter() - t_arch:.1f} s")
     log(f"phase 11: {time.perf_counter() - t11:.1f} s")
 
     # 12. MLA: deepseek-v3-671b at published width, absorbed decode
@@ -3487,14 +3964,65 @@ def main(argv=None) -> int:
         f"{dr['bottleneck']}, fallbacks {dr['fallbacks']}")
     log(f"phase 13: {time.perf_counter() - t13:.1f} s")
 
+    # 14. the recurrent families trained at published width, their
+    # allocations in expandable segments: the earlier phases leave the
+    # caching allocator's pool fragmented (recurrentgemma-2b's first step
+    # ran out of memory with 30.3 GB reserved but unallocated)
+    t14 = time.perf_counter()
+    rtrain = {}
+    allocator_settings("expandable_segments:True")
+    for arch, rows, seq in RECURRENT_TRAIN:
+        r = rtrain[arch] = recurrent_training_phase(args.seed, arch, rows,
+                                                    seq, KERNELS)
+        cut = ("nothing cut" if r["layers"] == r["published_layers"] else
+               f"depth cut to {r['layers']} of {r['published_layers']} "
+               f"layers (the deepest whose training fits)")
+        log(f"training {arch}: published width, {cut}; {r['params']} "
+            f"parameters, bf16, remat {r['remat']}, microbatch "
+            f"{r['microbatch']}, AdamW, batch {rows} x {seq}, "
+            f"{RECURRENT_TRAIN_STEPS} steps in {r['train_s']:.2f} s (init "
+            f"included), peak {r['peak_gb']:.2f} GB; {card}")
+        for h, tok_s in zip(r["steps"], r["tokens_per_s"]):
+            log(f"training {arch} step {h['step']}: {h['dt'] * 1e3:.1f} ms, "
+                f"{tok_s:.0f} tokens/s, loss {h['loss']:.4f}, grad norm "
+                f"{h['grad_norm']:.4f}, lr {h['lr']:.3g}")
+        tt = r["trace"]
+        log(f"training {arch}: one more step traced: {tt['wall_ms']:.1f} ms, "
+            f"device {tt['device_ms']:.1f} ms in {tt['kernels']} kernels "
+            f"(busy share {tt['busy_share']:.4f}): " + ", ".join(
+                f"{g} {v:.1f} ms" for g, v in tt["groups_ms"].items()))
+        for ms, count, name in tt["top"][:5]:
+            log(f"training {arch}: traced step kernel {ms:.1f} ms in {count} "
+                f"launches: {name[:120]}")
+        log(f"training {arch}: launches {({k: v for k, v in r['launches'].items() if v})} "
+            f"(as the model makes them: layers of each kind x microbatches, "
+            f"forward twice under remat)")
+        g = r["gate"]
+        log(f"training {arch}: gradient gate at {g['layers']} layers (one "
+            f"pattern period), full width, float32, 1 x {g['tokens']} "
+            f"tokens: card (kernels) against CPU (plain versions), worst "
+            f"leaf {g['worst_leaf']} at {g['worst']:.3g} of the largest "
+            f"gradient {g['g_max']:.4g} (tolerance {GRAD_GATE_TOL:g}) over "
+            f"{g['leaves']} leaves; loss {g['loss_card']:.6f} / "
+            f"{g['loss_cpu']:.6f}; card {g['card_s']:.2f} s, CPU "
+            f"{g['cpu_s']:.2f} s")
+    allocator_settings("expandable_segments:False")
+    log(f"phase 14: {time.perf_counter() - t14:.1f} s")
+
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith(("jax.", "repro."))
               or m == "repro"]
     if leaked:
         raise AssertionError(f"the port imported {leaked[:5]}")
 
-    # 14. the kernels line and the result
+    # 15. the kernels line and the result
     row_of = {
+        linear_scan.BWD_KERNEL: (scans_bwd["linear_scan_bwd T4096"]["shape"],
+                                 scans_bwd["linear_scan_bwd T4096"]),
+        mlstm_scan.BWD_KERNEL: (scans_bwd["mlstm_scan_bwd 8 chunks"]["shape"],
+                                scans_bwd["mlstm_scan_bwd 8 chunks"]),
+        slstm_scan.BWD_KERNEL: (scans_bwd["slstm_scan_bwd S2048"]["shape"],
+                                scans_bwd["slstm_scan_bwd S2048"]),
         packed_pipeline.KERNEL: ("16KiBx8 packed all-tiny",
                                  packed["all-tiny"]),
         gear_hash.KERNEL: (reg["gear_hash"]["shape"], reg["gear_hash"]),
@@ -3560,7 +4088,8 @@ def main(argv=None) -> int:
                     + sum(r["launches"][k.name] for r in rec.values())
                     + sum(r["launches"][k.name] for r in fam.values())
                     + ds["launches"][k.name]
-                    + mesh_sh["launches"][k.name])
+                    + mesh_sh["launches"][k.name]
+                    + sum(r["launches"][k.name] for r in rtrain.values()))
         if launches == 0:
             raise AssertionError(f"kernel {k.name} never launched")
         rows.append(dict(
@@ -3580,6 +4109,7 @@ def main(argv=None) -> int:
                            service=svc, sharded=sh, registry=rg,
                            serving=sv, scenarios=sc, training=tr,
                            recurrent=rec, family=fam, mla=ds,
+                           recurrent_training=rtrain,
                            distribution=dict(route=rt, mesh_ingest=mesh_sh,
                                              prefill_count=pc, dryrun=dr)),
                       f,

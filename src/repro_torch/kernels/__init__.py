@@ -24,6 +24,9 @@ plain torch version only for tensors on the CPU:
   chunk;
 * ``slstm_scan`` — the sLSTM's recurrence over a sequence.
 
+The last three also hold a backward kernel each (``BWD_KERNEL``), which
+their ``torch.autograd.Function`` launches when a call needs a gradient.
+
 Importing this package builds nothing and needs no card.
 """
 from __future__ import annotations
@@ -46,11 +49,13 @@ from . import (
 #: every kernel of the port, in the order of the TPU kernels they replace
 #: (1-6), then the two device forms of the reference's lax.scans, then
 #: TPU kernel 7, flash attention (the LM serving path's), then the device
-#: forms of the recurrent families' scans
+#: forms of the recurrent families' scans, then their backwards
 KERNELS = (seqcdc_masks.KERNEL, fingerprint.KERNEL, fused_pipeline.KERNEL,
            packed_pipeline.KERNEL, gear_hash.KERNEL, extremum.KERNEL,
            select_boundaries.KERNEL, native_scan.KERNEL, flash_attn.KERNEL,
-           linear_scan.KERNEL, mlstm_scan.KERNEL, slstm_scan.KERNEL)
+           linear_scan.KERNEL, mlstm_scan.KERNEL, slstm_scan.KERNEL,
+           linear_scan.BWD_KERNEL, mlstm_scan.BWD_KERNEL,
+           slstm_scan.BWD_KERNEL)
 
 __all__ = ["KERNELS", "extremum", "fingerprint", "flash_attn",
            "fused_pipeline", "gear_hash", "linear_scan", "mlstm_scan",

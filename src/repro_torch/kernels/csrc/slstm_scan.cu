@@ -13,7 +13,10 @@
 // exactly the reference's cell: the float32 state times r (bf16 or
 // float32, promoted to float32 as JAX promotes it), the gate inputs in
 // their own type added in float32 after the product.  It writes h for
-// every step (B,S,D) float32 and the final (h, c, n, m).
+// every step (B,S,D) float32 and the final (h, c, n, m); under a gradient
+// (cnm not null, a separate instantiation, so serving runs the same code
+// as without it) also (c, n, m) after every step (B,S,3,D) float32, which
+// slstm_scan_bwd.cu reads.
 //
 // Bound on this card: the serial chain of S steps, not bytes or
 // operations.  A step of one head multiplies h by four hd x hd blocks
@@ -188,16 +191,17 @@ struct Raw<bf16> {
   }
 };
 
-// NR: rows of r a lane holds a column (the hbuf positions in use <= 32 NR)
-template <int NR, typename XT>
+// NR: rows of r a lane holds a column (the hbuf positions in use <= 32 NR);
+// kKeep: write (c, n, m) after every step to cnm
+template <int NR, typename XT, bool kKeep>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 slstm_scan_kernel(const XT* __restrict__ xg, const void* __restrict__ r,
                   const float* __restrict__ h0, const float* __restrict__ c0,
                   const float* __restrict__ n0, const float* __restrict__ m0,
                   float* __restrict__ hs, float* __restrict__ h_fin,
                   float* __restrict__ c_fin, float* __restrict__ n_fin,
-                  float* __restrict__ m_fin, int S, int H, int hd, int C,
-                  int r_bf16) {
+                  float* __restrict__ m_fin, float* __restrict__ cnm, int S,
+                  int H, int hd, int C, int r_bf16) {
   using XR = typename Raw<XT>::T;
   constexpr int K = 4 * kCPW;  // sums a lane folds: 4 gates x 2 channels
   constexpr int kShift = 2;    // lane >> kShift: the sum it ends with
@@ -343,6 +347,13 @@ slstm_scan_kernel(const XT* __restrict__ xg, const void* __restrict__ r,
         n = fmaxf(fp * n + ip, 1e-6f);
         m = m1;
         h = o * (c / n);
+        if (kKeep) {  // cnm[b, t, k, head hd + rank E + lane]
+          float* kp = cnm + ((long long)b * S + t) * 3 * D +
+                      (chan0 - (long long)b * D) + lane;
+          kp[0] = c;
+          kp[D] = n;
+          kp[2 * D] = m;
+        }
       }
       if (t + 1 < S) {  // into hbuf[(t + 1) & 1] of every CTA, 4 channels
         const float h1 = __shfl_down_sync(kFull, h, 1);  // to a 16-byte word
@@ -380,13 +391,14 @@ slstm_scan_kernel(const XT* __restrict__ xg, const void* __restrict__ r,
 struct Args {
   const void *xg, *r;
   const float *h0, *c0, *n0, *m0;
-  float *hs, *h_fin, *c_fin, *n_fin, *m_fin;
+  float *hs, *h_fin, *c_fin, *n_fin, *m_fin, *cnm;
   int B, S, H, hd, C, r_bf16;
 };
 
 template <int NR, typename XT>
 int launch(const Args& a, cudaStream_t stream) {
-  auto kernel = slstm_scan_kernel<NR, XT>;
+  auto kernel = a.cnm ? slstm_scan_kernel<NR, XT, true>
+                      : slstm_scan_kernel<NR, XT, false>;
   const int E = a.hd / a.C;
   // a warp for two channels, and at least two warps (warp 1 writes hs)
   const int threads = 32 * std::max(2, (E + kCPW - 1) / kCPW);
@@ -411,7 +423,8 @@ int launch(const Args& a, cudaStream_t stream) {
   if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const XT*>(a.xg), a.r,
                            a.h0, a.c0, a.n0, a.m0, a.hs, a.h_fin, a.c_fin,
-                           a.n_fin, a.m_fin, a.S, a.H, a.hd, a.C, a.r_bf16);
+                           a.n_fin, a.m_fin, a.cnm, a.S, a.H, a.hd, a.C,
+                           a.r_bf16);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -431,15 +444,15 @@ int launch_rows(const Args& a, cudaStream_t stream) {
 
 // xg: (B,S,4,D) float32 (xg_bf16 == 0) or bfloat16; r: (4,H,hd,hd) float32
 // (r_bf16 == 0) or bfloat16; h0, c0, n0, m0, h_fin, c_fin, n_fin, m_fin:
-// (B,D) float32; hs: (B,S,D) float32; all contiguous.  hd at most 256 and
-// a multiple of its cluster size C, the least power of two with hd / C at
-// most 32.
+// (B,D) float32; hs: (B,S,D) float32; cnm: null, or (B,S,3,D) float32; all
+// contiguous.  hd at most 256 and a multiple of its cluster size C, the
+// least power of two with hd / C at most 32.
 extern "C" int slstm_scan_launch(const void* xg, const void* r, const void* h0,
                                  const void* c0, const void* n0,
                                  const void* m0, void* hs, void* h_fin,
-                                 void* c_fin, void* n_fin, void* m_fin, int B,
-                                 int S, int H, int hd, int xg_bf16,
-                                 int r_bf16, void* stream) {
+                                 void* c_fin, void* n_fin, void* m_fin,
+                                 void* cnm, int B, int S, int H, int hd,
+                                 int xg_bf16, int r_bf16, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0) return 0;
   if (hd <= 0 || hd > kMaxHd || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -458,6 +471,7 @@ extern "C" int slstm_scan_launch(const void* xg, const void* r, const void* h0,
                static_cast<float*>(c_fin),
                static_cast<float*>(n_fin),
                static_cast<float*>(m_fin),
+               static_cast<float*>(cnm),
                B,
                S,
                H,

@@ -13,10 +13,14 @@ generation, which the wrapper keeps on each stream from launch to launch
 (the note in the source has the design).
 
 :func:`linear_scan_plain` is its plain version: a log-depth
-(Hillis-Steele) scan in torch, which autograd can differentiate; the CPU
-takes it.  On a CUDA tensor that needs a gradient the wrapper raises: the
-kernel has no backward yet (ROADMAP.md, training of the recurrent
-families).
+(Hillis-Steele) scan in torch; the CPU takes it.
+
+A call that needs a gradient goes through :class:`LinearScan`, whose
+backward is the same recurrence run from the end (``dh_t = g_t +
+a_{t+1} dh_{t+1}``, ``db = dh``, ``da_t = dh_t h_{t-1}``): on a CUDA
+tensor the kernel ``csrc/linear_scan_bwd.cu`` (:data:`BWD_KERNEL`), on a
+CPU tensor its plain version :func:`linear_scan_bwd_plain`.  Serving
+needs no gradient and launches the forward kernel alone.
 """
 from __future__ import annotations
 
@@ -30,6 +34,14 @@ from ._build import Kernel
 KERNEL = Kernel(
     "linear_scan",
     [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+    + [ctypes.c_uint],
+    replaces="src/repro/models/rglru.py:82",
+)
+#: the backward: the reference differentiates the ``associative_scan`` by
+#: autodiff (``jax.grad`` through ``rglru.py:82``)
+BWD_KERNEL = Kernel(
+    "linear_scan_bwd",
+    [ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 3
     + [ctypes.c_uint],
     replaces="src/repro/models/rglru.py:82",
 )
@@ -48,7 +60,9 @@ GENERATIONS = 1 << 30
 #: (another tree): all float32,
 #: they differ in summation order only.  With ``|a| < 1`` an error decays,
 #: so each output carries the rounding of about ``1 / (1 - a)`` terms: for
-#: ``a <= 0.95`` and ``|b| <= 1`` that is under 1e-5 of ``|h| <= 20``
+#: ``a <= 0.95`` and ``|b| <= 1`` that is under 1e-5 of ``|h| <= 20``.
+#: The backward kernel is held to its plain version by the same rule: the
+#: same scan run from the end, then one product (``da``)
 TOLERANCE = dict(rtol=1e-4, atol=1e-5)
 
 
@@ -63,16 +77,21 @@ def _check(a, b, h0):
         raise ValueError("an empty sequence has no last state")
 
 
+def _float(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32, or float64 where it is: the plain versions compute
+    in the wider of the two, so the tests can hold them in float64."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def linear_scan_plain(a: torch.Tensor, b: torch.Tensor,
                       h0: torch.Tensor | None = None):
-    """``(h (B,T,N), h_last (B,N))`` in float32 by a Hillis-Steele scan:
-    after the pass of stride d, each (a, b) pair composes the d steps
-    before it with its own."""
+    """``(h (B,T,N), h_last (B,N))`` in float32 (float64 for float64
+    inputs) by a Hillis-Steele scan: after the pass of stride d, each (a, b)
+    pair composes the d steps before it with its own."""
     _check(a, b, h0)
-    a = a.to(torch.float32)
-    b = b.to(torch.float32)
+    a, b = _float(a), _float(b)
     if h0 is not None:  # the reference's fold of h0 into the first input
-        b = torch.cat([b[:, :1] + a[:, :1] * h0.to(torch.float32)[:, None],
+        b = torch.cat([b[:, :1] + a[:, :1] * h0.to(b.dtype)[:, None],
                        b[:, 1:]], dim=1)
     T, d = a.shape[1], 1
     while d < T:
@@ -82,16 +101,115 @@ def linear_scan_plain(a: torch.Tensor, b: torch.Tensor,
     return b, b[:, -1]
 
 
+def linear_scan_bwd_plain(a, h, h0, g, g_last):
+    """The vector-Jacobian product of :func:`linear_scan_plain` at its
+    output ``h``: ``(da, db, dh0)`` (``dh0`` None when ``h0`` is) for the
+    upstream gradients ``g`` of ``h`` and ``g_last`` of ``h_last``.  The
+    reverse recurrence ``dh_T = g_T + g_last``, ``dh_t = g_t + a_{t+1}
+    dh_{t+1}`` runs as the plain scan over the reversed steps (its first
+    coefficient 1, its initial state ``g_last``); then ``db = dh``,
+    ``da_t = dh_t h_{t-1}`` (``h0``, or zero, before the first) and
+    ``dh0 = a_1 dh_1``."""
+    a, h, g, g_last = _float(a), _float(h), _float(g), _float(g_last)
+    after = torch.cat([a[:, 1:], torch.ones_like(a[:, :1])], dim=1)
+    dh, _ = linear_scan_plain(after.flip(1), g.flip(1), g_last)
+    dh = dh.flip(1)
+    first = (torch.zeros_like(h[:, :1]) if h0 is None
+             else _float(h0)[:, None].to(h.dtype))
+    da = dh * torch.cat([first, h[:, :-1]], dim=1)
+    dh0 = None if h0 is None else a[:, 0] * dh[:, 0]
+    return da, dh, dh0
+
+
 def _needs_grad(*ts) -> bool:
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in ts)
 
 
-def no_backward(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"the {name} kernel has no backward: training the recurrent "
-        f"families on the card waits for its backward kernel (ROADMAP.md, "
-        f"later work); a CPU tensor trains through the plain version")
+def _check_cuda(a, b, h0):
+    _check(a, b, h0)
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise ValueError(f"expected float32 a, b; got {a.dtype}, {b.dtype}")
+    if b.device != a.device or (h0 is not None and h0.device != a.device):
+        raise ValueError("a, b and h0 must be on one device")
+
+
+def _launch(a, b, h0):
+    """The forward kernel on CUDA tensors: ``(h, h_last)``."""
+    _check_cuda(a, b, h0)
+    B, T, N = a.shape
+    if h0 is None:
+        h0 = torch.zeros((B, N), dtype=torch.float32, device=a.device)
+    a, b = a.contiguous(), b.contiguous()
+    h0 = h0.to(torch.float32).contiguous()
+    out = torch.empty_like(a)
+    last = torch.empty((B, N), dtype=torch.float32, device=a.device)
+    if B * N == 0:
+        return out, last
+    stream = torch.cuda.current_stream(a.device)
+    scratch, gen = _scratch.take(stream, 1 + _tiles(B, T, N) * 2
+                                 * TILE_CHANNELS)
+    with torch.cuda.device(a.device):
+        KERNEL.launch(a.data_ptr(), b.data_ptr(), h0.data_ptr(),
+                      out.data_ptr(), last.data_ptr(), scratch.data_ptr(),
+                      scratch.numel(), B, T, N, gen,
+                      stream=stream.cuda_stream)
+    return out, last
+
+
+def _launch_bwd(a, h, h0, g, g_last):
+    """The backward kernel on CUDA tensors: ``(da, db, dh0)``, ``dh0``
+    None when ``h0`` is."""
+    B, T, N = a.shape
+    dev = a.device
+    a, h, g, g_last = (t.to(torch.float32).contiguous()
+                       for t in (a, h, g, g_last))
+    h0c = (torch.zeros((B, N), dtype=torch.float32, device=dev)
+           if h0 is None else h0.to(torch.float32).contiguous())
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    dh0 = torch.empty((B, N), dtype=torch.float32, device=dev)
+    if B * N == 0:
+        return da, db, None if h0 is None else dh0
+    stream = torch.cuda.current_stream(dev)
+    scratch, gen = _scratch.take(stream, 1 + _tiles(B, T, N) * 2
+                                 * TILE_CHANNELS)
+    with torch.cuda.device(dev):
+        BWD_KERNEL.launch(a.data_ptr(), h.data_ptr(), h0c.data_ptr(),
+                          g.data_ptr(), g_last.data_ptr(), da.data_ptr(),
+                          db.data_ptr(), dh0.data_ptr(), scratch.data_ptr(),
+                          scratch.numel(), B, T, N, gen,
+                          stream=stream.cuda_stream)
+    return da, db, None if h0 is None else dh0
+
+
+def _tiles(B: int, T: int, N: int) -> int:
+    return B * -(-N // TILE_CHANNELS) * -(-T // TILE_STEPS)
+
+
+class LinearScan(torch.autograd.Function):
+    """The scan with its backward: the kernels on CUDA tensors, the plain
+    versions on CPU ones.  It saves a, h0 and its output h, from which the
+    backward reads ``h_{t-1}``."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        if a.device.type == "cpu":
+            h, last = linear_scan_plain(a, b, h0)
+        else:
+            h, last = _launch(a, b, h0)
+        ctx.save_for_backward(a, h0, h)
+        ctx.dtypes = (a.dtype, b.dtype, None if h0 is None else h0.dtype)
+        return h, last
+
+    @staticmethod
+    def backward(ctx, g, g_last):
+        a, h0, h = ctx.saved_tensors
+        bwd = (linear_scan_bwd_plain if a.device.type == "cpu"
+               else _launch_bwd)
+        da, db, dh0 = bwd(a, h, h0, g, g_last)
+        ta, tb, th = ctx.dtypes
+        return (da.to(ta), db.to(tb),
+                None if dh0 is None else dh0.to(th))
 
 
 def linear_scan(a: torch.Tensor, b: torch.Tensor,
@@ -99,36 +217,15 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor,
     """``h_t = a_t * h_{t-1} + b_t`` over ``(B,T,N)`` from ``h0`` (zeros
     when None): ``(h (B,T,N), h_last (B,N))`` in float32.  CPU tensors
     take :func:`linear_scan_plain`; CUDA tensors launch the kernel (or
-    raise)."""
-    if a.device.type == "cpu":
-        return linear_scan_plain(a, b, h0)
-    if a.device.type != "cuda":
+    raise).  A call that needs a gradient goes through
+    :class:`LinearScan`."""
+    if a.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {a.device}")
     if _needs_grad(a, b, h0):
-        raise no_backward("linear_scan")
-    _check(a, b, h0)
-    if a.dtype != torch.float32 or b.dtype != torch.float32:
-        raise ValueError(f"expected float32 a, b; got {a.dtype}, {b.dtype}")
-    B, T, N = a.shape
-    if h0 is None:
-        h0 = torch.zeros((B, N), dtype=torch.float32, device=a.device)
-    if b.device != a.device or h0.device != a.device:
-        raise ValueError("a, b and h0 must be on one device")
-    a, b = a.contiguous(), b.contiguous()
-    h0 = h0.to(torch.float32).contiguous()
-    out = torch.empty_like(a)
-    last = torch.empty((B, N), dtype=torch.float32, device=a.device)
-    if B * N == 0:
-        return out, last
-    tiles = B * -(-N // TILE_CHANNELS) * -(-T // TILE_STEPS)
-    stream = torch.cuda.current_stream(a.device)
-    scratch, gen = _scratch.take(stream, 1 + tiles * 2 * TILE_CHANNELS)
-    with torch.cuda.device(a.device):
-        KERNEL.launch(a.data_ptr(), b.data_ptr(), h0.data_ptr(),
-                      out.data_ptr(), last.data_ptr(), scratch.data_ptr(),
-                      scratch.numel(), B, T, N, gen,
-                      stream=stream.cuda_stream)
-    return out, last
+        return LinearScan.apply(a, b, h0)
+    if a.device.type == "cpu":
+        return linear_scan_plain(a, b, h0)
+    return _launch(a, b, h0)
 
 
 class _Scratch:

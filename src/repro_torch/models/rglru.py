@@ -5,7 +5,9 @@ recurrence (its gates depend on the input, not on the hidden state), so a
 prompt runs as one scan over the sequence: on a CUDA tensor the
 ``linear_scan`` kernel (``kernels/linear_scan.py``), where the reference
 takes ``lax.associative_scan``; on a CPU tensor its plain log-depth
-version.  Decode is a one-step update with constant state (the LRU's h and
+version.  Under a gradient (training) the scan's backward is the same
+recurrence run from the end, a kernel of its own on the card.  Decode is
+a one-step update with constant state (the LRU's h and
 the convolution's last ``conv_width - 1`` inputs), elementwise torch as in
 the reference.  The local-window MQA layers of the hybrid pattern are the
 ``attn`` block kind of ``models/attention.py``.

@@ -20,6 +20,10 @@ head), sequential by nature.  A prompt's four input-gate products are
 plain products; the recurrence over the steps is the ``slstm_scan``
 kernel (``kernels/slstm_scan.py``; its plain loop of the cell on a CPU
 tensor); decode is one step of the cell.
+
+Under a gradient (training) both scans go through their
+``torch.autograd.Function``, whose backward is a kernel on the card and a
+plain backward on the CPU; nothing here changes for it.
 """
 from __future__ import annotations
 

@@ -1277,13 +1277,15 @@ _SLSTM_SHAPES = [(1, 1, 1, 8), (2, 33, 2, 32), (3, 17, 3, 24),
     for shape in _SLSTM_SHAPES] + [
         (torch.bfloat16, 2, 50, 4, 192), (torch.bfloat16, 1, 1, 4, 192),
         (torch.bfloat16, 3, 20, 2, 256), (torch.bfloat16, 3, 12, 3, 200),
-        (torch.bfloat16, 1, 2048, 4, 192)])
+        (torch.bfloat16, 1, 2048, 4, 192), (torch.float32, 2, 50, 4, 192),
+        (torch.float32, 3, 20, 2, 256), (torch.float32, 3, 12, 3, 200)])
 def test_slstm_scan_kernel_matches_plain(dev, dtype, B, S, H, hd):
     """Gate inputs and recurrent weights in float32 and in bfloat16 (the
     reference's promotion: the state times r in float32), the weights at
     the model's scale (std 0.02), the state carried across two calls, head
-    widths up to the kernel's (128 in float32, 256 in bfloat16; 200: 25
-    channels a CTA, padded to 28 in the h buffer), S = 1, and xLSTM's
+    widths up to the kernel's 256 (in float32 too: xLSTM's 192 is trained
+    there by phase 14's gradient check; 200: 25 channels a CTA, padded to
+    28 in the h buffer), S = 1, and xLSTM's
     width over 4,096 steps (two calls of 2,048); held to the plain version
     in float64 as accurately as the plain version in float32 is
     (``ACCURACY``)."""
@@ -1325,10 +1327,152 @@ def test_flash_kernel_at_head_width_256(dev, no_tf32, dtype, KV, S):
                   f"causal={causal} window={window}")
 
 
-def test_new_wrappers_raise_on_a_cuda_input_that_needs_a_gradient(dev):
-    """The scans have no backward kernel yet: a CUDA input that needs a
-    gradient raises, naming ROADMAP; without one it launches.  The sLSTM
-    wrapper refuses a head width its kernel does not take."""
+# -- the scans' backward kernels ---------------------------------------------
+
+
+def _grads(outs, ins, seed):
+    """Autograd's gradients of ``ins`` under random upstream gradients on
+    every output (the same numbers for every call with the same seed)."""
+    rng = np.random.default_rng(seed)
+    gs = [torch.from_numpy(rng.standard_normal(tuple(o.shape)).astype(
+        np.float32)).to(o.device) for o in outs]
+    got = torch.autograd.grad(sum((o * g).sum() for o, g in zip(outs, gs)),
+                              ins)
+    return got, gs
+
+
+@pytest.mark.parametrize("with_h0", [True, False])
+@pytest.mark.parametrize("B,T,N", [(1, 1, 1), (2, 37, 100), (3, 1000, 33),
+                                   (1, 4096, 2560), (2, _TILE + 1, 64),
+                                   (3, 300 * _TILE + 5, 40)])
+def test_linear_scan_bwd_kernel_matches_plain(dev, B, T, N, with_h0):
+    """Ragged T and N, one and hundreds of tiles (the look-back run from
+    the end), with and without h0: the kernel's gradients against the
+    plain backward on the same saved h, and two launches bit-equal."""
+    from repro_torch.kernels import linear_scan as kscan
+
+    rng = np.random.default_rng(T + N + with_h0)
+    a = _t32(rng, (B, T, N), 0.0, 0.95).requires_grad_(True)
+    b = _t32(rng, (B, T, N), std=0.5).requires_grad_(True)
+    h0 = _t32(rng, (B, N)).requires_grad_(True) if with_h0 else None
+    ins = (a, b) + ((h0,) if with_h0 else ())
+    kscan.KERNEL.launches = kscan.BWD_KERNEL.launches = 0
+    h, last = kscan.linear_scan(a, b, h0)
+    got, (g, g_last) = _grads((h, last), ins, 1)
+    assert (kscan.KERNEL.launches, kscan.BWD_KERNEL.launches) == (1, 1)
+    want = kscan.linear_scan_bwd_plain(
+        a.detach(), h.detach(), None if h0 is None else h0.detach(), g,
+        g_last)
+    for x, w in zip(got, want):
+        _close_to(x, w, kscan.TOLERANCE)
+    again, _ = _grads(kscan.linear_scan(a, b, h0), ins, 1)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("carried", [True, False])
+@pytest.mark.parametrize("B,nc,H,hd", [(1, 1, 1, 1), (2, 5, 3, 33),
+                                       (8, 8, 4, 384), (3, 9, 2, 64),
+                                       (1, 20, 1, 8)])
+def test_mlstm_scan_bwd_kernel_matches_plain(dev, B, nc, H, hd, carried):
+    """Every input's gradient against the plain backward's
+    (``BWD_TOLERANCE``), from a carried state and from the model's initial
+    one (m at -1e30), nc above the kernel's group of 8 chunks; xLSTM's
+    width at phase 14's batch of 8 rows; two launches bit-equal."""
+    from repro_torch.kernels import mlstm_scan as kmlstm
+
+    rng = np.random.default_rng(nc + hd + carried)
+    ins = [-_t32(rng, (B, nc, H), 0.0, 5.0), _t32(rng, (B, nc, H)),
+           _t32(rng, (B, nc, H, hd, hd)), _t32(rng, (B, nc, H, hd))]
+    if carried:
+        ins += [_t32(rng, (B, H, hd, hd)), _t32(rng, (B, H, hd)),
+                _t32(rng, (B, H))]
+    else:
+        ins += [torch.zeros((B, H, hd, hd), device=dev),
+                torch.zeros((B, H, hd), device=dev),
+                torch.full((B, H), -1e30, device=dev)]
+    ins = [t.requires_grad_(True) for t in ins]
+    kmlstm.KERNEL.launches = kmlstm.BWD_KERNEL.launches = 0
+    outs = kmlstm.mlstm_scan(*ins)
+    got, gs = _grads(outs, ins, 2)
+    assert (kmlstm.KERNEL.launches, kmlstm.BWD_KERNEL.launches) == (1, 1)
+    want = kmlstm.mlstm_scan_bwd_plain(*(t.detach() for t in ins[:4]),
+                                       *(t.detach() for t in outs[:3]), *gs)
+    torch.cuda.synchronize()
+    used = kmlstm.bwd_tolerance_used(got, want)
+    assert used <= 1.0, used
+    again, _ = _grads(kmlstm.mlstm_scan(*ins), ins, 2)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def _slstm_bwd_case(dev, dtype, B, S, H, hd, seed):
+    from repro_torch.kernels import slstm_scan as kslstm
+
+    rng = np.random.default_rng(seed)
+    D = H * hd
+    xg = _t32(rng, (B, S, 4, D), std=0.5).to(dtype)
+    r = _t32(rng, (4, H, hd, hd), std=0.02).to(dtype)
+    st = [_t32(rng, (B, D), std=0.3), _t32(rng, (B, D)),
+          _t32(rng, (B, D), 0.5, 2.0), _t32(rng, (B, D))]
+    return xg, r, st
+
+
+def slstm_bwd_accuracy(xg, r, st, seed):
+    """The kernels' gradients (forward and backward kernel under autograd)
+    held to float64 autograd of the plain loop by ``accuracy_ratio``, the
+    float32 plain backward's own error the yardstick: (ratio, kernel
+    gradients)."""
+    from repro_torch.kernels import slstm_scan as kslstm
+
+    def run(fn, xg, r, st):
+        ins = [t.detach().requires_grad_(True) for t in (xg, r, *st)]
+        hs, fin = fn(ins[0], ins[1], kslstm.SLSTMState(*ins[2:]))
+        got, _ = _grads([hs, *fin], ins, seed)
+        return got[0], got[1], got[2:]
+
+    got = run(kslstm.slstm_scan, xg, r, st)
+    plain32 = run(kslstm.slstm_scan_plain, xg, r, st)
+    plain64 = run(kslstm.slstm_scan_plain, xg.double(), r.double(),
+                  [t.double() for t in st])
+    return kslstm.accuracy_ratio(got, plain32, plain64), got
+
+
+@pytest.mark.parametrize("dtype,B,S,H,hd", [
+    (dt, *shape) for dt in (torch.float32, torch.bfloat16)
+    for shape in [(1, 1, 1, 8), (2, 33, 2, 32), (3, 17, 3, 24),
+                  (1, 300, 4, 128), (1, 40, 2, 64)]] + [
+        (torch.bfloat16, 2, 50, 4, 192), (torch.bfloat16, 3, 20, 2, 256),
+        (torch.bfloat16, 3, 12, 3, 200), (torch.bfloat16, 2, 2048, 4, 192),
+        (torch.float32, 2, 50, 4, 192), (torch.float32, 3, 20, 2, 256),
+        (torch.float32, 1, 2304, 4, 192)])
+def test_slstm_scan_bwd_kernel_matches_float64_autograd(dev, dtype, B, S, H,
+                                                        hd):
+    """Every cluster size (1 at hd <= 32, 2 at 64, 4 at 128, 8 above),
+    several clusters, padded rows (hd 200: 25 channels a CTA), S = 1, and
+    xLSTM's width over 2,048 steps: the gradients of xg, r and the initial
+    state, forward and backward kernels under autograd, as accurate as the
+    plain version's in float32 (``accuracy_ratio`` against float64
+    autograd of the plain loop); each kernel launched once; the backward
+    bit-equal over two launches."""
+    from repro_torch.kernels import slstm_scan as kslstm
+
+    xg, r, st = _slstm_bwd_case(dev, dtype, B, S, H, hd, S + hd)
+    kslstm.KERNEL.launches = kslstm.BWD_KERNEL.launches = 0
+    ratio, got = slstm_bwd_accuracy(xg, r, st, 3)
+    assert (kslstm.KERNEL.launches, kslstm.BWD_KERNEL.launches) == (1, 1)
+    assert ratio <= 1.0, ratio
+    assert got[0].dtype == dtype and got[1].dtype == dtype
+    _, again = slstm_bwd_accuracy(xg, r, st, 3)
+    assert all(torch.equal(x, y) for x, y in zip(
+        [got[0], got[1], *got[2]], [again[0], again[1], *again[2]]))
+
+
+def test_new_wrappers_launch_their_backward_kernels_on_a_cuda_input_that_needs_a_gradient(dev):  # noqa: E501
+    """A CUDA input that needs a gradient goes through the scan's Function:
+    the forward kernel, then, at ``backward``, the backward kernel (once
+    each), with gradients equal to the plain backward's; under
+    ``torch.no_grad()`` the forward kernel alone.  The sLSTM wrapper
+    refuses a head width its kernels do not take, with or without a
+    gradient."""
     from repro_torch.kernels import linear_scan as kscan
     from repro_torch.kernels import mlstm_scan as kmlstm
     from repro_torch.kernels import slstm_scan as kslstm
@@ -1340,21 +1484,95 @@ def test_new_wrappers_raise_on_a_cuda_input_that_needs_a_gradient(dev):
             _t32(rng, (1, 1, 4, 4)), _t32(rng, (1, 1, 4)), _t32(rng, (1, 1)))
     xg, r = _t32(rng, (1, 3, 4, 8)), _t32(rng, (4, 2, 4, 4), std=0.02)
     st = kslstm.SLSTMState(*(_t32(rng, (1, 8)) for _ in range(4)))
-    with pytest.raises(ValueError, match="head width"):  # 20 % 8 != 0
-        kslstm.slstm_scan(_t32(rng, (1, 2, 4, 40)),
-                          _t32(rng, (4, 2, 20, 20)).bfloat16(),
-                          kslstm.SLSTMState(*(_t32(rng, (1, 40))
-                                              for _ in range(4))))
-    calls = [lambda g: kscan.linear_scan(g(a), b),
-             lambda g: kmlstm.mlstm_scan(*mins[:2], g(mins[2]), *mins[3:]),
-             lambda g: kslstm.slstm_scan(g(xg), r, st)]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for g in (lambda t: t, lambda t: t.clone().requires_grad_(True)):
+        with pytest.raises(ValueError, match="head width"):  # 20 % 8 != 0
+            kslstm.slstm_scan(g(_t32(rng, (1, 2, 4, 40))),
+                              _t32(rng, (4, 2, 20, 20)).bfloat16(),
+                              kslstm.SLSTMState(*(_t32(rng, (1, 40))
+                                                  for _ in range(4))))
+    cases = [
+        (kscan, lambda g: kscan.linear_scan(g(a), b),
+         lambda outs, gs: kscan.linear_scan_bwd_plain(a, outs[0], None,
+                                                      *gs)[:1]),
+        (kmlstm, lambda g: kmlstm.mlstm_scan(*mins[:2], g(mins[2]),
+                                             *mins[3:]),
+         lambda outs, gs: kmlstm.mlstm_scan_bwd_plain(
+             *mins[:4], *outs[:3], *gs)[2:3]),
+        (kslstm, lambda g: (lambda o: [o[0], *o[1]])(
+            kslstm.slstm_scan(g(xg), r, st)), None),
+    ]
+    for mod, call, plain in cases:
+        x = None
+
+        def grad_input(t):
+            nonlocal x
+            x = t.clone().requires_grad_(True)
+            return x
+
+        mod.KERNEL.launches = mod.BWD_KERNEL.launches = 0
+        outs = call(grad_input)
+        outs = list(outs) if isinstance(outs, (list, tuple)) else [outs]
+        assert (mod.KERNEL.launches, mod.BWD_KERNEL.launches) == (1, 0)
+        (got,), gs = _grads(outs, [x], 4)
+        assert (mod.KERNEL.launches, mod.BWD_KERNEL.launches) == (1, 1)
+        assert bool(torch.isfinite(got).all())
+        if plain is not None:
+            (want,) = plain([o.detach() for o in outs], gs)
+            _close_to(got, want, kscan.TOLERANCE)
+        with torch.no_grad():  # no gradient wanted: the forward kernel only
             call(lambda t: t.clone().requires_grad_(True))
-        call(lambda t: t)
-        with torch.no_grad():  # no gradient wanted: the kernel runs
-            call(lambda t: t.clone().requires_grad_(True))
+        assert (mod.KERNEL.launches, mod.BWD_KERNEL.launches) == (2, 1)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "xlstm-125m"])
+def test_recurrent_models_train_on_the_card_like_the_cpu(dev, no_tf32,
+                                                         arch):
+    """Reduced recurrentgemma-2b (flash blocks of 16) and xlstm-125m in
+    float32, 2 x 48 tokens: ``grads_and_metrics`` on the card (the scans'
+    forward and backward kernels, flash under autograd) against the CPU's
+    (the plain versions), leaf by leaf within 1e-3 of each element plus
+    1e-5 of the whole gradient's largest value; every scan kernel of the
+    arch launched once a layer of its kind, forward and backward."""
+    from repro_torch._tree import leaves, tree_map
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models import lm
+    from repro_torch.models.transformer import segments
+    from repro_torch.train import grads_and_metrics
+
+    cfg = get_reduced(arch)
+    if arch == "recurrentgemma-2b":
+        cfg = cfg.replace(attn_q_block=16, attn_kv_block=16)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (2, 48)))
+    batch = {"tokens": toks, "labels": toks}
+    want, wm = grads_and_metrics(cfg, params, batch)
+    for k in KERNELS:
+        k.launches = 0
+    got, gm = grads_and_metrics(cfg, tree_map(lambda t: t.to(dev), params),
+                                {k: t.to(dev) for k, t in batch.items()})
+    torch.cuda.synchronize()
+    layers = {}
+    for kind, n in segments(cfg):
+        layers[kind] = layers.get(kind, 0) + n
+    # a call a layer; the mLSTM's 48 tokens are a chunk of 32 and a ragged
+    # tail of 16, a call each
+    calls = {"rglru": ("linear_scan", 1), "mlstm": ("mlstm_scan", 2),
+             "slstm": ("slstm_scan", 1)}
+    expect = {}
+    for kind, (name, per_layer) in calls.items():
+        if kind in layers:
+            expect[name] = expect[f"{name}_bwd"] = layers[kind] * per_layer
+    if "attn" in layers:
+        expect["flash_attn"] = layers["attn"]
+    assert {k.name: k.launches for k in KERNELS if k.launches} == expect
+    assert float(gm["loss"]) == pytest.approx(float(wm["loss"]), rel=1e-5)
+    g_max = max(float(w.abs().max()) for w in leaves(want))
+    for g, w in zip(leaves(got), leaves(want)):
+        _close_to(g, w, dict(rtol=1e-3, atol=1e-5 * g_max))
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "xlstm-125m"])

@@ -546,9 +546,10 @@ def test_caches_keep_the_reference_s_structure(model):
 
 
 def test_gradients_run_through_the_plain_versions_on_the_cpu(model):
-    """Training the recurrent families on the card waits for backward
-    kernels (ROADMAP.md); on the CPU autograd runs through the plain
-    versions: every parameter gets a finite gradient."""
+    """On the CPU the scans' backward Functions take their plain
+    backwards (the card's take the backward kernels): every parameter gets
+    a finite gradient.  ``tests/test_torch_recurrent_train.py`` holds them
+    against the reference's."""
     cfg, _, params, _ = model
     leaves = []
 

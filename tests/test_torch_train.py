@@ -206,9 +206,9 @@ def test_loss_masks_negative_labels_and_eval_step():
     assert float(ev["loss"]) == float(loss) == float(ev["ce"])
 
 
-def _ref_and_port(kv_block: int):
-    rcfg = ref_reduced("llama3.2-1b").replace(attn_kv_block=kv_block)
-    cfg = get_reduced("llama3.2-1b").replace(attn_kv_block=kv_block)
+def _ref_and_port(kv_block: int, arch: str = "llama3.2-1b"):
+    rcfg = ref_reduced(arch).replace(attn_kv_block=kv_block)
+    cfg = get_reduced(arch).replace(attn_kv_block=kv_block)
     rparams = ref_lm.init_params(rcfg, jax.random.PRNGKey(0))
     kw = dict(lr=1e-3, warmup_steps=1, total_steps=10)
     rst = ref_opt_init(RefOptConfig(**kw), rparams)
@@ -219,26 +219,71 @@ def _ref_and_port(kv_block: int):
                                                       OptConfig(**kw))
 
 
-@pytest.mark.parametrize("kv_block", [1024, 16])
-def test_three_train_steps_match_reference(kv_block):
-    """Three steps of ``make_train_step`` from the reference's state, on
-    the materialised attention route (kv_block 1024 > S) and on the flash
-    route (kv_block 16 < S 32, the autograd route of the flash kernel)."""
-    (rcfg, rp, rst, rocfg), (cfg, p, st, ocfg) = _ref_and_port(kv_block)
+#: the recurrent families' parameters a step.  AdamW moves an element by
+#: ``lr m / (sqrt(v) + eps)``; where a step's gradient is within an order of
+#: eps (``0 < |g| < NOISE_GRAD``), below what either package's float32
+#: gradient resolves, that ratio carries rounding noise up to lr itself, so
+#: such an element is held to ``2 lr`` a step (the most AdamW can move two
+#: runs apart), every other to ``PARAM_ATOL_PER_STEP``.  Measured: a few
+#: elements of the reduced models (recurrentgemma-2b's MLP gate, xlstm-125m's
+#: mLSTM q and k, first-step gradients near 1e-8) differ by up to 7.4e-5,
+#: the rest within 1e-5; the sLSTM's input-gate bias, whose gradient is zero
+#: in exact arithmetic (a common shift of every ``i_pre`` scales c and n
+#: alike, so h does not move), is noise near 1e-10 in both packages.  The
+#: reference's gradient of step t is read from its first moment, ``(mu_t -
+#: b1 mu_{t-1}) / (1 - b1)`` (an exact zero moves neither package)
+NOISE_GRAD = 1e-7
+#: from the second step the parameters differ by those elements, and the
+#: gradient norm by up to 3.6e-6 relative (xlstm-125m, step 2; autograd
+#: through the plain loops, before the scans had backward Functions, gave
+#: 4.4e-6 on the same data): the loss stays within ``LOSS_RTOL``
+RECURRENT_NORM_RTOL = 1e-5
+
+
+@pytest.mark.parametrize("arch,kv_block,shape", [
+    ("llama3.2-1b", 1024, (4, 32)), ("llama3.2-1b", 16, (4, 32)),
+    ("recurrentgemma-2b", 1024, (2, 40)), ("xlstm-125m", 1024, (2, 40))],
+    ids=["1024", "16", "recurrentgemma-2b", "xlstm-125m"])
+def test_three_train_steps_match_reference(arch, kv_block, shape):
+    """Three steps of ``make_train_step`` from the reference's state: for
+    llama3.2-1b on the materialised attention route (kv_block 1024 > S)
+    and on the flash route (kv_block 16 < S 32, the autograd route of the
+    flash kernel); for the recurrent families at 2 x 40 tokens, so the
+    window of 32 and the mLSTM chunk of 32 are both crossed (the three
+    scans' Functions, their plain backwards on the CPU)."""
+    (rcfg, rp, rst, rocfg), (cfg, p, st, ocfg) = _ref_and_port(kv_block,
+                                                               arch)
     rstep = jax.jit(ref_make_train_step(rcfg, rocfg))
     step = make_train_step(cfg, ocfg)
     rng = np.random.default_rng(0)
+    paths = [jax.tree_util.keystr(k)
+             for k, _ in jax.tree_util.tree_leaves_with_path(rp)]
+    noisy = [np.zeros(np.shape(x), bool) for x in jax.tree.leaves(rp)]
     for i in range(3):
-        tok = rng.integers(0, cfg.vocab_size, (4, 32)).astype(np.int32)
-        lab = rng.integers(0, cfg.vocab_size, (4, 32)).astype(np.int32)
+        tok = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
+        lab = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
         lab[0, :5] = -1
+        mu0 = [np.asarray(x) for x in jax.tree.leaves(rst.mu)]
         rp, rst, rm = rstep(rp, rst, {"tokens": jnp.asarray(tok),
                                       "labels": jnp.asarray(lab)})
         p, st, m = step(p, st, {"tokens": torch.from_numpy(tok).long(),
                                 "labels": torch.from_numpy(lab).long()})
         for k in ("loss", "grad_norm", "lr"):
-            assert float(m[k]) == pytest.approx(float(rm[k]), rel=LOSS_RTOL)
-        _close(p, rp, rtol=0, atol=PARAM_ATOL_PER_STEP * (i + 1))
+            rel = (RECURRENT_NORM_RTOL if k == "grad_norm" and i
+                   and not arch.startswith("llama") else LOSS_RTOL)
+            assert float(m[k]) == pytest.approx(float(rm[k]), rel=rel)
+        if arch.startswith("llama"):
+            _close(p, rp, rtol=0, atol=PARAM_ATOL_PER_STEP * (i + 1))
+        else:
+            b1 = rocfg.betas[0]
+            for path, a, b, mu, mu_was, nz in zip(
+                    paths, leaves(p), jax.tree.leaves(rp),
+                    jax.tree.leaves(rst.mu), mu0, noisy):
+                g = np.abs((np.asarray(mu) - b1 * mu_was) / (1 - b1))
+                nz |= (g > 0) & (g < NOISE_GRAD)
+                atol = np.where(nz, 2 * rocfg.lr, PARAM_ATOL_PER_STEP)
+                err = np.abs(a.numpy() - np.asarray(b)) - atol * (i + 1)
+                assert float(err.max()) <= 0, path
         assert int(st.count) == int(rst.count) == i + 1
 
 
@@ -350,3 +395,20 @@ def test_launch_train_cli_on_cpu(tmp_path):
     assert any(l.startswith("checkpoint store savings:") for l in lines)
     assert sorted(os.listdir(tmp_path / "ck"))[:2] == [
         "latest", "manifest-00000001.json"]
+
+
+@pytest.mark.timeout(120)
+@pytest.mark.parametrize("arch", ["xlstm-125m", "recurrentgemma-2b"])
+def test_launch_train_cli_on_cpu_trains_the_recurrent_families(arch):
+    """``--arch ... --reduced`` on the CPU: the scans' Functions (their
+    plain backwards) through the CLI, a few steps, a finite final loss."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
+         "--arch", arch, "--reduced", "--steps", "3", "--batch", "2",
+         "--seq", "48", "--corpus-mb", "1"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=110)
+    assert out.returncode == 0, out.stderr[-2000:]
+    final = [l for l in out.stdout.splitlines() if l.startswith("final loss")]
+    assert final and "(3 steps run)" in final[0]
+    assert math.isfinite(float(final[0].split()[2]))

@@ -45,7 +45,14 @@ time, the wrapper's allocations included), after one warm-up call:
   768, bfloat16) and flash at recurrentgemma-2b's head width 256 (4,096
   tokens, 10 heads over 1 KV head, window 2048), with their device time
   a call; the sLSTM also at 1, 2 and 64 steps (a step's time from the
-  slope).
+  slope); and the sLSTM's training kernels at ``chip_smoke.py`` phase 3's
+  backward case, phase 14's shape (8 x 2,048 at D 768, bfloat16): the
+  forward's training instantiation (``keep=True``, which also writes the
+  state of every step) and the backward (``_launch_bwd``: the call with
+  the wrapper's rebuild of the pre-activations and its ``dr`` product, the
+  device time the kernel's alone), the backward also at 1, 2 and 64 steps
+  at B 1 and at B 8 (a step's time from the slope, apart from the waves of
+  clusters).
 
 The packed, gear, masks and fingerprint rows also give the kernels'
 device time a call, from a ``torch.profiler`` trace
@@ -77,6 +84,7 @@ from chip_smoke import (
     MLSTM_SCAN_CASES,
     PACKED_MIXES,
     SCAN_ALGOS,
+    SLSTM_BWD_CASES,
     SLSTM_SCAN_CASES,
     device_ms,
     packed_rows,
@@ -381,6 +389,30 @@ def recurrent_rows(seed: int) -> dict:
             out[f"slstm_scan {B}x{steps}"] = row(
                 lambda: kslstm.slstm_scan(xg[:, :steps], r, st), 20,
                 "slstm_scan_kernel")
+    for label, B, S, H, hd in SLSTM_BWD_CASES[:1]:
+        D = H * hd
+        xg = f32((B, S, 4, D), std=0.5).to(torch.bfloat16)
+        r = f32((4, H, hd, hd), std=0.02).to(torch.bfloat16)
+        st = kslstm.SLSTMState(*(torch.zeros((B, D), device="cuda")
+                                 for _ in range(3)),
+                               torch.full((B, D), -1e30, device="cuda"))
+        ups = [f32((B, S, D))] + [f32((B, D)) for _ in range(4)]
+        out[f"slstm_scan keep {B}x{S}"] = row(
+            lambda: kslstm._launch(xg, r, st, keep=True), 3,
+            "slstm_scan_kernel")
+        for b, steps in [(B, S)] + [(b, n) for b in (1, B)
+                                    for n in SLSTM_STEPS]:
+            xs = xg[:b, :steps].contiguous()
+            sts = kslstm.SLSTMState(*(t[:b] for t in st))
+            hs, _, cnm = kslstm._launch(xs, r, sts, keep=True)
+            ins = (xs, r, sts, hs, cnm, ups[0][:b, :steps].contiguous(),
+                   kslstm.SLSTMState(*(u[:b] for u in ups[1:])))
+            run = lambda: (lambda g: [g[0], g[1], *g[2]])(  # noqa: E731
+                kslstm._launch_bwd(*ins))
+            out[f"slstm_scan_bwd {b}x{steps}"] = dict(
+                row(run, 3 if steps == S else 20, "slstm_scan_bwd_kernel"),
+                plan=kslstm.bwd_plan(b, H, hd)
+                if hasattr(kslstm, "bwd_plan") else None)  # an older tree
     for label, B, S, H, KV, hd, dt, causal, window in FLASH_CASES:
         if hd != 256:
             continue
@@ -438,6 +470,11 @@ def main(argv=None) -> int:
                 extra += (f": scan {r['scan_device_ms']:.5f}, hash "
                           f"{r['hash_device_ms']:.5f}")
             extra += ")"
+        if r.get("plan"):
+            p = r["plan"]
+            extra += (f", {p['clusters']} clusters of {p['C']} ({p['R']} "
+                      f"rows a cluster; the card holds "
+                      f"{p['max_active_clusters']} at once)")
         if r.get("empty_device_ms") is not None:
             extra += (f", counts 0: device {r['empty_device_ms']:.5f} ms a "
                       f"call")

@@ -1192,8 +1192,9 @@ LINEAR_BWD_CASES = [("T4096", 1, 4096, 2560)]
 #: xlstm-125m's 8 rows of 2,048 tokens: 8 chunks of 256, 4 heads of 384
 MLSTM_BWD_CASES = [("8 chunks", 8, 8, 4, 384)]
 #: (label, B, S, H, hd): the sLSTM's backward at phase 14's shape: 8 rows
-#: of 2,048 steps at D 768 (4 heads of 192), bfloat16 gates and weights
-SLSTM_BWD_CASES = [("S2048", 8, 2048, 4, 192)]
+#: of 2,048 steps at D 768 (4 heads of 192), bfloat16 gates and weights;
+#: and at an odd batch (3 rows of 512 steps)
+SLSTM_BWD_CASES = [("S2048", 8, 2048, 4, 192), ("B3 S512", 3, 512, 4, 192)]
 
 
 def scan_bwd_phase(seed: int) -> dict:
@@ -1204,7 +1205,8 @@ def scan_bwd_phase(seed: int) -> dict:
     backwards on the forward kernels' saved outputs; the sLSTM's gradients
     (its forward and backward kernels under autograd) to float64 autograd
     of the plain loop by ``accuracy_ratio``, the float32 plain loop's own
-    error the yardstick."""
+    error the yardstick, its backward bit-equal over two launches, and its
+    launch plan (``bwd_plan``) at phase 14's shape one wave of clusters."""
     import numpy as np
     import torch
 
@@ -1317,6 +1319,16 @@ def scan_bwd_phase(seed: int) -> dict:
         hs, _, cnm = kslstm._launch(xg, r, kslstm.SLSTMState(*st), keep=True)
         bwd_ins = (xg, r, kslstm.SLSTMState(*st), hs, cnm, ups[0],
                    kslstm.SLSTMState(*ups[1:]))
+        once, again = (flat(kslstm._launch_bwd(*bwd_ins)) for _ in range(2))
+        if not all(torch.equal(x, y) for x, y in zip(once, again)):
+            raise AssertionError(f"slstm_scan_bwd {label}: two launches on "
+                                 f"the same inputs differ")
+        del once, again
+        plan = kslstm.bwd_plan(B, H, hd)
+        if (B, H) == (8, 4) and plan["clusters"] > plan[
+                "max_active_clusters"]:
+            raise AssertionError(f"slstm_scan_bwd {label}: {plan} is more "
+                                 f"than one wave of clusters")
         t0 = time.perf_counter()
         kslstm.slstm_scan_bwd_plain(*bwd_ins)
         torch.cuda.synchronize()
@@ -1333,6 +1345,7 @@ def scan_bwd_phase(seed: int) -> dict:
                       f"most {kslstm.ACCURACY:g} x the float32 plain loop's "
                       f"own + {kslstm.TOLERANCE['atol']:g}",
             bound_ms=bms, bound_by=by, library_ms=None, plain_ms=plain_ms,
+            plan=plan,
             shape=f"{B}x{S}, D {D}, {H} heads of {hd}, bfloat16 gates and "
                   f"weights",
             **kernel_times(lambda: kslstm._launch_bwd(*bwd_ins), 3,
@@ -3495,10 +3508,13 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     log(f"build: {len(built)} of {len(KERNELS)} kernels compiled in "
         f"{build_s:.2f} s")
-    for k in built:
+    for k in built:  # ptxas -v: a function's stack, spills and registers
+        fn = ""
         for line in k.build_log.splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"  {k.name}: {line.strip()}")
+            if "Function properties for" in line:
+                fn = line.split("Function properties for")[-1].strip()
+            elif "Used" in line or "spill" in line:
+                log(f"  {k.name} {fn}: {line.strip()}")
 
     # 3. each kernel against its plain version
     p = paper_params(8192)
@@ -3613,6 +3629,12 @@ def main(argv=None) -> int:
                  "; the float32 plain loop's own error against float64 "
                  "autograd " + ", ".join(
                      f"{k} {v:.3g}" for k, v in r["plain_f32_err"].items()))
+        if "plan" in r:
+            log(f"kernel {name}: {r['plan']['clusters']} clusters of "
+                f"{r['plan']['C']} CTAs ({r['plan']['R']} batch rows a "
+                f"cluster, {r['plan']['threads']} threads a CTA) launched, "
+                f"cudaOccupancyMaxActiveClusters "
+                f"{r['plan']['max_active_clusters']}")
         log(f"kernel {name} ({r['shape']}): max_abs_err "
             f"{r['max_abs_err']:.3g} (tolerance {r['tolerance']}, "
             f"{r['tol_used']:.3f} of it used{drift}), {r['ms']:.4f} ms "

@@ -62,6 +62,7 @@ class Kernel:
         self.argtypes = list(argtypes)
         self.launches = 0
         self._fn = None
+        self._lib = None
         self.build_log = ""
 
     @property
@@ -74,6 +75,9 @@ class Kernel:
         return BUILD_DIR / f"lib{self.name}-{digest}.so"
 
     def _bind(self):
+        if self._fn is not None:
+            return
+        build([self])
         lib = ctypes.CDLL(str(self.library))
         fn = getattr(lib, f"{self.name}_launch")
         fn.argtypes = self.argtypes + [ctypes.c_void_p]
@@ -81,14 +85,26 @@ class Kernel:
         err = getattr(lib, f"{self.name}_error_string")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
+        self._lib = lib
         self._fn = (fn, err)
+
+    def call(self, name: str, argtypes: Sequence, *args) -> None:
+        """Call the library's C function ``name`` (an int return, 0 on
+        success) with ``args`` of ``argtypes``; raise on a nonzero return.
+        Not a launch: the count does not move."""
+        self._bind()
+        fn = getattr(self._lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        rc = fn(*args)
+        if rc != 0:
+            raise RuntimeError(f"{name} failed: error {rc} "
+                               f"({self._fn[1](rc).decode()})")
 
     def launch(self, *args, stream: int):
         """Launch on ``stream`` (a ``cudaStream_t`` as an int); raise on a
         nonzero ``cudaGetLastError()``, else count the launch."""
-        if self._fn is None:
-            build([self])
-            self._bind()
+        self._bind()
         fn, err = self._fn
         rc = fn(*args, stream)
         if rc != 0:

@@ -298,6 +298,21 @@ def _launch(xg, r, state, keep: bool = False):
     return (hs, fin, cnm) if keep else (hs, fin)
 
 
+def bwd_plan(B: int, H: int, hd: int) -> dict:
+    """The backward kernel's launch plan for ``B`` rows of ``H`` heads of
+    width ``hd`` on the current CUDA device, as the kernel computes it
+    (``csrc/slstm_scan_bwd.cu``): the cluster size ``C``, the batch rows a
+    cluster serves ``R``, the clusters launched (``ceil(B / R) H``), the
+    clusters the card holds at once (``cudaOccupancyMaxActiveClusters``;
+    one wave when ``clusters`` is at most this) and the threads a CTA.
+    Launches nothing."""
+    plan = (ctypes.c_int * 5)()
+    BWD_KERNEL.call("slstm_scan_bwd_plan", [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_int)], B, H, hd, plan)
+    return dict(zip(("C", "R", "clusters", "max_active_clusters",
+                     "threads"), plan))
+
+
 def _launch_bwd(xg, r, state, hs, cnm, dhs, dfinal):
     """The backward on CUDA tensors, as :func:`slstm_scan_bwd_plain`: the
     pre-activations of every step rebuilt at once from the saved hs and xg

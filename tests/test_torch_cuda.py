@@ -1443,16 +1443,25 @@ def slstm_bwd_accuracy(xg, r, st, seed):
         (torch.bfloat16, 2, 50, 4, 192), (torch.bfloat16, 3, 20, 2, 256),
         (torch.bfloat16, 3, 12, 3, 200), (torch.bfloat16, 2, 2048, 4, 192),
         (torch.float32, 2, 50, 4, 192), (torch.float32, 3, 20, 2, 256),
-        (torch.float32, 1, 2304, 4, 192)])
+        (torch.float32, 1, 2304, 4, 192),
+        (torch.bfloat16, 3, 300, 4, 192), (torch.bfloat16, 5, 300, 4, 192),
+        (torch.float32, 5, 100, 4, 192), (torch.bfloat16, 1, 500, 4, 192),
+        (torch.bfloat16, 64, 24, 4, 192), (torch.float32, 64, 16, 2, 64),
+        (torch.bfloat16, 8, 2048, 4, 192), (torch.float32, 8449, 3, 1, 4)])
 def test_slstm_scan_bwd_kernel_matches_float64_autograd(dev, dtype, B, S, H,
                                                         hd):
     """Every cluster size (1 at hd <= 32, 2 at 64, 4 at 128, 8 above),
     several clusters, padded rows (hd 200: 25 channels a CTA), S = 1, and
-    xLSTM's width over 2,048 steps: the gradients of xg, r and the initial
-    state, forward and backward kernels under autograd, as accurate as the
-    plain version's in float32 (``accuracy_ratio`` against float64
-    autograd of the plain loop); each kernel launched once; the backward
-    bit-equal over two launches."""
+    xLSTM's width over 2,048 steps; the batch rows a cluster serves (R,
+    ``bwd_plan``): 1 (B 1 and 3), 2 with a row past B (B 5 at 4 heads), 3
+    with one (xLSTM's 8 rows of 4 heads), B 64, more clusters than one
+    wave, and 3 at hd 4, where the third cell warp sums no channel (8,449
+    rows of 1 head: more than two rows a cluster of 1 CTA on any card of
+    at most 132 SMs, each holding at most 32 CTAs): the gradients of xg, r and the initial state, forward and
+    backward kernels under autograd, as accurate as the plain version's in
+    float32 (``accuracy_ratio`` against float64 autograd of the plain
+    loop); each kernel launched once; the backward bit-equal over two
+    launches."""
     from repro_torch.kernels import slstm_scan as kslstm
 
     xg, r, st = _slstm_bwd_case(dev, dtype, B, S, H, hd, S + hd)
@@ -1464,6 +1473,37 @@ def test_slstm_scan_bwd_kernel_matches_float64_autograd(dev, dtype, B, S, H,
     _, again = slstm_bwd_accuracy(xg, r, st, 3)
     assert all(torch.equal(x, y) for x, y in zip(
         [got[0], got[1], *got[2]], [again[0], again[1], *again[2]]))
+
+
+def test_slstm_scan_bwd_plan_one_wave_where_it_fits(dev):
+    """The backward's launch plan: the least R of 1-3 whose ceil(B / R) H
+    clusters the card holds at once, else 3; xLSTM's 8 rows of 4 heads of
+    192 in one wave; one row a cluster where it fits; cluster sizes as the
+    forward's; a warp for two channels, at least R of them, and the io
+    warp (at hd 4 and R 3, four warps: the third cell warp sums
+    nothing); the same plan when asked again."""
+    from repro_torch.kernels import slstm_scan as kslstm
+
+    launches = kslstm.BWD_KERNEL.launches
+    for B, H, hd in [(1, 4, 192), (3, 4, 192), (5, 4, 192), (8, 4, 192),
+                     (64, 4, 192), (2, 2, 64), (1, 1, 8), (4, 2, 256),
+                     (8449, 1, 4)]:
+        plan = kslstm.bwd_plan(B, H, hd)
+        C = plan["C"]
+        assert C == max(1, 2 ** int(np.ceil(np.log2(hd / 32)))), plan
+        fits = [R for R in (1, 2, 3)
+                if -(-B // R) * H <= plan["max_active_clusters"]]
+        want = min(fits) if fits else 3
+        assert plan["R"] == (1 if B == 1 else want), (B, H, hd, plan)
+        assert plan["clusters"] == -(-B // plan["R"]) * H, plan
+        assert plan["threads"] == 32 * (
+            max(-(-(hd // C) // 2), plan["R"]) + 1), plan
+        assert kslstm.bwd_plan(B, H, hd) == plan
+    plan = kslstm.bwd_plan(8449, 1, 4)
+    assert (plan["R"], plan["threads"]) == (3, 128), plan
+    plan = kslstm.bwd_plan(8, 4, 192)
+    assert plan["clusters"] <= plan["max_active_clusters"], plan
+    assert kslstm.BWD_KERNEL.launches == launches
 
 
 def test_new_wrappers_launch_their_backward_kernels_on_a_cuda_input_that_needs_a_gradient(dev):  # noqa: E501

@@ -208,6 +208,7 @@ checkout of the repo, or when any phase fails.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
@@ -566,6 +567,60 @@ def packed_phase(p, B: int, S: int, seed: int) -> dict:
                 x, e, p, max_chunks=mc), 20, "packed_pipeline_"),
             plain_ms=cuda_ms(lambda: kpacked.packed_pipeline_plain(
                 x, e, p, max_chunks=mc), 3),
+        ))
+    return out
+
+
+def select_packed_phase(p, B: int, S: int, seed: int) -> dict:
+    """The packed select kernel against its plain version (the packed
+    automaton's loop over W-blocks, torch ops on the card) and against the
+    packed kernel's bounds and counts, on the masks kernel's bitmaps of
+    ``packed_phase``'s rows (the same seed) clipped per segment; each mix
+    also at a table one short of its fullest row (emits dropped)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.automaton import select_boundaries_packed
+    from repro_torch.core.seqcdc import packed_masks, segment_end_positions
+    from repro_torch.kernels import packed_pipeline as kpacked
+    from repro_torch.kernels import select_boundaries_packed as kselp
+
+    out = {}
+    rng = np.random.default_rng(seed)
+    for mix in PACKED_MIXES:
+        data, ends, _ = packed_rows(rng, mix, B, S)
+        x = torch.from_numpy(data).cuda()
+        e = torch.from_numpy(ends).cuda()
+        G = ends.shape[1]
+        mc = S // p.min_size + 2 * G + 2
+        cand, opp = packed_masks(x, segment_end_positions(e, S), p,
+                                 mask_impl="cuda")
+        run = lambda m: kselp.select_boundaries_packed(  # noqa: E731
+            cand, opp, e, p, max_chunks=m)
+        plain = lambda m: select_boundaries_packed(  # noqa: E731
+            cand, opp, e, p, max_chunks=m)
+        counts = run(mc)[1]
+        short = max(1, int(counts.max()) - 1)
+        err = 0
+        for m in (mc, short):
+            got = run(m)
+            want = plain(m)
+            fused = kpacked.packed_pipeline_batch(x, e, p, max_chunks=m)[:2]
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err(got, want))
+            if err or max_abs_err(got, fused):
+                raise AssertionError(
+                    f"select_boundaries_packed differs from its plain "
+                    f"version or the packed kernel on the {mix} mix at "
+                    f"max_chunks {m}")
+        bms, by = bound_ms(2 * B * S + 4 * B * G + 4 * B * mc + 4 * B,
+                           4 * B * S)
+        out[mix] = timed(dict(
+            max_abs_err=err, bound_ms=bms, bound_by=by, G=G, mc=mc,
+            short_mc=short, chunks=int(counts.sum()),
+            shape=f"{B}x{S} packed {mix}",
+            **kernel_times(lambda: run(mc), 20, "select_boundaries_packed"),
+            plain_ms=cuda_ms(lambda: plain(mc), 3),
         ))
     return out
 
@@ -1350,7 +1405,16 @@ def scan_bwd_phase(seed: int) -> dict:
                   f"weights",
             **kernel_times(lambda: kslstm._launch_bwd(*bwd_ins), 3,
                            "slstm_scan_bwd_kernel")))
-        del xg, hs, cnm, bwd_ins
+        # the call's dr product on the kernel's float32 dpre: the float32
+        # sum the plain backward takes (the card route's until it missed
+        # ACCURACY at 64 rows) and the card route's float64 sum
+        dpre = f32(rng, (B, S, 4, D))
+        out[f"slstm_scan_bwd {label}"]["dr_ms"] = {
+            "float32 sum": cuda_ms(lambda: kslstm._recurrent_grad(
+                st[0], hs, dpre, r), 5),
+            "float64 sum": cuda_ms(lambda: kslstm._recurrent_grad_f64(
+                st[0], hs, dpre, r), 5)}
+        del xg, hs, cnm, bwd_ins, dpre
     return out
 
 
@@ -1487,10 +1551,12 @@ def service_phase(p, versions: int, objects: int, seed: int,
 
 # -- phase 5: the sharded service with segment packing --------------------------
 
+@functools.lru_cache(maxsize=1)
 def make_tree(seed: int, versions: int, files: int,
               edit_frac: float = 0.02, new_frac: float = 0.01,
               del_frac: float = 0.01):
-    """Seeded file-tree versions: ``versions`` dicts path -> uint8 array.
+    """Seeded file-tree versions: ``versions`` dicts path -> uint8 array
+    (made once a run: phases 5 and 13 ingest the same tree).
     Sizes are heavy-tail draws; each version edits ``edit_frac`` of the
     files once (a 1-4096 byte insert, delete or overwrite, capped at the
     file's size), adds ``new_frac`` new files and deletes ``del_frac``."""
@@ -1532,13 +1598,17 @@ def make_tree(seed: int, versions: int, files: int,
     return out
 
 
-def sharded_phase(p, seed: int, kernels, mesh=None,
-                  verify: bool = True) -> dict:
+def sharded_phase(p, seed: int, kernels, mesh=None, verify: bool = True,
+                  pipeline_impl: str = "fused",
+                  versions: int | None = None) -> dict:
     """Phase 5's run: the tree through ``ShardedDedupService`` with 4 local
     shards, host-routed; with ``mesh`` (phase 13) its fingerprint records
     take the mesh's ``all_to_all`` route instead.  ``verify`` restores
     the last version and checks sampled recipes against the oracle (phase
-    13 compares its recipes' digest with phase 5's instead)."""
+    13 compares its recipes' digest with phase 5's instead).
+    ``pipeline_impl="split"`` runs the split pipeline (the packed rows
+    through the masks, packed select and fingerprint kernels);
+    ``versions`` ingests only the tree's first versions."""
     import hashlib
 
     import numpy as np
@@ -1551,7 +1621,7 @@ def sharded_phase(p, seed: int, kernels, mesh=None,
     from repro_torch.service.api import pack_fps
 
     t0 = time.perf_counter()
-    tree = make_tree(seed, TREE_VERSIONS, TREE_FILES)
+    tree = make_tree(seed, TREE_VERSIONS, TREE_FILES)[:versions]
     logical = sum(o.size for v in tree for o in v.values())
     small = [sum(1 for o in v.values() if o.size < (16 << 10)) for v in tree]
     log(f"sharded: tree {TREE_VERSIONS} versions of about {TREE_FILES} "
@@ -1562,17 +1632,20 @@ def sharded_phase(p, seed: int, kernels, mesh=None,
         svc = ShardedDedupService.open(
             root, num_shards=SHARDS, transport="local", params=p,
             device="cuda", slots=8, packing_impl="segments",
-            pipeline_impl="fused", cross_check_packing=True,
+            pipeline_impl=pipeline_impl, cross_check_packing=True,
             **({} if mesh is None else {"mesh": mesh}),
         )
         try:
             for k in kernels:
                 k.launches = 0  # the main path's count starts here
             t0 = time.perf_counter()
+            version_s = []
             for v, files in enumerate(tree):
+                tv = time.perf_counter()
                 for path, obj in files.items():
                     svc.submit(f"v{v}/{path}", obj)
                 svc.flush()
+                version_s.append(time.perf_counter() - tv)
             torch.cuda.synchronize()
             ingest_s = time.perf_counter() - t0
             launches = {k.name: k.launches for k in kernels}
@@ -1623,16 +1696,22 @@ def sharded_phase(p, seed: int, kernels, mesh=None,
             if not svc.scheduler._packing_checked:
                 raise AssertionError("the packing cross-check never ran")
             digest = hashlib.sha256()
+            by_version = [hashlib.sha256() for _ in tree]
             for name in sorted(svc.recipes.names()):
-                digest.update(json.dumps(svc.recipes.get(name).to_json(),
-                                         sort_keys=True).encode())
+                blob = json.dumps(svc.recipes.get(name).to_json(),
+                                  sort_keys=True).encode()
+                digest.update(blob)
+                by_version[int(name[1:name.index("/")])].update(blob)
             return dict(
                 recipes_sha256=digest.hexdigest(),
+                version_sha256=[d.hexdigest() for d in by_version],
                 fp_estimated_savings=st.fp_estimated_savings,
                 overflow_rerouted=svc.overflow_rerouted,
                 logical_bytes=logical,
                 ingest_s=ingest_s,
                 ingest_mb_s=logical / ingest_s / 1e6,
+                version_mb_s=[sum(o.size for o in files.values()) / t / 1e6
+                              for files, t in zip(tree, version_s)],
                 ingest_mb_s_without_cross_checks=(
                     logical / (ingest_s - sched.cross_check_s) / 1e6),
                 restore_bytes=last_bytes,
@@ -3550,6 +3629,16 @@ def main(argv=None) -> int:
 
     packed = packed_phase(p, 8, 16 << 10, args.seed)
     measured["16KiBx8 packed"] = packed
+    sel_packed = select_packed_phase(p, 8, 16 << 10, args.seed)
+    measured["16KiBx8 select packed"] = sel_packed
+    for mix, r in sel_packed.items():
+        log(f"kernel select_boundaries_packed 16KiBx8 {mix} (G {r['G']}, mc "
+            f"{r['mc']}, {r['chunks']} chunks): bit-equal to plain and to "
+            f"the packed kernel's bounds and counts (also at mc "
+            f"{r['short_mc']}, emits dropped), {r['ms']:.4f} ms "
+            f"({r['ms_source']}; {r['call_ms']:.4f} ms per call), plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+            f"({r['bound_by']})")
     for mix, r in packed.items():
         log(f"kernel packed_pipeline 16KiBx8 {mix} ({r['streams']} streams, "
             f"G {r['G']}, mc {r['mc']}): bit-equal to plain "
@@ -3641,6 +3730,9 @@ def main(argv=None) -> int:
             f"({r['ms_source']}; {r['call_ms']:.4f} ms per call), plain "
             f"{r['plain_ms']:.4f} ms, no library call, bound "
             f"{r['bound_ms']:.6f} ms ({r['bound_by']})")
+        if "dr_ms" in r:
+            log(f"kernel {name}: the call's dr product " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in r["dr_ms"].items()))
     from repro_torch.kernels import flash_attn as kflash
 
     sass = tensor_core_sass(kflash.KERNEL)
@@ -3664,6 +3756,7 @@ def main(argv=None) -> int:
         native_scan,
         packed_pipeline,
         select_boundaries,
+        select_boundaries_packed,
         seqcdc_masks,
         slstm_scan,
     )
@@ -3720,6 +3813,30 @@ def main(argv=None) -> int:
     if missing:
         raise AssertionError(f"kernels never launched by the sharded "
                              f"service: {missing}")
+    # the tree's first version again through the split pipeline: its packed
+    # rows through the masks, packed select and fingerprint kernels
+    sh_split = sharded_phase(p, args.seed, KERNELS, verify=False,
+                             pipeline_impl="split", versions=1)
+    if sh_split["version_sha256"][0] != sh["version_sha256"][0]:
+        raise AssertionError("the split pipeline's recipes of version 0 "
+                             "differ from the fused pipeline's")
+    path5 = (seqcdc_masks.KERNEL, fingerprint.KERNEL,
+             select_boundaries_packed.KERNEL)
+    missing = [k.name for k in path5 if sh_split["launches"][k.name] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched by the sharded "
+                             f"service's split pipeline: {missing}")
+    log(f"sharded, split pipeline, version 0 again: recipes equal to the "
+        f"fused run's (sha256 {sh_split['version_sha256'][0][:16]}); ingest "
+        f"{sh_split['ingest_mb_s']:.2f} MB/s ({sh_split['ingest_s']:.2f} s "
+        f"for {sh_split['logical_bytes']} bytes, cross-check replays "
+        f"{sh_split['cross_check_s']:.2f} s) against the fused run's "
+        f"{sh['version_mb_s'][0]:.2f} MB/s for version 0 "
+        f"({sh['ingest_mb_s']:.2f} over all versions); dispatches "
+        f"{sh_split['dispatches']}, packed streams "
+        f"{sh_split['packed_streams']}, device dispatches "
+        f"{sh_split['dispatch_s']:.3f} s; launches "
+        f"{({k: v for k, v in sh_split['launches'].items() if v})}")
 
     # 6. the chunker registry
     rg = registry_phase(args.seed, 8192, KERNELS)
@@ -4028,6 +4145,11 @@ def main(argv=None) -> int:
             f"{g['leaves']} leaves; loss {g['loss_card']:.6f} / "
             f"{g['loss_cpu']:.6f}; card {g['card_s']:.2f} s, CPU "
             f"{g['cpu_s']:.2f} s")
+    dr = scans_bwd["slstm_scan_bwd S2048"]
+    log(f"training xlstm-125m: the sLSTM backward's dr product at its shape "
+        f"({dr['shape']}, phase 3): the float32 sum (before) "
+        f"{dr['dr_ms']['float32 sum']:.4f} ms, the float64 sum (now) "
+        f"{dr['dr_ms']['float64 sum']:.4f} ms a call; {card}")
     allocator_settings("expandable_segments:False")
     log(f"phase 14: {time.perf_counter() - t14:.1f} s")
 
@@ -4047,6 +4169,8 @@ def main(argv=None) -> int:
                                 scans_bwd["slstm_scan_bwd S2048"]),
         packed_pipeline.KERNEL: ("16KiBx8 packed all-tiny",
                                  packed["all-tiny"]),
+        select_boundaries_packed.KERNEL: ("16KiBx8 packed all-tiny",
+                                          sel_packed["all-tiny"]),
         gear_hash.KERNEL: (reg["gear_hash"]["shape"], reg["gear_hash"]),
         extremum.KERNEL: (reg["block_max"]["shape"], reg["block_max"]),
         native_scan.KERNEL: (reg["native_scan"]["seqcdc"]["shape"],
@@ -4061,6 +4185,8 @@ def main(argv=None) -> int:
     }
     errs = {
         packed_pipeline.KERNEL: [m["max_abs_err"] for m in packed.values()],
+        select_boundaries_packed.KERNEL: [m["max_abs_err"]
+                                          for m in sel_packed.values()],
         select_boundaries.KERNEL: [
             reg["select_boundaries gear row"]["max_abs_err"],
             launched["select_boundaries seqcdc row"]["max_abs_err"]],
@@ -4103,7 +4229,8 @@ def main(argv=None) -> int:
             measured[s][k.name]["max_abs_err"] for s in shapes
             if k.name in measured[s]])
         launches = (path3[k.name] + svc["launches"][k.name]
-                    + sh["launches"][k.name] + rg["launches"][k.name]
+                    + sh["launches"][k.name] + sh_split["launches"][k.name]
+                    + rg["launches"][k.name]
                     + sv["launches"][k.name] + sc["launches"][k.name]
                     + tr["ingest_launches"][k.name]
                     + tr["train_launches"][k.name]
@@ -4128,7 +4255,8 @@ def main(argv=None) -> int:
                     exist_ok=True)
         with open(args.json, "w") as f:
             json.dump(dict(card=card, build_s=build_s, kernels=measured,
-                           service=svc, sharded=sh, registry=rg,
+                           service=svc, sharded=sh, sharded_split=sh_split,
+                           registry=rg,
                            serving=sv, scenarios=sc, training=tr,
                            recurrent=rec, family=fam, mla=ds,
                            recurrent_training=rtrain,

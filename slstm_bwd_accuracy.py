@@ -9,10 +9,11 @@ inputs and upstream gradients are those of
 (float32 cases), so each line reads that test's case output by output: the
 kernels' error against float64 autograd, the float32 plain loop's own, and
 their ratio as ``accuracy_ratio`` takes it (at most 1 passes).  ``dr
-(f64 sum)`` is ``dr = sum_{b,t} h_{t-1} (x) dpre_t`` summed in float64 from
-the kernels' hs and dpre (for float32 gates dxg is dpre) and rounded once
-to float32: where it passes and the wrapper's ``dr`` does not, the error is
-the wrapper's float32 contraction, not the kernel's dpre.
+(f64 sum)`` is ``dr = sum_{b,t} h_{t-1} (x) dpre_t`` summed in float64 here
+from the kernels' hs and dpre (for float32 gates dxg is dpre) and rounded
+once to float32, as the wrapper's card route sums it
+(``_recurrent_grad_f64``): the two ``dr`` lines should agree, and a single
+float32 contraction (the plain backward's) missed at 64 rows.
 """
 from __future__ import annotations
 

@@ -18,14 +18,17 @@ Packed rows (many streams back to back in one row) take
 :func:`select_boundaries_packed`, the port of ``_scan_wide_packed``: a
 fifth register ``se`` (the current segment's end) replaces the row end in
 ``_resolve``, one block may host several events, and the post-emit scan
-position is clamped to the next pending cut.  Its kernel is
-``kernels/csrc/packed_pipeline.cu``.
+position is clamped to the next pending cut.  Its device form is
+``kernels/csrc/select_boundaries_packed.cu`` (the packed split path's
+phase 2); ``kernels/csrc/packed_pipeline.cu`` runs it fused with the masks
+and fingerprints.
 
 The reference's two other steps are here too, as the torch ops they are
 on either device: ``gather`` (O(1) gathers per block against tables built
 in parallel over all blocks, the block loop kept) and ``event`` (a loop
 over events, jumping between them by ``searchsorted`` over prefix sums).
-Only ``wide`` has a kernel of its own (``kernels/select_boundaries.py``).
+Only ``wide`` has a kernel of its own (``kernels/select_boundaries.py``,
+and ``kernels/select_boundaries_packed.py`` for packed rows).
 """
 from __future__ import annotations
 

@@ -14,7 +14,8 @@ a CUDA one.
 
 Packed rows (``boundaries_packed_batch``) hold several streams back to
 back: the bitmaps are clipped per segment and phase 2 is the segment-
-resetting automaton (``automaton.select_boundaries_packed``).
+resetting automaton (``automaton.select_boundaries_packed``), in plain
+torch or (``select_impl="cuda"``) as the packed select kernel.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ from .params import SeqCDCParams
 MaskImpl = Literal["torch", "cuda"]
 MASK_IMPLS = ("torch", "cuda")
 #: phase 2's implementation: the plain torch automaton (any step) or the
-#: select kernel (the ``wide`` step)
+#: select kernel (the ``wide`` step; over packed rows, the packed one)
 SELECT_IMPLS = ("torch", "cuda")
 
 
@@ -217,6 +218,20 @@ def segment_end_positions(ends: torch.Tensor, S: int) -> torch.Tensor:
     return sep.to(torch.int32)
 
 
+def packed_masks(data: torch.Tensor, seg_end_pos: torch.Tensor,
+                 p: SeqCDCParams, *, mask_impl: MaskImpl = "torch"):
+    """Phase 1 over ``(B, S)`` packed rows: the row-wide bitmaps clipped
+    per segment.  The row-wide bitmaps see byte pairs across a segment
+    edge, which a stream's solo run never compares; clipping candidates to
+    ``pos <= end - L`` and opposing pairs to ``pos < end - 1`` of their own
+    segment (``seg_end_pos``, the payload end for padding) removes exactly
+    those.  Returns ``(cand, opp)``, ``(B, S)`` bool."""
+    cand, opp = _compute_masks(data, p, mask_impl)
+    pos = torch.arange(data.shape[-1], dtype=torch.int64, device=data.device)
+    sep = seg_end_pos.to(torch.int64)
+    return cand & (pos <= sep - p.seq_length), opp & (pos < sep - 1)
+
+
 def boundaries_packed_batch(
     data: torch.Tensor,
     seg_end_pos: torch.Tensor,
@@ -224,6 +239,7 @@ def boundaries_packed_batch(
     p: SeqCDCParams,
     *,
     mask_impl: MaskImpl = "torch",
+    select_impl: str = "torch",
     max_chunks: int,
 ):
     """Chunk ``(B, S)`` packed rows, bit-identical per segment to chunking
@@ -233,12 +249,15 @@ def boundaries_packed_batch(
     after the last; ``seg_end_pos``: ``(B, S)`` the exclusive end of the
     segment each position belongs to (the payload end for padding);
     ``ends``: ``(B, G)`` nondecreasing segment ends padded with the payload
-    end.  The row-wide bitmaps see byte pairs across a segment edge, which
-    a stream's solo run never compares; clipping candidates to ``pos <=
-    end - L`` and opposing pairs to ``pos < end - 1`` of their own segment
-    removes exactly those.  Returns ``(bounds (B, max_chunks) int32, counts
-    (B,) int32)`` in row coordinates, every segment end a bound.
+    end.  Phase 1 is :func:`packed_masks`; phase 2 the segment-resetting
+    automaton in plain torch (``select_impl="torch"``) or as the packed
+    select kernel (``"cuda"``, ``kernels/select_boundaries_packed.py``).
+    Returns ``(bounds (B, max_chunks) int32, counts (B,) int32)`` in row
+    coordinates, every segment end a bound.
     """
+    if select_impl not in SELECT_IMPLS:
+        raise ValueError(
+            f"select_impl must be one of {SELECT_IMPLS}, got {select_impl!r}")
     if data.ndim != 2:
         raise ValueError(f"expected (B, S) data, got shape {tuple(data.shape)}")
     B, S = data.shape
@@ -246,13 +265,14 @@ def boundaries_packed_batch(
         return (torch.full((B, max_chunks), automaton._BIG,
                            dtype=torch.int32, device=data.device),
                 torch.zeros((B,), dtype=torch.int32, device=data.device))
-    cand, opp = _compute_masks(data, p, mask_impl)
-    pos = torch.arange(S, dtype=torch.int64, device=data.device)
-    sep = seg_end_pos.to(torch.int64)
-    cand = cand & (pos <= sep - p.seq_length)
-    opp = opp & (pos < sep - 1)
-    return automaton.select_boundaries_packed(cand, opp, ends, p,
-                                              max_chunks=max_chunks)
+    cand, opp = packed_masks(data, seg_end_pos, p, mask_impl=mask_impl)
+    if select_impl == "torch":
+        return automaton.select_boundaries_packed(cand, opp, ends, p,
+                                                  max_chunks=max_chunks)
+    from repro_torch.kernels import select_boundaries_packed as kselp
+
+    return kselp.select_boundaries_packed(cand, opp, ends, p,
+                                          max_chunks=max_chunks)
 
 
 def boundaries_packed(data, seg_end_pos, ends, p: SeqCDCParams, *,

@@ -34,30 +34,19 @@
 //      floor) into dynamic shared memory with cp.async.bulk, kSlab bytes a
 //      copy, each copy completing its own mbarrier; a warp waits only for
 //      the slabs its segment reads.
-//    - Every thread takes segments of the ends table.  A segment shorter
-//      than min_size is one chunk, its own length: no candidate fits
-//      before sub_min + L and the only cut is the segment end (max_size >=
-//      min_size).  Longer segments go on a list.
-//    - The warps take the listed segments from a shared counter and walk
-//      each as its own stream of length l, the fused kernel's walk
+//    - Then packed_walk.cuh's three steps, which
+//      select_boundaries_packed.cu shares: every thread
+//      sorts the segments (shorter than min_size: one chunk, its own
+//      length; longer: a list), the warps take the listed segments and
+//      walk each as its own stream of length l, the fused kernel's walk
 //      (wblock.cuh's walk_windows, resolve and final_cut) with mask_word
-//      reading the resident row; a segment's mask clip is the stream end
-//      itself.  The longest chain is the longest segment, not the row.
-//    - A warp cannot know where its segment's chunks go in the row's table
-//      before the segments ahead are scanned, so segment g writes its
-//      bounds at slot start_g / min_size + g of a scratch area: a stream of
-//      l bytes emits at most l / min_size + 1 bounds (every chunk but the
-//      last is min_size or longer), and start_{g+1} / min_size - start_g /
-//      min_size >= l_g / min_size, so the ranges never overlap.  The
-//      scratch (G counts, the list, n / min_size + G slots) lies in shared
-//      memory where it fits beside the row, else in the device buffer the
-//      wrapper passes; an undersized mc never runs short of it.
-//    - After a barrier, a block-wide prefix sum over the per-segment counts
-//      places segment g's bounds at [prefix_g, prefix_g + count_g) of the
-//      table, only slots below mc kept; lengths are differences of
-//      consecutive bounds.  Then select_boundaries_packed's fixup at n_row:
-//      it adds a count only when a dropped emit leaves the last kept bound
-//      below n_row.
+//      reading the resident row (a segment's mask clip is the stream end
+//      itself), each segment's bounds to its own range of a scratch area,
+//      and a block-wide prefix sum over the counts places them in the
+//      row's table (lengths are differences of consecutive bounds) before
+//      select_boundaries_packed's fix-up at n_row.  The scratch lies in
+//      shared memory where it fits beside the row, else in the device
+//      buffer the wrapper passes; an undersized mc never runs short of it.
 // 2. packed_pipeline_hash_kernel, one CTA per chunk slot over the batch,
 //    its kHashWarps warps each hashing a kHashWarps-th of the chunk
 //    (modp.cuh's hash_slot, which the fused kernel runs one warp a slot):
@@ -70,6 +59,7 @@
 #include <cuda_runtime.h>
 
 #include "modp.cuh"
+#include "packed_walk.cuh"
 #include "ring.cuh"
 #include "wblock.cuh"
 
@@ -78,7 +68,6 @@ namespace {
 using ring::bulk_copy;
 using ring::mbar_expect_tx;
 using ring::mbar_wait;
-using wblock::kBig;
 using wblock::kMaxHalo;
 using wblock::mask_word;
 
@@ -101,14 +90,6 @@ struct Params {
   int smem_scratch;  // 1: the scratch lies in shared memory
 };
 
-// ends[g] clamped to the row: a malformed table cannot send a read outside
-// the row's shared copy
-__device__ __forceinline__ long long end_at(const int32_t* ends, int g,
-                                            long long n) {
-  const long long e = g < 0 ? 0 : ends[g];
-  return e < 0 ? 0 : e > n ? n : e;
-}
-
 __global__ void __launch_bounds__(kThreads)
 packed_pipeline_scan_kernel(const uint8_t* __restrict__ x,
                             const int32_t* __restrict__ ends_all,
@@ -118,21 +99,16 @@ packed_pipeline_scan_kernel(const uint8_t* __restrict__ x,
                             int32_t* __restrict__ gscratch, Params P) {
   extern __shared__ __align__(128) uint8_t smem[];
   __shared__ __align__(8) uint64_t full[kMaxSlabs];
-  __shared__ int sh_nlong, sh_next, sh_wsum[kWarps];
-  __shared__ long long sh_last;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  __shared__ pwalk::Shared<kWarps> sh;
+  const int tid = threadIdx.x, lane = tid & 31;
   const long long b = blockIdx.x;
   const long long n = P.n;
-  const int m = P.sub_min + P.L;  // min_size
   const uint8_t* row = x + b * n;
   const int32_t* ends = ends_all + (long long)b * P.G;
-  int32_t* bnd = bounds + b * P.mc;
-  int32_t* ln = lens + b * P.mc;
   int32_t* cnt = P.smem_scratch
                      ? reinterpret_cast<int32_t*>(smem + P.row_bytes)
                      : gscratch + b * P.scratch;
-  int32_t* list = cnt + P.G;
-  int32_t* slot = list + P.list;
+  const pwalk::Scratch sc{cnt, cnt + P.G, cnt + P.G + P.list};
 
   // -- the row into shared memory: virtual byte v is row byte v - a --------
   const int a = (int)(reinterpret_cast<uintptr_t>(row) & 15);
@@ -146,125 +122,42 @@ packed_pipeline_scan_kernel(const uint8_t* __restrict__ x,
       mbar_expect_tx(&full[j], bytes);
       bulk_copy(smem + j * kSlab, row - a + j * kSlab, bytes, &full[j]);
     }
-    sh_nlong = 0;
-    sh_next = 0;
+    sh.nlong = 0;
+    sh.next = 0;
   }
   __syncthreads();
 
-  // -- every thread: short segments are one chunk, long ones to the list ---
-  for (int g = tid; g < P.G; g += kThreads) {
-    const long long st = end_at(ends, g - 1, n);
-    const long long l = end_at(ends, g, n) - st;
-    if (l >= m) {
-      list[atomicAdd(&sh_nlong, 1)] = g;
-    } else {
-      cnt[g] = l > 0;
-      if (l > 0) slot[st / m + g] = (int32_t)l;
-    }
-  }
+  pwalk::classify<kThreads>(P, ends, sc, sh, tid);
   __syncthreads();
 
-  // -- the warps: each listed segment walked as its own stream -------------
-  const int W = P.W, L = P.L;
-  for (;;) {
-    int i = 0;
-    if (lane == 0) i = atomicAdd(&sh_next, 1);
-    i = __shfl_sync(wblock::kFull, i, 0);
-    if (i >= sh_nlong) break;
-    const int g = list[i];
-    const long long st = end_at(ends, g - 1, n);
-    const long long l = end_at(ends, g, n) - st;
-    const int vst = (int)st + a;
-    const int vend = vst + (int)l + kTail < vlen ? vst + (int)l + kTail
-                                                 : vlen;
-    for (int j = vst / kSlab; j <= (vend - 1) / kSlab; ++j)
-      mbar_wait(&full[j], 0);
-    const wblock::ScanParams SP{
-        l, (l + P.skip + W + W - 1) / W * W, (int)(l / m) + 1, L, W, P.T,
-        P.skip, P.sub_min, P.max_size};
-    int32_t* sb = slot + st / m + g;
-    wblock::ScanState ss{P.sub_min, 0, 0, 0, 0};
-    wblock::walk_windows(
-        ss, SP, W - 1, sb, nullptr, lane,
-        [&](long long wstart, unsigned& cw, unsigned& ow) {
-          // lane i: word i, positions wstart + 32i .. of the segment
-          const long long p0 = wstart + 32 * lane;
-          const int v0 = p0 < l ? vst + (int)p0 : 0;
-          if (L <= 7)
-            mask_word<10>(smem, v0, p0, l, L, P.inc, -1, cw, ow);
-          else
-            mask_word<24>(smem, v0, p0, l, L, P.inc, -1, cw, ow);
-        });
-    if (lane == 0) cnt[g] = (int32_t)wblock::final_cut(ss, SP, sb, nullptr);
-  }
+  // -- the warps: mask words from the resident row, a warp waiting only for
+  // the slabs its segment reads; a segment's mask clip is its own end -----
+  const int L = P.L;
+  pwalk::walk_segments(
+      P, ends, sc, sh, lane,
+      [&](long long st, long long l) {
+        const int vst = (int)st + a;
+        const int vend = vst + (int)l + kTail < vlen ? vst + (int)l + kTail
+                                                     : vlen;
+        for (int j = vst / kSlab; j <= (vend - 1) / kSlab; ++j)
+          mbar_wait(&full[j], 0);
+      },
+      [&](long long st, long long l, long long wstart, unsigned& cw,
+          unsigned& ow) {
+        // lane i: word i, positions wstart + 32i .. of the segment
+        const long long p0 = wstart + 32 * lane;
+        const int v0 = p0 < l ? (int)st + a + (int)p0 : 0;
+        if (L <= 7)
+          mask_word<10>(smem, v0, p0, l, L, P.inc, -1, cw, ow);
+        else
+          mask_word<24>(smem, v0, p0, l, L, P.inc, -1, cw, ow);
+      });
   __syncthreads();
 
-  // -- inclusive prefix sum of the counts, in place, kThreads at a time ----
-  long long total = 0;
-  for (int base = 0; base < P.G; base += kThreads) {
-    const int g = base + tid;
-    int v = g < P.G ? cnt[g] : 0;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int u = __shfl_up_sync(wblock::kFull, v, d);
-      if (lane >= d) v += u;
-    }
-    if (lane == 31) sh_wsum[warp] = v;
-    __syncthreads();
-    if (warp == 0) {
-      int w = lane < kWarps ? sh_wsum[lane] : 0;
-#pragma unroll
-      for (int d = 1; d < kWarps; d <<= 1) {
-        const int u = __shfl_up_sync(wblock::kFull, w, d);
-        if (lane >= d) w += u;
-      }
-      if (lane < kWarps) sh_wsum[lane] = w;
-    }
-    __syncthreads();
-    if (g < P.G)
-      cnt[g] = (int32_t)(total + v + (warp ? sh_wsum[warp - 1] : 0));
-    total += sh_wsum[kWarps - 1];
-    __syncthreads();
-  }
-
-  // -- placement: segment g's bounds to [prefix_g, prefix_g + count_g) -----
-  const long long kept = total < P.mc ? total : P.mc;
-  for (int g = tid; g < P.G; g += kThreads) {
-    const long long lo = g > 0 ? cnt[g - 1] : 0, hi = cnt[g];
-    if (lo >= kept || hi == lo) continue;
-    const long long st = end_at(ends, g - 1, n);
-    const int32_t* sb = slot + st / m + g;
-    int32_t prev = 0;
-    for (long long j = lo; j < hi && j < kept; ++j) {
-      const int32_t v = sb[j - lo];
-      bnd[j] = (int32_t)(st + v);
-      ln[j] = v - prev;
-      prev = v;
-      if (j == kept - 1) sh_last = st + v;
-    }
-  }
-  for (long long j = kept + tid; j < P.mc; j += kThreads) {
-    bnd[j] = kBig;
-    ln[j] = 0;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    // select_boundaries_packed's fixup at the payload end.  With every emit
-    // kept the last bound is n_row (each segment ends in its own end), so
-    // it fires only when an emit was dropped: a count, no table slot.
-    const long long n_row = end_at(ends, P.G - 1, n);
-    const long long last = kept > 0 ? sh_last : 0;
-    long long c = total;
-    if (last < n_row && n_row > 0) {
-      if (c < P.mc) {
-        bnd[c] = (int32_t)n_row;
-        ln[c] = (int32_t)(n_row - last);
-      }
-      ++c;
-    }
-    counts[b] = (int32_t)c;
+  pwalk::place<kThreads, kWarps, true>(P, ends, sc, sh, bounds + b * P.mc,
+                                       lens + b * P.mc, counts + b, tid);
+  if (tid == 0)
     for (int j = 0; j < nslabs; ++j) mbar_wait(&full[j], 0);  // all landed
-  }
 }
 
 // One CTA per chunk slot of the batch, its kHashWarps warps each over a

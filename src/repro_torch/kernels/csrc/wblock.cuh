@@ -1,13 +1,15 @@
 // The W-block scan's shared pieces, used by fused_pipeline.cu,
-// packed_pipeline.cu and select_boundaries.cu.
+// select_boundaries.cu and (through packed_walk.cuh) packed_pipeline.cu and
+// select_boundaries_packed.cu.
 //
 // Each walks a stream event by event over windows of kWin positions
 // (walk_windows): lane i holds word i of the window's candidate and
 // opposing bits, and block_search_words and resolve find and apply the
 // next event.  fused_pipeline.cu and packed_pipeline.cu compute a window's
 // words from the stream's bytes in shared memory (mask_word: a row fed
-// through a ring, a packed row resident whole); select_boundaries.cu reads
-// them from packed bitmaps.  W <= 1024, so at most 32 words a block.
+// through a ring, a packed row resident whole); select_boundaries.cu and
+// select_boundaries_packed.cu read them from bitmaps turned into words.
+// W <= 1024, so at most 32 words a block.
 #pragma once
 
 #include <cstdint>

@@ -47,14 +47,17 @@ KERNEL = Kernel(
 
 def packed_pipeline_plain(data: torch.Tensor, ends: torch.Tensor,
                           p: SeqCDCParams, *, max_chunks: int,
-                          mask_impl: str = "torch", fp_impl: str = "torch"):
+                          mask_impl: str = "torch", select_impl: str = "torch",
+                          fp_impl: str = "torch"):
     """The packed split path over ``(B, S)`` rows: the normative pipeline
     the packed kernel collapses into one launch.  With the default
     ``"torch"`` stages it is the kernel's plain version; the scheduler's
-    split pipeline runs it with its own ``mask_impl``/``fp_impl``."""
+    split pipeline runs it with its own ``mask_impl``/``fp_impl`` and the
+    packed select kernel (``select_impl="cuda"``)."""
     sep = segment_end_positions(ends, data.shape[-1])
     bounds, counts = boundaries_packed_batch(
-        data, sep, ends, p, mask_impl=mask_impl, max_chunks=max_chunks)
+        data, sep, ends, p, mask_impl=mask_impl, select_impl=select_impl,
+        max_chunks=max_chunks)
     fps, lens = kept_fingerprints(data, bounds, counts,
                                   max_chunks=max_chunks, fp_impl=fp_impl)
     return bounds, counts, fps, lens

@@ -33,7 +33,8 @@ batch's worth of payload (or at ``drain``), the streams are shelf-packed
 back to back into shared ``min_bucket``-wide rows and dispatched once
 through the packed pipeline: the packed CUDA kernel
 (``kernels/packed_pipeline.py``) for ``pipeline_impl="fused"``, the packed
-split path otherwise.  Its automaton resets at every segment end, so each
+split path otherwise (the masks kernel, the packed select kernel
+``kernels/select_boundaries_packed.py`` and the fingerprint kernel).  Its automaton resets at every segment end, so each
 stream's chunks and fingerprints equal chunking it alone and the demuxed
 results skip the host tail redo.  The first packed dispatch is replayed
 stream by stream through the unpacked pipeline and compared bit for bit
@@ -121,16 +122,21 @@ def _run_packed_fused(x, ends, p, mc):
 
 
 def _run_packed_split(x, ends, p, mc, mask_impl, fp_impl, with_fp):
-    """The composed packed pipeline: the segment-aware boundary scan, then
-    the fingerprint stage (fingerprints are translation invariant, so the
-    packed bounds feed ``chunk_fingerprints`` with no correction)."""
+    """The composed packed pipeline: the segment-aware boundary scan (the
+    packed select kernel, ``select_impl_for("wide")``; its plain loop on a
+    CPU device), then the fingerprint stage (fingerprints are translation
+    invariant, so the packed bounds feed ``chunk_fingerprints`` with no
+    correction)."""
+    select_impl = select_impl_for("wide")
     if not with_fp:
         sep = segment_end_positions(ends, x.shape[-1])
         bounds, counts = boundaries_packed_batch(
-            x, sep, ends, p, mask_impl=mask_impl, max_chunks=mc)
+            x, sep, ends, p, mask_impl=mask_impl, select_impl=select_impl,
+            max_chunks=mc)
         return bounds, counts, None, None
     return kpacked.packed_pipeline_plain(x, ends, p, max_chunks=mc,
                                          mask_impl=mask_impl,
+                                         select_impl=select_impl,
                                          fp_impl=fp_impl)
 
 
@@ -138,8 +144,11 @@ def _device_chunk_packed(x, ends, *, p, mc, mask_impl, with_fp, fp_impl,
                          pipeline_impl):
     """(R, S) packed rows -> (bounds, counts[, fps, lens]) in row
     coordinates; ``ends`` is the (R, G) segment-end table.  The packed twin
-    of ``_device_chunk``: the packed rows have only the ``wide`` automaton,
-    which the packed kernel mirrors block for block."""
+    of ``_device_chunk``: the packed rows have only the ``wide`` automaton.
+    With fingerprints and ``pipeline_impl="fused"`` it is the packed kernel
+    (``kernels/packed_pipeline.py``); otherwise the packed split path, whose
+    automaton is the packed select kernel
+    (``kernels/select_boundaries_packed.py``)."""
     if pipeline_impl == "fused" and with_fp:
         return _run_packed_fused(x, ends, p, mc)
     return _run_packed_split(x, ends, p, mc, mask_impl, fp_impl, with_fp)

@@ -16,14 +16,22 @@ import pytest
 import torch
 
 import _packing_cases
+import _select_packed_cases
 from repro_torch.core import available, make_chunker
 from repro_torch.core.automaton import max_chunks_for
 from repro_torch.core.automaton import select_boundaries as select_plain
+from repro_torch.core.automaton import (
+    select_boundaries_packed as select_packed_plain,
+)
 from repro_torch.core.baselines.selectors import SelectorParams, select_numpy
 from repro_torch.core.calibrate import calibrated_kwargs
 from repro_torch.core.oracle import boundaries_numpy
 from repro_torch.core.params import SeqCDCParams, paper_params
-from repro_torch.core.seqcdc import boundaries_sequential
+from repro_torch.core.seqcdc import (
+    boundaries_sequential,
+    packed_masks,
+    segment_end_positions,
+)
 from repro_torch.dedup.fingerprint import fingerprints_numpy
 from repro_torch.kernels import extremum as kext
 from repro_torch.kernels import fingerprint as kfp
@@ -32,8 +40,13 @@ from repro_torch.kernels import gear_hash as kgear
 from repro_torch.kernels import native_scan as kscan
 from repro_torch.kernels import packed_pipeline as kpacked
 from repro_torch.kernels import select_boundaries as kselect
+from repro_torch.kernels import select_boundaries_packed as kselp
 from repro_torch.kernels import seqcdc_masks as kmasks
-from repro_torch.service import DedupService, ShardedDedupService
+from repro_torch.service import (
+    ChunkScheduler,
+    DedupService,
+    ShardedDedupService,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -580,6 +593,152 @@ def test_sharded_packed_service_on_the_card_counts_launches(dev):
         assert svc.scheduler.stats.packed_streams > 0
         for i, o in enumerate(objs):
             assert svc.get(str(i)) == o.tobytes()
+
+
+# -- the packed select kernel ----------------------------------------------
+
+def _select_packed_equal(dev, p, data, ends, short=0):
+    """The packed select kernel on the masks kernel's bitmaps of packed
+    ``data``, clipped per segment, against its plain version and against
+    the packed kernel's bounds and counts; ``short`` > 0 cuts the table to
+    the fullest row's count less ``short`` (emits dropped)."""
+    x = torch.from_numpy(data).to(dev)
+    e = torch.from_numpy(ends).to(dev)
+    S = data.shape[1]
+    mc = _select_packed_cases.true_max_chunks(S, p.min_size, ends.shape[1])
+    cand, opp = packed_masks(x, segment_end_positions(e, S), p,
+                             mask_impl="cuda")
+    if short:
+        counts = select_packed_plain(cand, opp, e, p, max_chunks=mc)[1]
+        mc = max(1, int(counts.max()) - short)
+    got = kselp.select_boundaries_packed(cand, opp, e, p, max_chunks=mc)
+    torch.cuda.synchronize()
+    _equal(got, select_packed_plain(cand, opp, e, p, max_chunks=mc))
+    _equal(got, kpacked.packed_pipeline_batch(x, e, p, max_chunks=mc)[:2])
+    return got
+
+
+@pytest.mark.parametrize("name,S", [("P", 1024), ("P", 4096),
+                                    ("P5", 8192), ("dec", 2048),
+                                    ("skid", 16384), ("w16", 3000),
+                                    ("w4", 1500), ("paper8k", 16384),
+                                    ("paper16k-dec", 32768), ("P", 65536),
+                                    ("paper8k", 65536)])
+@pytest.mark.parametrize("short", [0, 2])
+def test_select_packed_kernel(dev, name, S, short):
+    """test_packed_kernel's rows (empty, tiny, shorter-than-L, constant,
+    low-entropy and random segments), 64 KiB rows too, with a true and an
+    undersized table."""
+    p = PARAMS[name]
+    streams = _packed_cases(np.random.default_rng(S), p, S)
+    data, _, ends, _ = _packing_cases.pack(
+        [[seg.tobytes() for seg in row] for row in streams], S)
+    _select_packed_equal(dev, p, data, ends, short)
+
+
+@pytest.mark.parametrize("mix", ["all-tiny", "512-2048",
+                                 "heavy-tail<16KiB"])
+@pytest.mark.parametrize("short", [0, 1, 3])
+def test_select_packed_kernel_on_the_chip_mixes(dev, mix, short):
+    """``chip_smoke.py``'s three segment mixes, 8 x 16 KiB, at a true and
+    at undersized tables."""
+    data, ends, _ = _chip_mix(mix, 16 + short)
+    _select_packed_equal(dev, PARAMS["paper8k"], data, ends, short)
+
+
+@pytest.mark.parametrize("name", _packing_cases.CASES
+                         + tuple("bitmaps " + c
+                                 for c in _select_packed_cases.EDGES))
+def test_select_packed_kernel_on_the_cpu_tests_cases(dev, name):
+    """The packing tests' cases, and the CPU tests' random bitmaps clipped
+    per segment (empty streams, segments shorter than L-1, padding, G =
+    1) at 4 and 64 KiB, with a true and an undersized table."""
+    if not name.startswith("bitmaps "):
+        pname, S, rows = _packing_cases.case(name)
+        p = SeqCDCParams(**_packing_cases.PARAMS[pname])
+        data, _, ends, _ = _packing_cases.pack(rows, S)
+        for short in (0, 1):
+            _select_packed_equal(dev, p, data, ends, short)
+        return
+    p = SeqCDCParams(**_select_packed_cases.SMALL)
+    for S in (4096, 1 << 16):
+        ends, cand, opp = _select_packed_cases.edge_case(name[8:], S)
+        e = torch.from_numpy(ends).to(dev)
+        c, o = torch.from_numpy(cand).to(dev), torch.from_numpy(opp).to(dev)
+        mc = _select_packed_cases.true_max_chunks(S, p.min_size,
+                                                  ends.shape[1])
+        counts = select_packed_plain(c, o, e, p, max_chunks=mc)[1]
+        for m in (mc, max(1, int(counts.max()) - 1)):
+            got = kselp.select_boundaries_packed(c, o, e, p, max_chunks=m)
+            torch.cuda.synchronize()
+            _equal(got, select_packed_plain(c, o, e, p, max_chunks=m))
+
+
+@pytest.mark.parametrize("name", ["P", "paper8k"])
+def test_select_packed_kernel_65536_one_byte_segments(dev, name):
+    """A 64 KiB row of 65,536 one-byte streams (the scratch in device
+    memory) beside two long segments around 40,000 empty ones."""
+    p = PARAMS[name]
+    S = 1 << 16
+    rng = np.random.default_rng(5)
+    rows = [[rng.integers(0, 256, 1, dtype=np.uint8).tobytes()
+             for _ in range(S)],
+            [rng.integers(0, 256, 30000, dtype=np.uint8).tobytes()]
+            + [b""] * 40000
+            + [rng.integers(0, 256, S - 30000, dtype=np.uint8).tobytes()]]
+    data, _, ends, _ = _packing_cases.pack(rows, S, S)
+    got = _select_packed_equal(dev, p, data, ends)
+    assert int(got[1][0]) == S
+
+
+def test_select_packed_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    b = torch.zeros((2, 1024), dtype=torch.bool, device=dev)
+    e = torch.full((2, 4), 1024, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        kselp.select_boundaries_packed(b, b, e.to(torch.int64), P,
+                                       max_chunks=40)
+    with pytest.raises(ValueError, match="bool"):
+        kselp.select_boundaries_packed(b.to(torch.uint8), b, e, P,
+                                       max_chunks=40)
+    wide = torch.zeros((1, 1 << 17), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="narrower"):
+        kselp.select_boundaries_packed(wide, wide, e[:1], P, max_chunks=8)
+
+
+def test_packed_split_service_equals_fused_on_the_card(dev):
+    """Segment packing through the split pipeline (the masks, packed
+    select and fingerprint kernels) gives the fused pipeline's recipes
+    (the packed kernel), and without fingerprints the same bounds; the
+    split runs launch the packed select kernel, no W-block loop."""
+    rng = np.random.default_rng(12)
+    objs = [rng.integers(0, 256, int(m), dtype=np.uint8)
+            for m in rng.integers(0, 6000, 60)]
+    recipes = {}
+    for impl in ("fused", "split"):
+        kselp.KERNEL.launches = 0
+        svc = DedupService(params=P, device=dev, slots=2, min_bucket=8192,
+                           packing_impl="segments", pipeline_impl=impl,
+                           cross_check_packing=True)
+        for i, o in enumerate(objs):
+            svc.submit(str(i), o)
+        svc.flush()
+        recipes[impl] = [svc.recipes.get(str(i)).to_json()
+                         for i in range(len(objs))]
+        assert svc.scheduler.stats.packed_streams > 0
+        assert (kselp.KERNEL.launches > 0) == (impl == "split")
+        for i, o in enumerate(objs):
+            assert svc.get(str(i)) == o.tobytes()
+    assert recipes["split"] == recipes["fused"]
+    bounds = {}
+    for fp in (True, False):
+        kselp.KERNEL.launches = 0
+        sched = ChunkScheduler(P, device=dev, slots=2, min_bucket=8192,
+                               packing_impl="segments", with_fingerprints=fp)
+        for o in objs:
+            sched.submit(o)
+        bounds[fp] = [r.bounds.tolist() for r in sched.drain()]
+        assert (kselp.KERNEL.launches > 0) == (not fp)
+    assert bounds[True] == bounds[False]
 
 
 # -- the chunker registry's kernels ---------------------------------------

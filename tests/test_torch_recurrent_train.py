@@ -209,6 +209,40 @@ def test_slstm_scan_bwd_plain_is_autograd_of_the_plain_loop(hd, S, dtype):
         torch.testing.assert_close(x, w.to(x.dtype), **tol, msg=name)
 
 
+def test_slstm_card_route_dr_sums_in_float64(monkeypatch):
+    """The card route's ``dr`` (``_recurrent_grad_f64`` over the backward
+    kernel's dpre) at 64 rows x 16 steps x 2 heads of 64, the float32 card
+    case whose float32 sum missed ``ACCURACY``: the float64 contraction of
+    ``h_{t-1}`` and dpre rounded once to float32, apart from the plain
+    backward's float32 sum (``_recurrent_grad``) only by that sum's own
+    rounding (at most ``n u / (1 - n u)`` of the sum of the terms' sizes,
+    n = B S terms, u = 2^-24), and in chunks of rows within a float32 step
+    of it."""
+    B, S, H, hd = 64, 16, 2, 64
+    D = H * hd
+    rng = np.random.default_rng(64)
+    f32 = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape).astype(np.float32))
+    h0, hs, dpre, r = f32(B, D), f32(B, S, D), f32(B, S, 4, D), f32(
+        4, H, hd, hd)
+    hp = kslstm._prev_h(h0, hs).double().reshape(B, S, H, hd)
+    dp = dpre.double().reshape(B, S, 4, H, hd)
+    exact = torch.einsum("bshd,bsghe->ghde", hp, dp)
+    sizes = torch.einsum("bshd,bsghe->ghde", hp.abs(), dp.abs())
+    got = kslstm._recurrent_grad_f64(h0, hs, dpre, r)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, exact.float())
+    plain = kslstm._recurrent_grad(h0, hs, dpre, r)
+    n, u = B * S, 2.0 ** -24
+    gap = (plain.double() - got.double()).abs()
+    assert bool((gap <= n * u / (1 - n * u) * sizes + u * exact.abs()).all())
+    assert float(gap.max()) > 0  # the float32 sum rounds along the way
+    monkeypatch.setattr(kslstm, "_F64_CHUNK", 5 * S * 4 * D)  # 13 chunks
+    chunked = kslstm._recurrent_grad_f64(h0, hs, dpre, r)
+    torch.testing.assert_close(chunked.double(), exact, rtol=2.0 ** -23,
+                               atol=1e-12 * float(sizes.max()))
+
+
 def test_slstm_scan_bwd_plain_splits_ties_as_the_reference():
     """Both maxes of the cell at a tie: ``f_pre + m = i_pre`` (m1) and
     ``f n + i = 1e-6`` (the normaliser's floor, the reference's

@@ -10,24 +10,27 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It drives only
    parallel) into ``build/kernels/``;
 3. each kernel against its plain torch version, on the card, at the
    shapes its path gives it: the service's kernels at paper 8 KiB
-   parameters (masks, fused, fingerprint and select at a 1 MiB x 8 and a
-   48 KiB x 8 bucket, the packed kernel at 8 packed rows of 16 KiB under
-   three segment mixes: all-tiny 100-1000 B, 512-2048 B, and the
-   heavy-tail sizes below 16 KiB); the registry's kernels at calibrated
-   8 KiB knobs (gear and block max over a 64 MiB stream, select over one
-   1 MiB gear selector row, the native scan over 64 KiB for each of its
-   seven algorithms); at the sizes phase 6 launches them, the native scan
-   on one 16 MiB stream for each algorithm (bit-equal to the vectorized
-   chunker of its pair, three timed calls, the SM clock sampled during
-   them and cycles a byte), the masks kernel on one 64 MiB row (bit-equal
+   parameters (masks, fused, fingerprint and the wide, gather and event
+   select kernels at a 1 MiB x 8 and a 48 KiB x 8 bucket: the gather and
+   event ones bit-equal to their plain versions at 48 KiB x 8, also at
+   ``max_chunks=5``, and to the wide select kernel at 1 MiB x 8), the
+   packed kernel at 8 packed rows of 16 KiB under three segment mixes:
+   all-tiny 100-1000 B, 512-2048 B, and the heavy-tail sizes below
+   16 KiB); the registry's kernels at calibrated 8 KiB knobs (gear and
+   block max over a 64 MiB stream, the wide, gather and event select
+   kernels over one 1 MiB gear selector row, the native scan over 64 KiB
+   for each of its seven algorithms); at the sizes phase 6 launches them,
+   the native scan on one 16 MiB stream for each algorithm (bit-equal to
+   the vectorized chunker of its pair, three timed calls, the SM clock
+   sampled during them and cycles a byte), the masks kernel on one 64 MiB row (bit-equal
    to its plain version) and the select kernel on its bitmaps (bit-equal to
    the fused kernel's bounds) and on one 16 MiB gear selector row
    (bit-equal to ``select_numpy``); every output bit-equal, rows
    spot-checked against the numpy oracle, kernel, plain and (block max)
    library times, and the least time the card could take (its bound); the
-   plain gather and event automaton steps, once each on a 4 MiB SeqCDC
-   stream, bit-equal to the select kernel; then the block-max op once,
-   its only path; the flash
+   gather and event select kernels on one 4 MiB SeqCDC stream (calibrated
+   8 KiB knobs), bit-equal to the wide select kernel, with its time beside
+   theirs; then the block-max op once, its only path; the flash
    attention kernel at llama3.2-1b's serving shapes (1 x 2048 and 4096
    tokens, 32 query and 8 KV heads of width 64, causal, bfloat16 and
    float32), at phase 9's training shape (a microbatch of 2 x 2048,
@@ -62,7 +65,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It drives only
    a seeded versioned corpus (6 versions of 48 objects, log-uniform
    16 KiB-2 MiB, about 1% of bytes edited per version), every object
    submitted, flushed, restored SHA-verified, and a sample of recipes held
-   against the numpy oracle;
+   against the numpy oracle; then version 0 again through
+   ``DedupService(device="cuda", pipeline_impl="split")`` with an
+   in-memory store once for each automaton step (``step_impl`` "wide",
+   "gather", "event": the masks kernel, that step's select kernel and the
+   fingerprint kernel) with the pipeline cross-check on, recipes equal to
+   the main run's version 0, MB/s each;
 5. the sharded service with segment packing: ``ShardedDedupService.open``
    with 4 local shards, the fused pipeline and the packing cross-check, a
    seeded file tree (3 versions of 4,096 files, heavy-tail sizes; per
@@ -73,7 +81,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It drives only
    vectorized lists through ``make_chunker`` on the card at avg 8 KiB with
    the calibrated knobs, at that benchmark's "full" sizes (64 MiB for the
    vectorized chunkers, 16 MiB for rabin/crc/gear/fastcdc/tttd and every
-   ``_seq`` form), crc/rabin also with ``backend="torch"``: one warm-up
+   ``_seq`` form), crc/rabin also with ``backend="torch"`` and seqcdc
+   also with ``step_impl="gather"`` and ``"event"`` (their select kernels;
+   bounds equal to the ``wide`` step's, GB/s beside it): one warm-up
    and two timed calls each, GB/s and mean chunk size, and every
    (vectorized, native) pair of ``tests/test_baselines.py`` bit-equal on
    one stream;
@@ -354,6 +364,11 @@ def sm_clock_during(fn):
 
 # -- phase 3: each kernel against its plain version ---------------------------
 
+#: the widest rows phase 3 holds the gather and event select kernels to
+#: their plain versions at (the plain gather loop walks every W-block)
+STEP_PLAIN_MAX = 64 << 10
+
+
 def kernel_phase(p, B: int, S: int, seed: int) -> dict:
     import numpy as np
     import torch
@@ -364,6 +379,8 @@ def kernel_phase(p, B: int, S: int, seed: int) -> dict:
     from repro_torch.kernels import fingerprint as kfp
     from repro_torch.kernels import fused_pipeline as kfused
     from repro_torch.kernels import select_boundaries as kselect
+    from repro_torch.kernels import select_boundaries_event as kevent
+    from repro_torch.kernels import select_boundaries_gather as kgather
     from repro_torch.kernels import seqcdc_masks as kmasks
 
     rng = np.random.default_rng(seed)
@@ -459,6 +476,41 @@ def kernel_phase(p, B: int, S: int, seed: int) -> dict:
             lambda: select_boundaries(cand, opp, S, p, max_chunks=mc),
             plain_reps),
     ))
+    # the gather and event select kernels on the same bitmaps: against
+    # their plain versions at 48 KiB x 8, also at an undersized table (the
+    # event walk stops there), and at 1 MiB x 8 against the wide select
+    # kernel's bounds above, where the plain gather loop would walk 4,000-odd
+    # W-blocks a call for seconds
+    wide = got
+    for step, fn in (("gather", kgather.select_boundaries_gather),
+                     ("event", kevent.select_boundaries_event)):
+        got = fn(cand, opp, S, p, max_chunks=mc)
+        torch.cuda.synchronize()
+        if S <= STEP_PLAIN_MAX:
+            want = select_boundaries(cand, opp, S, p, step_impl=step,
+                                     max_chunks=mc)
+            err = max_abs_err(got, want)
+            err5 = max_abs_err(
+                fn(cand, opp, S, p, max_chunks=5),
+                select_boundaries(cand, opp, S, p, step_impl=step,
+                                  max_chunks=5))
+            held = "its plain version (also at max_chunks 5)"
+            plain_ms = cuda_ms(lambda: select_boundaries(
+                cand, opp, S, p, step_impl=step, max_chunks=mc), plain_reps)
+        else:
+            err, err5 = max_abs_err(got, wide), 0
+            held = "the wide select kernel's bounds"
+            plain_ms = None
+        if err or err5:
+            raise AssertionError(f"select_boundaries_{step} differs from "
+                                 f"{held} at {B}x{S}")
+        out[f"select_boundaries_{step}"] = timed(dict(
+            max_abs_err=err, bound_ms=out["select_boundaries"]["bound_ms"],
+            bound_by=out["select_boundaries"]["bound_by"], held=held,
+            **kernel_times(lambda: fn(cand, opp, S, p, max_chunks=mc), 10,
+                           f"select_boundaries_{step}_", names=2),
+            plain_ms=plain_ms,
+        ))
     blocks = (S + p.skip_size + 2 * p.block_width - 1) // p.block_width
     return out, dict(ms=out["select_boundaries"]["plain_ms"], blocks=blocks)
 
@@ -715,9 +767,10 @@ def scan_kwargs(algo: str) -> dict:
 
 def chunk_kernel_phase(seed: int, n_big: int, n_select: int,
                        n_scan: int) -> dict:
-    """The gear, block-max, select (gear selector row) and native-scan
-    kernels against their plain versions at the registry's shapes, and the
-    plain ``gather``/``event`` steps against the select kernel."""
+    """The gear, block-max, select, gather and event select (gear
+    selector row) and native-scan kernels against their plain versions at
+    the registry's shapes, and the gather and event select kernels on a
+    4 MiB SeqCDC stream against the wide select kernel."""
     import numpy as np
     import torch
 
@@ -727,8 +780,10 @@ def chunk_kernel_phase(seed: int, n_big: int, n_select: int,
     from repro_torch.kernels import extremum as kext
     from repro_torch.kernels import gear_hash as kgear
     from repro_torch.kernels import native_scan as kscan
-    from repro_torch.kernels import seqcdc_masks as kmasks
     from repro_torch.kernels import select_boundaries as kselect
+    from repro_torch.kernels import select_boundaries_event as kevent
+    from repro_torch.kernels import select_boundaries_gather as kgather
+    from repro_torch.kernels import seqcdc_masks as kmasks
 
     rng = np.random.default_rng(seed + 3)
     x = torch.from_numpy(rng.integers(0, 256, n_big, dtype=np.uint8)).cuda()
@@ -792,27 +847,55 @@ def chunk_kernel_phase(seed: int, n_big: int, n_select: int,
             bits, opp, n_select, sp), 1),
     ))
 
-    # the plain gather and event steps on a SeqCDC stream, once each
+    # the gather and event select kernels on the same gear selector row,
+    # against their plain versions
+    for step, fn in (("gather", kgather.select_boundaries_gather),
+                     ("event", kevent.select_boundaries_event)):
+        got = fn(bits, opp, n_select, sp)
+        want = automaton.select_boundaries(bits, opp, n_select, sp,
+                                           step_impl=step)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if err:
+            raise AssertionError(f"select_boundaries_{step} differs from "
+                                 f"its plain version on a gear selector row")
+        out[f"select_boundaries_{step} gear row"] = timed(dict(
+            max_abs_err=err, bound_ms=bms, bound_by=by,
+            shape=f"1x{n_select} gear selector", chunks=int(got[1][0]),
+            **kernel_times(lambda: fn(bits, opp, n_select, sp), 10,
+                           f"select_boundaries_{step}_", names=2),
+            plain_ms=cuda_ms(lambda: automaton.select_boundaries(
+                bits, opp, n_select, sp, step_impl=step), 1),
+        ))
+
+    # and on one 4 MiB SeqCDC stream (calibrated 8 KiB knobs), against the
+    # wide select kernel: the plain gather loop took 10 s here
     seqcdc = make_chunker("seqcdc", 8192, device="cuda",
                           **calibrated_kwargs("seqcdc", 8192))
     p = seqcdc.params
     cand, opp = kmasks.seqcdc_masks(x[None, :n_big // 16], p.seq_length,
                                     p.mode)
     n4 = cand.shape[1]
+    mc = automaton.max_chunks_for(n4, p)
     want = kselect.select_boundaries(cand, opp, n4, p)
     steps = {}
-    for step in ("gather", "event"):
+    bms, by = bound_ms(2 * n4 + 4 * mc + 4, 4 * n4)
+    for step, fn in (("gather", kgather.select_boundaries_gather),
+                     ("event", kevent.select_boundaries_event)):
+        got = fn(cand, opp, n4, p)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        got = automaton.select_boundaries(cand, opp, n4, p, step_impl=step)
-        torch.cuda.synchronize()
-        steps[step] = (time.perf_counter() - t0) * 1e3
-        if max_abs_err(got, want):
-            raise AssertionError(f"the plain {step} step differs from the "
-                                 f"select kernel")
-    out["steps"] = dict(n=n4, select_kernel_ms=cuda_ms(
-        lambda: kselect.select_boundaries(cand, opp, n4, p), 5),
-        **{f"{k}_ms": v for k, v in steps.items()})
+        err = max_abs_err(got, want)
+        if err:
+            raise AssertionError(f"select_boundaries_{step} differs from "
+                                 f"the wide select kernel on a 4 MiB row")
+        steps[step] = timed(dict(
+            max_abs_err=err, bound_ms=bms, bound_by=by,
+            shape=f"1x{n4} SeqCDC", chunks=int(got[1][0]),
+            **kernel_times(lambda: fn(cand, opp, n4, p), 5,
+                           f"select_boundaries_{step}_", names=2)))
+    out["steps"] = dict(n=n4, kernels=steps, **timed(dict(
+        **kernel_times(lambda: kselect.select_boundaries(cand, opp, n4, p),
+                       5, "select_boundaries_"))))
 
     # each native scan on one stream, as its _seq chunker calls it
     scans = {}
@@ -1515,6 +1598,7 @@ def service_phase(p, versions: int, objects: int, seed: int,
             keys = [sha256_key(obj[s:e].tobytes()) for s, e in zip(starts, ob)]
             if r.keys != keys:
                 raise AssertionError(f"recipe v{v}/obj{i}: keys differ")
+        v0_sha256 = recipes_sha256(svc.recipes, "v00/")
         st = svc.stats()
         sched = svc.scheduler.stats
         hists = svc.metrics()["service"]["histograms"]
@@ -1546,7 +1630,65 @@ def service_phase(p, versions: int, objects: int, seed: int,
             tail_s=sched.tail_s,
             cross_check_s=sched.cross_check_s,
             launches=launches,
+            v0_sha256=v0_sha256,
         )
+
+
+def recipes_sha256(recipes, prefix: str) -> str:
+    """SHA-256 over the recipes whose names start with ``prefix``, in name
+    order, each as sorted JSON."""
+    import hashlib
+
+    digest = hashlib.sha256()
+    for name in sorted(recipes.names()):
+        if name.startswith(prefix):
+            digest.update(json.dumps(recipes.get(name).to_json(),
+                                     sort_keys=True).encode())
+    return digest.hexdigest()
+
+
+def service_steps_phase(p, objects: int, seed: int, want: str,
+                        kernels) -> dict:
+    """Phase 4's version 0 again through ``DedupService(device="cuda",
+    pipeline_impl="split")`` once for each automaton step (``wide``,
+    ``gather``, ``event``: the masks kernel, that step's select kernel and
+    the fingerprint kernel), an in-memory store, the pipeline cross-check
+    on (its replays run the fused kernel); each run's recipes must equal
+    the main run's version 0 (digest ``want``).  MB/s and launches a run,
+    the counts set to 0 just before each and read just after."""
+    import torch
+
+    from repro_torch.service import DedupService
+
+    corpus = make_corpus(seed, 1, objects)[0]
+    logical = sum(o.size for o in corpus)
+    out = {}
+    for step in ("wide", "gather", "event"):
+        svc = DedupService(params=p, device="cuda", slots=8,
+                           pipeline_impl="split", step_impl=step,
+                           cross_check_pipeline=True)
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        for i, obj in enumerate(corpus):
+            svc.submit(f"v00/obj{i:03d}", obj)
+        svc.flush()
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+        sha = recipes_sha256(svc.recipes, "v00/")
+        if sha != want:
+            raise AssertionError(f"the split pipeline with step_impl="
+                                 f"{step!r} gives other recipes than the "
+                                 f"main run's version 0")
+        cross = svc.scheduler.stats.cross_check_s
+        out[step] = dict(
+            logical_bytes=logical, ingest_s=ingest_s,
+            ingest_mb_s=logical / ingest_s / 1e6, cross_check_s=cross,
+            ingest_mb_s_without_cross_checks=(
+                logical / (ingest_s - cross) / 1e6),
+            dispatches=svc.scheduler.stats.dispatches, launches=launches)
+    return out
 
 
 # -- phase 5: the sharded service with segment packing --------------------------
@@ -1762,8 +1904,10 @@ def mib_for(name: str) -> int:
 def registry_phase(seed: int, avg: int, kernels) -> dict:
     """Every chunker of the two lists through ``make_chunker`` on the card
     at ``avg`` with the calibrated knobs (and crc/rabin once more with
-    ``backend="torch"``): one warm-up and two timed calls each on a prefix
-    of one seeded random stream, then every pair bit-equal on one stream."""
+    ``backend="torch"``, seqcdc once more with each of ``step_impl=
+    "gather"`` and ``"event"``, their bounds equal to the ``wide`` step's):
+    one warm-up and two timed calls each on a prefix of one seeded random
+    stream, then every pair bit-equal on one stream."""
     import numpy as np
 
     from repro_torch.core import make_chunker
@@ -1773,6 +1917,7 @@ def registry_phase(seed: int, avg: int, kernels) -> dict:
                                                     dtype=np.uint8)
     runs = [(name, {}) for name in NATIVE + VECTOR]
     runs += [(name, {"backend": "torch"}) for name in ("crc", "rabin")]
+    runs += [("seqcdc", {"step_impl": s}) for s in ("gather", "event")]
     for k in kernels:
         k.launches = 0  # the main path's count starts here
     out, bounds = {}, {}
@@ -1790,7 +1935,7 @@ def registry_phase(seed: int, avg: int, kernels) -> dict:
                 raise AssertionError(f"{name}: two runs differ")
         if b[-1] != d.size or (np.diff(b) <= 0).any():
             raise AssertionError(f"{name}: bounds are not a chunking")
-        label = name + ("[torch]" if extra else "")
+        label = name + "".join(f"[{v}]" for v in extra.values())
         bounds[label] = b
         s = sum(times) / len(times)
         out[label] = dict(bytes=d.size, s=times, gb_s=d.size / s / 1e9,
@@ -1799,6 +1944,9 @@ def registry_phase(seed: int, avg: int, kernels) -> dict:
     for name in ("crc", "rabin"):
         if not np.array_equal(bounds[name], bounds[f"{name}[torch]"]):
             raise AssertionError(f"{name}: backend='torch' != 'numpy'")
+    for step in ("gather", "event"):
+        if not np.array_equal(bounds["seqcdc"], bounds[f"seqcdc[{step}]"]):
+            raise AssertionError(f"seqcdc: step_impl={step!r} != 'wide'")
     pairs = {}
     for vec, seq in PAIRS:
         n = min(bounds[vec][-1], bounds[seq][-1])
@@ -3607,11 +3755,13 @@ def main(argv=None) -> int:
             f"({automaton['ms'] / automaton['blocks']:.3f} ms per block: a "
             f"Python loop of torch ops)")
         for name, r in res.items():
-            log(f"kernel {name} {label}: bit-equal to plain "
-                f"(max_abs_err {r['max_abs_err']}), {r['ms']:.4f} ms "
-                f"({r['ms_source']}; {r['call_ms']:.4f} ms per call), plain "
-                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                f"({r['bound_by']})")
+            plain = ("not run" if r["plain_ms"] is None
+                     else f"{r['plain_ms']:.4f} ms")
+            log(f"kernel {name} {label}: bit-equal to "
+                f"{r.get('held', 'plain')} (max_abs_err "
+                f"{r['max_abs_err']}), {r['ms']:.4f} ms ({r['ms_source']}; "
+                f"{r['call_ms']:.4f} ms per call), plain {plain}, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
         split = sum(res[k]["ms"] for k in ("seqcdc_masks",
                                            "select_boundaries",
                                            "fingerprint"))
@@ -3682,9 +3832,13 @@ def main(argv=None) -> int:
             f"({r['ms_source']}){clock}, bound {r['bound_ms']:.6f} ms "
             f"({r['bound_by']})")
     st = reg["steps"]
-    log(f"automaton steps on one {st['n']} B SeqCDC stream, bit-equal to "
-        f"the select kernel ({st['select_kernel_ms']:.4f} ms): plain gather "
-        f"{st['gather_ms']:.1f} ms, plain event {st['event_ms']:.1f} ms")
+    for step, r in st["kernels"].items():
+        log(f"kernel select_boundaries_{step} ({r['shape']}, {r['chunks']} "
+            f"chunks): bit-equal to the wide select kernel, {r['ms']:.4f} ms "
+            f"({r['ms_source']}; {r['call_ms']:.4f} ms per call), bound "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']}); the wide select "
+            f"kernel {st['ms']:.4f} ms ({st['ms_source']}; "
+            f"{st['call_ms']:.4f} ms per call)")
     fl = flash_phase(args.seed)
     measured["flash"] = fl
     for name, r in fl.items():
@@ -3756,6 +3910,8 @@ def main(argv=None) -> int:
         native_scan,
         packed_pipeline,
         select_boundaries,
+        select_boundaries_event,
+        select_boundaries_gather,
         select_boundaries_packed,
         seqcdc_masks,
         slstm_scan,
@@ -3790,6 +3946,23 @@ def main(argv=None) -> int:
     if missing:
         raise AssertionError(f"kernels never launched by the single-store "
                              f"service: {missing}")
+    # version 0 again through the split pipeline, once a step
+    svc_steps = service_steps_phase(p, OBJECTS, args.seed, svc["v0_sha256"],
+                                    KERNELS)
+    for step, r in svc_steps.items():
+        log(f"service, split pipeline, step_impl={step!r}, version 0: "
+            f"recipes equal to the main run's; ingest {r['ingest_mb_s']:.2f} "
+            f"MB/s ({r['ingest_s']:.2f} s for {r['logical_bytes']} bytes, of "
+            f"which cross-check replays {r['cross_check_s']:.2f} s; "
+            f"{r['ingest_mb_s_without_cross_checks']:.2f} MB/s without "
+            f"them), dispatches {r['dispatches']}, launches "
+            f"{({k: v for k, v in r['launches'].items() if v})}")
+    for step, k in (("wide", select_boundaries.KERNEL),
+                    ("gather", select_boundaries_gather.KERNEL),
+                    ("event", select_boundaries_event.KERNEL)):
+        if svc_steps[step]["launches"][k.name] == 0:
+            raise AssertionError(f"the split service with step_impl="
+                                 f"{step!r} never launched {k.name}")
 
     # 5. the sharded service with segment packing
     sh = sharded_phase(p, args.seed, KERNELS)
@@ -3848,8 +4021,14 @@ def main(argv=None) -> int:
     log("registry pairs bit-equal: " + ", ".join(
         f"{k} ({v} B)" for k, v in rg["pairs"].items()))
     log(f"registry: launches {rg['launches']}")
+    ch = rg["chunkers"]
+    log(f"registry: seqcdc's automaton steps over {ch['seqcdc']['bytes']} "
+        f"bytes, bounds equal to wide's: wide {ch['seqcdc']['gb_s']:.4f} "
+        f"GB/s, gather {ch['seqcdc[gather]']['gb_s']:.4f} GB/s, event "
+        f"{ch['seqcdc[event]']['gb_s']:.4f} GB/s")
     path6 = (gear_hash.KERNEL, select_boundaries.KERNEL, native_scan.KERNEL,
-             seqcdc_masks.KERNEL)
+             seqcdc_masks.KERNEL, select_boundaries_gather.KERNEL,
+             select_boundaries_event.KERNEL)
     missing = [k.name for k in path6 if rg["launches"][k.name] == 0]
     if missing:
         raise AssertionError(f"kernels never launched by the chunker "
@@ -4171,6 +4350,10 @@ def main(argv=None) -> int:
                                  packed["all-tiny"]),
         select_boundaries_packed.KERNEL: ("16KiBx8 packed all-tiny",
                                           sel_packed["all-tiny"]),
+        select_boundaries_gather.KERNEL: (
+            "48KiBx8", measured["48KiBx8"]["select_boundaries_gather"]),
+        select_boundaries_event.KERNEL: (
+            "48KiBx8", measured["48KiBx8"]["select_boundaries_event"]),
         gear_hash.KERNEL: (reg["gear_hash"]["shape"], reg["gear_hash"]),
         extremum.KERNEL: (reg["block_max"]["shape"], reg["block_max"]),
         native_scan.KERNEL: (reg["native_scan"]["seqcdc"]["shape"],
@@ -4190,6 +4373,10 @@ def main(argv=None) -> int:
         select_boundaries.KERNEL: [
             reg["select_boundaries gear row"]["max_abs_err"],
             launched["select_boundaries seqcdc row"]["max_abs_err"]],
+        **{k: [reg[f"{k.name} gear row"]["max_abs_err"],
+               reg["steps"]["kernels"][step]["max_abs_err"]]
+           for step, k in (("gather", select_boundaries_gather.KERNEL),
+                           ("event", select_boundaries_event.KERNEL))},
         native_scan.KERNEL: [m["max_abs_err"]
                              for m in reg["native_scan"].values()],
         flash_attn.KERNEL: [m["max_abs_err"] for m in fl.values()],
@@ -4201,7 +4388,9 @@ def main(argv=None) -> int:
                      slstm_scan.KERNEL)},
     }
     # the times at the sizes phase 6 launches them (no plain time there:
-    # the plain versions are Python loops)
+    # the plain versions are Python loops); the gather and event select
+    # kernels' on phase 3's 4 MiB SeqCDC stream (phase 6 times them through
+    # the chunker, by the host clock)
     launched_of = {
         native_scan.KERNEL: {a: launched[f"native_scan {a}"]["ms"]
                              for a in SCAN_ALGOS},
@@ -4211,6 +4400,10 @@ def main(argv=None) -> int:
         seqcdc_masks.KERNEL: {
             r["shape"]: r["ms"] for name, r in launched.items()
             if name.startswith("seqcdc_masks")},
+        **{k: {reg["steps"]["kernels"][step]["shape"]:
+               reg["steps"]["kernels"][step]["ms"]}
+           for step, k in (("gather", select_boundaries_gather.KERNEL),
+                           ("event", select_boundaries_event.KERNEL))},
         flash_attn.KERNEL: {
             fl[c]["shape"]: fl[c]["ms"]
             for c in ("S4096 hd256 window 2048 bf16", "S4096 hd128 32/8 bf16",
@@ -4229,6 +4422,7 @@ def main(argv=None) -> int:
             measured[s][k.name]["max_abs_err"] for s in shapes
             if k.name in measured[s]])
         launches = (path3[k.name] + svc["launches"][k.name]
+                    + sum(r["launches"][k.name] for r in svc_steps.values())
                     + sh["launches"][k.name] + sh_split["launches"][k.name]
                     + rg["launches"][k.name]
                     + sv["launches"][k.name] + sc["launches"][k.name]
@@ -4255,7 +4449,8 @@ def main(argv=None) -> int:
                     exist_ok=True)
         with open(args.json, "w") as f:
             json.dump(dict(card=card, build_s=build_s, kernels=measured,
-                           service=svc, sharded=sh, sharded_split=sh_split,
+                           service=svc, service_steps=svc_steps, sharded=sh,
+                           sharded_split=sh_split,
                            registry=rg,
                            serving=sv, scenarios=sc, training=tr,
                            recurrent=rec, family=fam, mla=ds,

@@ -23,12 +23,15 @@ position is clamped to the next pending cut.  Its device form is
 phase 2); ``kernels/csrc/packed_pipeline.cu`` runs it fused with the masks
 and fingerprints.
 
-The reference's two other steps are here too, as the torch ops they are
-on either device: ``gather`` (O(1) gathers per block against tables built
-in parallel over all blocks, the block loop kept) and ``event`` (a loop
-over events, jumping between them by ``searchsorted`` over prefix sums).
-Only ``wide`` has a kernel of its own (``kernels/select_boundaries.py``,
-and ``kernels/select_boundaries_packed.py`` for packed rows).
+The reference's two other steps are here too, as plain torch: ``gather``
+(O(1) gathers per block against tables built in parallel over all blocks,
+the block loop kept) and ``event`` (a loop over events, jumping between
+them by ``searchsorted`` over prefix sums).  Each step has a kernel of
+its own: ``kernels/select_boundaries.py`` (``wide``, and
+``kernels/select_boundaries_packed.py`` for packed rows),
+``kernels/select_boundaries_gather.py`` and
+``kernels/select_boundaries_event.py``; these loops are their plain
+versions.
 """
 from __future__ import annotations
 

@@ -4,8 +4,8 @@ Hash-based CDC (Rabin/CRC/Gear) reduces, after the two-phase split, to:
 given a *position-independent* boundary bitmap (``h & mask == 0``), select
 boundaries sequentially subject to min/max chunk sizes.  That is exactly the
 SeqCDC block automaton with no skip trigger and run length 1, so the port
-reuses it (``core.seqcdc.select``: the select kernel for the ``wide`` step,
-the plain torch automaton for the others) via a light parameter shim.
+reuses it (``core.seqcdc.select``: the select kernel of the step) via a
+light parameter shim.
 
 A copy of ``repro/core/baselines/selectors.py`` with ``select_torch`` in
 place of the reference's ``select_jax``.
@@ -46,8 +46,8 @@ class SelectorParams:
 def select_torch(bitmap, n: int, min_size: int, max_size: int,
                  step_impl="wide"):
     """(bounds, count) from an ``(n,)`` bool bitmap tensor (bit k =>
-    boundary k+1): the select kernel for ``step_impl="wide"`` (its plain
-    version for a CPU tensor), the plain torch automaton for the others."""
+    boundary k+1): the select kernel of ``step_impl`` (``wide``, ``gather``
+    or ``event``; its plain version for a CPU tensor)."""
     import torch
 
     from .. import seqcdc

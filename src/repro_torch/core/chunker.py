@@ -110,8 +110,8 @@ class _SeqCDCBase(Chunker):
 @register("seqcdc")
 class SeqCDCChunker(_SeqCDCBase):
     """Vectorized two-phase SeqCDC (the paper's VSEQ): the masks kernel,
-    then the select kernel for the ``wide`` step or the plain torch
-    automaton for ``gather``/``event``."""
+    then the select kernel of ``step_impl`` (``wide``, ``gather`` or
+    ``event``)."""
 
     name = "seqcdc"
 

@@ -5,7 +5,7 @@ The port of ``repro/core/seqcdc.py``.  ``two_phase``: phase 1 computes the
 candidate/opposing bitmaps (plain torch, ``mask_impl="torch"``, or the
 CUDA kernel, ``mask_impl="cuda"``), phase 2 runs the W-block automaton
 (``core/automaton.py``; ``step_impl`` picks the step) in plain torch
-(``select_impl="torch"``) or, for the ``wide`` step, as the select kernel
+(``select_impl="torch"``) or as that step's select kernel
 (``select_impl="cuda"``).  Streams of equal length chunk independently
 along the leading axis.  ``sequential``: the scalar algorithm with true
 data-dependent skipping (the paper's unaccelerated SEQ), a Python loop
@@ -29,8 +29,8 @@ from .params import SeqCDCParams
 
 MaskImpl = Literal["torch", "cuda"]
 MASK_IMPLS = ("torch", "cuda")
-#: phase 2's implementation: the plain torch automaton (any step) or the
-#: select kernel (the ``wide`` step; over packed rows, the packed one)
+#: phase 2's implementation: the plain torch automaton or the step's select
+#: kernel (over packed rows, the packed one: the ``wide`` step)
 SELECT_IMPLS = ("torch", "cuda")
 
 
@@ -46,19 +46,23 @@ def _compute_masks(data: torch.Tensor, p: SeqCDCParams, mask_impl: str):
 
 def select_impl_for(step_impl: str) -> str:
     """The phase-2 implementation the port's callers run for
-    ``step_impl``: the select kernel (``"cuda"``; its plain version for a
-    CPU tensor) for the ``wide`` step, plain torch for the others."""
-    return "cuda" if step_impl == "wide" else "torch"
+    ``step_impl``: the select kernel of that step (``"cuda"``; its plain
+    version for a CPU tensor).  Every step has one."""
+    if step_impl not in automaton.STEP_IMPLS:
+        raise ValueError(f"step_impl must be one of {automaton.STEP_IMPLS}, "
+                         f"got {step_impl!r}")
+    return "cuda"
 
 
 def select(cand: torch.Tensor, opp: torch.Tensor, n: int, p, *,
            select_impl: str = "torch", step_impl: str = "wide",
            max_chunks: int | None = None):
     """Phase 2 over ``(B, n)`` bitmaps: the plain torch automaton
-    (``select_impl="torch"``, any ``step_impl``) or the select kernel's
-    wrapper (``"cuda"``, the ``wide`` step only).  ``p`` is a
-    :class:`SeqCDCParams` or anything with its fields (the hash selectors'
-    ``SelectorParams``)."""
+    (``select_impl="torch"``) or the select kernel of ``step_impl``
+    (``"cuda"``: ``kernels/select_boundaries.py`` for ``wide``,
+    ``select_boundaries_gather.py`` and ``select_boundaries_event.py`` for
+    the others).  ``p`` is a :class:`SeqCDCParams` or anything with its
+    fields (the hash selectors' ``SelectorParams``)."""
     if select_impl == "torch":
         return automaton.select_boundaries(cand, opp, n, p,
                                            step_impl=step_impl,
@@ -66,12 +70,18 @@ def select(cand: torch.Tensor, opp: torch.Tensor, n: int, p, *,
     if select_impl != "cuda":
         raise ValueError(
             f"select_impl must be one of {SELECT_IMPLS}, got {select_impl!r}")
-    if step_impl != "wide":
-        raise ValueError(f"the select kernel runs the 'wide' step, not "
-                         f"{step_impl!r}; use select_impl='torch'")
-    from repro_torch.kernels import select_boundaries as kselect
+    select_impl_for(step_impl)  # a known step
+    from repro_torch.kernels import (
+        select_boundaries,
+        select_boundaries_event,
+        select_boundaries_gather,
+    )
 
-    return kselect.select_boundaries(cand, opp, n, p, max_chunks=max_chunks)
+    kernel = {"wide": select_boundaries.select_boundaries,
+              "gather": select_boundaries_gather.select_boundaries_gather,
+              "event": select_boundaries_event.select_boundaries_event,
+              }[step_impl]
+    return kernel(cand, opp, n, p, max_chunks=max_chunks)
 
 
 def boundaries_batch(

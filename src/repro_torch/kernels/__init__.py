@@ -17,6 +17,10 @@ plain torch version only for tensors on the CPU:
   bitmaps (the split path's phase 2 and the hash chunkers' selector);
 * ``select_boundaries_packed`` — the same over packed rows' bitmaps,
   resetting at every segment end (the packed split path's phase 2);
+* ``select_boundaries_gather`` — the ``gather`` step over given bitmaps:
+  per-block tables built in parallel, constant work a W-block;
+* ``select_boundaries_event`` — the ``event`` step over given bitmaps:
+  prefix sums built in parallel, one search a event;
 * ``native_scan`` — the per-byte native CDC scans (the ``_seq`` chunkers
   and ``boundaries_sequential``), one thread's serial loop per stream;
 * ``flash_attn`` — causal (or full) flash attention forward with grouped
@@ -44,18 +48,21 @@ from . import (
     native_scan,
     packed_pipeline,
     select_boundaries,
+    select_boundaries_event,
+    select_boundaries_gather,
     select_boundaries_packed,
     seqcdc_masks,
     slstm_scan,
 )
 
 #: every kernel of the port, in the order of the TPU kernels they replace
-#: (1-6), then the three device forms of the dedup path's scans, then
+#: (1-6), then the five device forms of the dedup path's scans, then
 #: TPU kernel 7, flash attention (the LM serving path's), then the device
 #: forms of the recurrent families' scans, then their backwards
 KERNELS = (seqcdc_masks.KERNEL, fingerprint.KERNEL, fused_pipeline.KERNEL,
            packed_pipeline.KERNEL, gear_hash.KERNEL, extremum.KERNEL,
            select_boundaries.KERNEL, select_boundaries_packed.KERNEL,
+           select_boundaries_gather.KERNEL, select_boundaries_event.KERNEL,
            native_scan.KERNEL, flash_attn.KERNEL,
            linear_scan.KERNEL, mlstm_scan.KERNEL, slstm_scan.KERNEL,
            linear_scan.BWD_KERNEL, mlstm_scan.BWD_KERNEL,
@@ -64,4 +71,5 @@ KERNELS = (seqcdc_masks.KERNEL, fingerprint.KERNEL, fused_pipeline.KERNEL,
 __all__ = ["KERNELS", "extremum", "fingerprint", "flash_attn",
            "fused_pipeline", "gear_hash", "linear_scan", "mlstm_scan",
            "native_scan", "packed_pipeline", "select_boundaries",
+           "select_boundaries_event", "select_boundaries_gather",
            "select_boundaries_packed", "seqcdc_masks", "slstm_scan"]

@@ -19,14 +19,13 @@
 // advance.  Two launches behind one call:
 //
 // 1. select_boundaries_pack_kernel, one warp per 1024 positions of the
-//    batch on every SM: the warp loads the group's candidate and opposing
-//    bytes (each load 32 neighbouring bytes), turns them into 32-bit words
-//    with __ballot_sync and writes them to the scratch the wrapper
-//    allocates, (B, G, 2, 32) uint32 with G = ceil(n / 1024): group g of
-//    row b holds the candidate words of positions 1024g .. 1024g + 1023,
-//    then the opposing words, bit q of word i at position 1024g + 32i + q,
-//    zero past n.  The scratch is the design's choice, not the function's:
-//    the bound does not count it.
+//    batch on every SM: the warp turns the group's candidate and opposing
+//    bytes into 32-bit words (bitmap_words.cuh) and writes them to the
+//    scratch the wrapper allocates, (B, G, 2, 32) uint32 with G =
+//    ceil(n / 1024): group g of row b holds the candidate words of
+//    positions 1024g .. 1024g + 1023, then the opposing words, bit q of
+//    word i at position 1024g + 32i + q, zero past n.  The scratch is the
+//    design's choice, not the function's: the bound does not count it.
 // 2. select_boundaries_scan_kernel, one CTA of two warps per row.  A
 //    producer thread streams the row's groups into a ring of shared-memory
 //    slabs with cp.async.bulk (ring.cuh); the scanning warp runs the
@@ -40,6 +39,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bitmap_words.cuh"
 #include "ring.cuh"
 #include "wblock.cuh"
 
@@ -66,26 +66,9 @@ select_boundaries_pack_kernel(const uint8_t* __restrict__ cand,
   const int lane = threadIdx.x & 31;
   if (grp >= (long long)B * G) return;
   const long long b = grp / G;
-  const long long p0 = (grp - b * G) * kWin;
-  const uint8_t* crow = cand + b * n;
-  const uint8_t* orow = opp + b * n;
-  uint8_t cv[32], ov[32];
-#pragma unroll
-  for (int r = 0; r < 32; ++r) {
-    const long long pos = p0 + 32 * r + lane;
-    cv[r] = pos < n ? crow[pos] : 0;
-    ov[r] = pos < n ? orow[pos] : 0;
-  }
-  unsigned cw = 0, ow = 0;
-#pragma unroll
-  for (int r = 0; r < 32; ++r) {
-    const unsigned c = __ballot_sync(kFull, cv[r] != 0);
-    const unsigned o = __ballot_sync(kFull, ov[r] != 0);
-    if (lane == r) {
-      cw = c;
-      ow = o;
-    }
-  }
+  unsigned cw, ow;
+  bitmap_words::pack_group(cand + b * n, opp + b * n, (grp - b * G) * kWin, n,
+                           lane, cw, ow);
   uint32_t* dst = words + grp * kGroupWords;
   dst[lane] = cw;
   dst[32 + lane] = ow;

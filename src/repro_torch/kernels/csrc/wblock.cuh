@@ -9,7 +9,10 @@
 // words from the stream's bytes in shared memory (mask_word: a row fed
 // through a ring, a packed row resident whole); select_boundaries.cu and
 // select_boundaries_packed.cu read them from bitmaps turned into words.
-// W <= 1024, so at most 32 words a block.
+// W <= 1024, so at most 32 words a block.  select_boundaries_gather.cu
+// resolves a block from its tables with resolve and nth_bit (one W-block a
+// step, not a window), and select_boundaries_event.cu finds a rank's bit
+// with nth_bit.
 #pragma once
 
 #include <cstdint>

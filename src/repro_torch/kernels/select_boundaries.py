@@ -35,6 +35,22 @@ KERNEL = Kernel(
 )
 
 
+def check_bitmaps(cand: torch.Tensor, opp: torch.Tensor, n: int) -> None:
+    """Raise ``ValueError`` unless ``cand`` and ``opp`` are two ``(B, n)``
+    bool bitmaps on one CPU or CUDA device: what the three select kernels
+    (``wide``, ``gather``, ``event``) and their plain versions take."""
+    dev = cand.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    if (cand.dtype != torch.bool or opp.dtype != torch.bool
+            or cand.ndim != 2 or cand.shape != opp.shape
+            or cand.shape[1] != n or opp.device != dev):
+        raise ValueError(
+            f"expected two (B, {n}) bool bitmaps on {dev}, got "
+            f"{cand.dtype} {tuple(cand.shape)} and {opp.dtype} "
+            f"{tuple(opp.shape)} on {opp.device}")
+
+
 def select_boundaries(cand: torch.Tensor, opp: torch.Tensor, n: int, p, *,
                       max_chunks: int | None = None):
     """Resolve chunk boundaries from ``(B, n)`` bool bitmaps with the
@@ -46,18 +62,10 @@ def select_boundaries(cand: torch.Tensor, opp: torch.Tensor, n: int, p, *,
     CUDA tensor launches the kernel (or raises).
     """
     mc = max_chunks or max_chunks_for(n, p)
-    dev = cand.device
-    if dev.type == "cpu":
+    check_bitmaps(cand, opp, n)
+    if cand.device.type == "cpu":
         return select_plain(cand, opp, n, p, step_impl="wide", max_chunks=mc)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    if (cand.dtype != torch.bool or opp.dtype != torch.bool
-            or cand.ndim != 2 or cand.shape != opp.shape
-            or cand.shape[1] != n or opp.device != dev):
-        raise ValueError(
-            f"expected two (B, {n}) bool bitmaps on {dev}, got "
-            f"{cand.dtype} {tuple(cand.shape)} and {opp.dtype} "
-            f"{tuple(opp.shape)} on {opp.device}")
+    dev = cand.device
     cand, opp = cand.contiguous(), opp.contiguous()
     B = cand.shape[0]
     W = p.block_width

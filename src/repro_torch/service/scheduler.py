@@ -19,8 +19,8 @@ and fingerprints as one CUDA kernel launch per batch
 (``kernels/fused_pipeline.py``); ``"split"`` runs the stages apart, with
 ``mask_impl`` (``"cuda"`` kernel or ``"torch"``) for the phase-1 bitmaps,
 the reference's ``step_impl`` for the W-block automaton (``"wide"``, the
-default, runs as the select kernel; ``"gather"`` and ``"event"`` as plain
-torch) and ``fp_impl`` (``"cuda"`` or ``"torch"``) for the fingerprints.  Each
+default, ``"gather"`` or ``"event"``, each as its select kernel) and
+``fp_impl`` (``"cuda"`` or ``"torch"``) for the fingerprints.  Each
 knob has a first-dispatch-per-bucket bit-identity cross-check that replays
 the batch through the other implementation (``cross_check_masks`` /
 ``_fps`` / ``_pipeline``) and raises a divergence error on any bit.  On a

@@ -170,9 +170,9 @@ def test_fixed_is_exact():
 
 
 def test_seqcdc_steps_agree():
-    """SeqCDCChunker(step_impl=...) picks the automaton's step: the select
-    kernel's ``wide`` (its plain version here) and the plain ``gather`` and
-    ``event`` steps give one result."""
+    """SeqCDCChunker(step_impl=...) picks the automaton's step: the
+    ``wide``, ``gather`` and ``event`` select kernels (their plain versions
+    here) give one result."""
     d = STREAMS["random"]
     want = port("seqcdc", 4096).chunk(d)
     for step in ("gather", "event"):

@@ -296,8 +296,12 @@ def test_gather_and_event_steps_match_reference(name, step, rng):
     x = torch.from_numpy(d[:1])
     with pytest.raises(ValueError):
         tseqcdc.boundaries_batch(x, tp(p), mask_impl="pallas")
-    with pytest.raises(ValueError, match="wide"):  # the kernel's one step
-        tseqcdc.boundaries_batch(x, tp(p), step_impl=step, select_impl="cuda")
+    # every step has a select kernel: its wrapper takes the plain version
+    # for a CPU tensor
+    want_b, want_c = tseqcdc.boundaries_batch(x, tp(p), step_impl=step)
+    got_b, got_c = tseqcdc.boundaries_batch(x, tp(p), step_impl=step,
+                                            select_impl="cuda")
+    assert torch.equal(got_b, want_b) and torch.equal(got_c, want_c)
 
 
 def test_bounds_to_numpy_shapes():

@@ -10,6 +10,7 @@ here, every output compared bit for bit.
 import dataclasses
 import importlib.util
 import os
+import types
 
 import numpy as np
 import pytest
@@ -40,6 +41,8 @@ from repro_torch.kernels import gear_hash as kgear
 from repro_torch.kernels import native_scan as kscan
 from repro_torch.kernels import packed_pipeline as kpacked
 from repro_torch.kernels import select_boundaries as kselect
+from repro_torch.kernels import select_boundaries_event as ksele
+from repro_torch.kernels import select_boundaries_gather as kselg
 from repro_torch.kernels import select_boundaries_packed as kselp
 from repro_torch.kernels import seqcdc_masks as kmasks
 from repro_torch.service import (
@@ -873,6 +876,159 @@ def test_select_kernel_selector_rows_against_select_numpy(dev, density, mn,
     want = select_numpy(np.flatnonzero(bits), n, mn, mx)
     assert int(counts[0]) == len(want)
     np.testing.assert_array_equal(bounds[0, : len(want)].cpu().numpy(), want)
+
+
+# -- the gather and event select kernels -------------------------------------
+
+STEP_KERNELS = {"gather": (kselg, kselg.select_boundaries_gather),
+                "event": (ksele, ksele.select_boundaries_event)}
+
+
+@pytest.mark.parametrize("step", ["gather", "event"])
+@pytest.mark.parametrize("name", sorted(PARAMS))
+@pytest.mark.parametrize("n", [1, 64, 5003, 40000])
+def test_step_kernel_on_seqcdc_bitmaps(dev, step, name, n):
+    """Each step's kernel bit-equal to its plain version on the masks
+    kernel's bitmaps, at a true and an undersized table (where the event
+    walk stops at max_chunks and the gather walk counts every emit)."""
+    p = PARAMS[name]
+    x = torch.from_numpy(_rows(np.random.default_rng(n + 3), n)).to(dev)
+    cand, opp = kmasks.seqcdc_masks(x, p.seq_length, p.mode)
+    fn = STEP_KERNELS[step][1]
+    for mc in (max_chunks_for(n, p), 3):
+        got = fn(cand, opp, n, p, max_chunks=mc)
+        torch.cuda.synchronize()
+        _equal(got, select_plain(cand, opp, n, p, step_impl=step,
+                                 max_chunks=mc))
+
+
+@pytest.mark.parametrize("step", ["gather", "event"])
+@pytest.mark.parametrize("density", [0.0, 1 / 2048, 1 / 16, 1.0])
+def test_step_kernel_on_selector_bitmaps(dev, step, density):
+    """The hash chunkers' selector (L = 1, T = 2^30, skip 2^20) through
+    each step's kernel, against its plain version and select_numpy."""
+    rng = np.random.default_rng(8)
+    n = 300_001
+    host = rng.random((2, n)) < density
+    bits = torch.from_numpy(host).to(dev)
+    zeros = torch.zeros_like(bits)
+    fn = STEP_KERNELS[step][1]
+    for mn, mx in ((1024, 4096), (4096, 16384)):
+        p = SelectorParams(min_size=mn, max_size=mx)
+        got = fn(bits, zeros, n, p)
+        torch.cuda.synchronize()
+        _equal(got, select_plain(bits, zeros, n, p, step_impl=step))
+        want = select_numpy(np.flatnonzero(host[1]), n, mn, mx)
+        assert int(got[1][1]) == len(want)
+        np.testing.assert_array_equal(got[0][1, : len(want)].cpu().numpy(),
+                                      want)
+
+
+@pytest.mark.parametrize("step", ["gather", "event"])
+@pytest.mark.parametrize("kind", ROW_KINDS)
+def test_step_kernel_one_big_row(dev, step, kind):
+    """One 4 MiB row at paper 8 KiB parameters: against the wide select
+    kernel (the plain gather loop walks 16,400 W-blocks here) and, for the
+    event step, its plain loop too."""
+    p = PARAMS["paper8k"]
+    n = 4 << 20
+    host = _big_row(np.random.default_rng(11), p, n, kind)[None]
+    x = torch.from_numpy(host).to(dev)
+    cand, opp = kmasks.seqcdc_masks(x, p.seq_length, p.mode)
+    mc = max_chunks_for(n, p)
+    got = STEP_KERNELS[step][1](cand, opp, n, p, max_chunks=mc)
+    _equal(got, kselect.select_boundaries(cand, opp, n, p, max_chunks=mc))
+    if step == "event":
+        _equal(got, select_plain(cand, opp, n, p, step_impl="event",
+                                 max_chunks=mc))
+    ob = boundaries_numpy(host[0], p)
+    assert got[0][0, : int(got[1][0])].cpu().numpy().tolist() == ob.tolist()
+
+
+@pytest.mark.parametrize("step", ["gather", "event"])
+@pytest.mark.parametrize("name", ["P", "w4", "paper8k"])
+def test_step_kernel_big_batch(dev, step, name):
+    """64 rows of 64 KiB + 5 bytes (every row kind) at once: against the
+    plain version, and against the wide select kernel at a true table and
+    at an undersized one for the gather step (both count every emit)."""
+    p = PARAMS[name]
+    rng = np.random.default_rng(13)
+    n = (64 << 10) + 5
+    host = np.stack([_big_row(rng, p, n, ROW_KINDS[i % 4])
+                     for i in range(64)])
+    x = torch.from_numpy(host).to(dev)
+    cand, opp = kmasks.seqcdc_masks(x, p.seq_length, p.mode)
+    fn = STEP_KERNELS[step][1]
+    for mc in (max_chunks_for(n, p), 4):
+        got = fn(cand, opp, n, p, max_chunks=mc)
+        _equal(got, select_plain(cand, opp, n, p, step_impl=step,
+                                 max_chunks=mc))
+        if step == "gather" or mc > 4:
+            _equal(got, kselect.select_boundaries(cand, opp, n, p,
+                                                  max_chunks=mc))
+
+
+@pytest.mark.parametrize("step", ["gather", "event"])
+def test_step_kernel_never_takes_the_plain_version(dev, step, monkeypatch):
+    """A CUDA tensor launches the kernel, one launch a call, through the
+    wrapper and through every entry point; the plain version is never
+    called on the card."""
+    import repro_torch.core.automaton as tautomaton
+
+    mod, fn = STEP_KERNELS[step]
+    p = PARAMS["P"]
+    x = torch.from_numpy(_rows(np.random.default_rng(2), 5000)).to(dev)
+    cand, opp = kmasks.seqcdc_masks(x, p.seq_length, p.mode)
+    want = select_plain(cand, opp, 5000, p, step_impl=step)
+
+    def refuse(*a, **kw):
+        raise AssertionError("the plain version ran on the card")
+
+    monkeypatch.setattr(mod, "select_plain", refuse)
+    monkeypatch.setattr(tautomaton, "select_boundaries", refuse)
+    for i in range(1, 4):
+        mod.KERNEL.launches = 0
+        for _ in range(i):
+            got = fn(cand, opp, 5000, p)
+        assert mod.KERNEL.launches == i
+    _equal(got, want)
+    mod.KERNEL.launches = 0
+    data = np.random.default_rng(4).integers(0, 256, 300_000, np.uint8)
+    got = make_chunker("seqcdc", 4096, device=dev, step_impl=step).chunk(data)
+    assert mod.KERNEL.launches == 1
+    assert np.array_equal(got, make_chunker("seqcdc", 4096,
+                                            device=dev).chunk(data))
+    bits = torch.from_numpy(data % 64 == 0).to(dev)
+    from repro_torch.core.baselines.selectors import select_torch
+
+    select_torch(bits, bits.numel(), 1024, 4096, step_impl=step)
+    assert mod.KERNEL.launches == 2
+    svc = DedupService(params=p, device=dev, slots=2, min_bucket=1024,
+                       pipeline_impl="split", step_impl=step,
+                       cross_check_pipeline=True)
+    for i in range(6):
+        svc.submit(str(i), data[i * 7000: i * 7000 + 9000 + 1000 * i])
+    svc.flush()
+    assert mod.KERNEL.launches > 2
+    for i in range(6):
+        assert svc.get(str(i)) == data[i * 7000:
+                                       i * 7000 + 9000 + 1000 * i].tobytes()
+
+
+def test_step_wrappers_reject_what_the_kernels_do_not_take(dev):
+    b = torch.zeros((2, 100), dtype=torch.bool, device=dev)
+    for _, fn in STEP_KERNELS.values():
+        with pytest.raises(ValueError, match="bool"):
+            fn(b.to(torch.uint8), b, 100, P)
+        with pytest.raises(ValueError, match="bool"):
+            fn(b, b.cpu(), 100, P)
+        with pytest.raises(ValueError, match="bool"):
+            fn(b, b, 101, P)
+    wide_w = types.SimpleNamespace(  # W = 2048: a block past one group
+        seq_length=3, block_width=2048, skip_trigger=6, skip_size=4096,
+        min_size=4096, sub_min_skip=4093, max_size=16384)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        kselg.select_boundaries_gather(b, b, 100, wide_w)
 
 
 def _scan_cases():

@@ -17,9 +17,14 @@ time, the wrapper's allocations included), after one warm-up call:
   sampled during the calls and cycles a byte (seqcdc: a byte of stream);
   and on 64 KiB (``chip_smoke.py`` phase 3's shape);
 * the select kernel (``kernels.select_boundaries``) on SeqCDC bitmaps at
-  paper 8 KiB parameters (1 MiB x 8, 48 KiB x 8 and one 64 MiB row) and on
-  gear selector rows (calibrated 8 KiB gear: one 16 MiB and one 1 MiB
-  row), five timed calls each (two on the 64 MiB row);
+  paper 8 KiB parameters (1 MiB x 8, 48 KiB x 8 and one 64 MiB row), at
+  calibrated 8 KiB knobs (one 4 MiB random row and one all-zero 4 MiB
+  row) and on gear selector rows (calibrated 8 KiB gear: one 16 MiB and
+  one 1 MiB row), five timed calls each (two on the 64 MiB row), and the
+  ``gather`` and ``event`` select kernels on the same bitmaps, with the
+  device time a call of each of their launches (their node launch, jump
+  and chase apart; a tree from before the node table has two launches a
+  call);
 * the fused pipeline at 1 MiB x 8, paper 8 KiB parameters;
 * the packed pipeline (``kernels.packed_pipeline``) on ``chip_smoke.py``
   phase 3's three segment mixes, 8 packed rows of 16 KiB at paper 8 KiB
@@ -54,8 +59,8 @@ time, the wrapper's allocations included), after one warm-up call:
   at B 1 and at B 8 (a step's time from the slope, apart from the waves of
   clusters).
 
-The packed, gear, masks and fingerprint rows also give the kernels'
-device time a call, from a ``torch.profiler`` trace
+The select, packed, gear, masks and fingerprint rows also give the
+kernels' device time a call, from a ``torch.profiler`` trace
 (``chip_smoke.device_ms``; the packed one also for its scan and hash
 launches apart): at these sizes a call's host overhead can exceed its
 kernels' time.
@@ -87,6 +92,7 @@ from chip_smoke import (
     SLSTM_BWD_CASES,
     SLSTM_SCAN_CASES,
     device_ms,
+    device_ms_by_kernel,
     packed_rows,
     scan_kwargs,
     sm_clock_during,
@@ -164,25 +170,51 @@ def select_rows(seed: int) -> dict:
     from repro_torch.kernels import fused_pipeline as kfused
     from repro_torch.kernels import gear_hash as kgear
     from repro_torch.kernels import select_boundaries as kselect
+    from repro_torch.kernels import select_boundaries_event as kevent
+    from repro_torch.kernels import select_boundaries_gather as kgather
     from repro_torch.kernels import seqcdc_masks as kmasks
+
+    def steps(label, cand, opp, n, p, mc, reps):
+        """The gather and event select kernels on the same bitmaps."""
+        for step, mod in (("gather", kgather), ("event", kevent)):
+            fn = getattr(mod, f"select_boundaries_{step}")
+            run = lambda: fn(cand, opp, n, p, max_chunks=mc)  # noqa: E731
+            ms = call_ms(run, reps)
+            got = run()
+            # a tree from before the node table launches two kernels a call
+            dev, _ = device_ms(run, reps, f"select_boundaries_{step}_",
+                               names=getattr(mod, "LAUNCH_NAMES", 2))
+            out[f"{step} {label}"] = dict(
+                ms=ms, mean_ms=sum(ms) / len(ms), chunks=int(got[1].sum()),
+                digest=digest(got), device_ms=dev,
+                stages=device_ms_by_kernel(run, reps,
+                                           f"select_boundaries_{step}_"))
 
     rng = np.random.default_rng(seed + 1)
     p = paper_params(8192)
+    pc = make_chunker("seqcdc", 8192, device="cuda",
+                      **calibrated_kwargs("seqcdc", 8192)).params
     out = {}
-    for label, (B, n, reps) in {"seqcdc 1MiBx8": (8, 1 << 20, 5),
-                                "seqcdc 48KiBx8": (8, 48 << 10, 5),
-                                "seqcdc 64MiBx1": (1, 64 << 20, 2)}.items():
-        x = torch.from_numpy(rng.integers(0, 256, (B, n),
-                                          dtype=np.uint8)).cuda()
-        cand, opp = kmasks.seqcdc_masks(x, p.seq_length, p.mode)
-        mc = max_chunks_for(n, p)
+    for label, (B, n, reps, pr, zero) in {
+            "seqcdc 1MiBx8": (8, 1 << 20, 5, p, False),
+            "seqcdc 48KiBx8": (8, 48 << 10, 5, p, False),
+            "seqcdc 64MiBx1": (1, 64 << 20, 2, p, False),
+            "seqcdc calibrated 4MiB": (1, 4 << 20, 5, pc, False),
+            "zero calibrated 4MiB": (1, 4 << 20, 5, pc, True)}.items():
+        x = (torch.zeros((B, n), dtype=torch.uint8, device="cuda") if zero
+             else torch.from_numpy(rng.integers(0, 256, (B, n),
+                                                dtype=np.uint8)).cuda())
+        cand, opp = kmasks.seqcdc_masks(x, pr.seq_length, pr.mode)
+        mc = max_chunks_for(n, pr)
         run = lambda: kselect.select_boundaries(  # noqa: E731
-            cand, opp, n, p, max_chunks=mc)
+            cand, opp, n, pr, max_chunks=mc)
         ms = call_ms(run, reps)
         got = run()
+        dev, _ = device_ms(run, reps, "select_boundaries_", names=2)
         out[f"select {label}"] = dict(ms=ms, mean_ms=sum(ms) / len(ms),
                                       chunks=int(got[1].sum()),
-                                      digest=digest(got))
+                                      digest=digest(got), device_ms=dev)
+        steps(label, cand, opp, n, pr, mc, reps)
         if label == "seqcdc 1MiBx8":
             frun = lambda: kfused.fused_pipeline_batch(  # noqa: E731
                 x, p, max_chunks=mc)
@@ -203,9 +235,11 @@ def select_rows(seed: int) -> dict:
             bits, zeros, n, sp)
         ms = call_ms(run, 5)
         got = run()
+        dev, _ = device_ms(run, 5, "select_boundaries_", names=2)
         out[f"select {label}"] = dict(ms=ms, mean_ms=sum(ms) / len(ms),
                                       chunks=int(got[1][0]),
-                                      digest=digest(got))
+                                      digest=digest(got), device_ms=dev)
+        steps(label, bits, zeros, n, sp, got[0].shape[1], 5)
     return out
 
 
@@ -475,6 +509,9 @@ def main(argv=None) -> int:
             extra += (f", {p['clusters']} clusters of {p['C']} ({p['R']} "
                       f"rows a cluster; the card holds "
                       f"{p['max_active_clusters']} at once)")
+        if r.get("stages"):
+            extra += " (" + ", ".join(f"{k} {v:.5f}" for k, v in
+                                      r["stages"].items()) + ")"
         if r.get("empty_device_ms") is not None:
             extra += (f", counts 0: device {r['empty_device_ms']:.5f} ms a "
                       f"call")

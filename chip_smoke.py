@@ -28,9 +28,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It drives only
    (bit-equal to ``select_numpy``); every output bit-equal, rows
    spot-checked against the numpy oracle, kernel, plain and (block max)
    library times, and the least time the card could take (its bound); the
-   gather and event select kernels on one 4 MiB SeqCDC stream (calibrated
-   8 KiB knobs), bit-equal to the wide select kernel, with its time beside
-   theirs; then the block-max op once, its only path; the flash
+   gather and event select kernels on one 4 MiB SeqCDC stream and one
+   all-zero 4 MiB row (calibrated 8 KiB knobs), one all-candidate 1 MiB
+   selector row and the 16 MiB gear selector row, bit-equal to the wide
+   select kernel (also on the 1 MiB gear row), with its time beside
+   theirs; for each call of theirs, a line with its node table and chase
+   (nodes, the chase's serial hops and expanded edges, the device ms of
+   the node launch and of the jump and chase launches); then the block-max
+   op once, its only path; the flash
    attention kernel at llama3.2-1b's serving shapes (1 x 2048 and 4096
    tokens, 32 query and 8 KV heads of width 64, causal, bfloat16 and
    float32), at phase 9's training shape (a microbatch of 2 x 2048,
@@ -222,6 +227,7 @@ import functools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -285,6 +291,18 @@ def device_ms(fn, reps: int, kernel: str,
     would undercount).  Also the fewest launches recorded for a name; None
     and 0 if the trace holds no device time for them, or for fewer than
     the ``names`` kernels a call launches (the sum would leave one out)."""
+    ms, records = 0.0, []
+    for key, us, count in traced_kernels(fn, reps):
+        if kernel in key:
+            ms += us / count / 1e3
+            records.append(count)
+    return (ms, min(records)) if len(records) >= names else (None, 0)
+
+
+def traced_kernels(fn, reps: int) -> list:
+    """(name, device µs, launches) of each CUDA kernel with device time in
+    a ``torch.profiler`` trace of ``reps`` calls of ``fn`` (after one
+    untraced call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -294,14 +312,13 @@ def device_ms(fn, reps: int, kernel: str,
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    ms, records = 0.0, []
+    out = []
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", 0.0) or getattr(
             ev, "self_cuda_time_total", 0.0)
-        if kernel in ev.key and us > 0 and ev.count:
-            ms += us / ev.count / 1e3
-            records.append(ev.count)
-    return (ms, min(records)) if len(records) >= names else (None, 0)
+        if us > 0 and ev.count:
+            out.append((ev.key, us, ev.count))
+    return out
 
 
 def kernel_times(run, reps: int, kernel: str, names: int = 1) -> dict:
@@ -312,6 +329,49 @@ def kernel_times(run, reps: int, kernel: str, names: int = 1) -> dict:
     dev, records = device_ms(run, reps, kernel, names)
     return dict(call_ms=call, device_ms=dev, device_records=records,
                 device_reps=reps)
+
+
+def device_ms_by_kernel(fn, reps: int, kernel: str) -> dict:
+    """Mean device milliseconds a call of each CUDA kernel whose name holds
+    ``kernel``, keyed by the part of its name between ``kernel`` and
+    ``_kernel`` (a profiler trace of ``reps`` calls, each launch once a
+    call)."""
+    out = {}
+    for key, us, count in traced_kernels(fn, reps):
+        m = re.search(re.escape(kernel) + r"(\w+?)_kernel", key)
+        if m:
+            out[m.group(1)] = out.get(m.group(1), 0.0) + us / count / 1e3
+    return out
+
+
+def chain_info(fn, cand, opp, n: int, p, mc: int, step: str) -> dict:
+    """The gather or event select kernel's node table and chase on one
+    call: its nodes (each row's start and candidates), the chase's serial
+    hops (the most of a row) and expanded edges (all rows), the jump
+    length K, and the device ms of its node launch and of its jump and
+    chase launches together (profiler, five calls)."""
+    import torch
+
+    from repro_torch.kernels.boundary_chain import chain_k
+
+    B = cand.shape[0]
+    stats = torch.zeros((B, 2), dtype=torch.int32, device=cand.device)
+    fn(cand, opp, n, p, max_chunks=mc, stats=stats)
+    by = device_ms_by_kernel(lambda: fn(cand, opp, n, p, max_chunks=mc), 5,
+                             f"select_boundaries_{step}_")
+    return dict(nodes=int(cand.sum()) + B, hops=int(stats[:, 0].max()),
+                edges=int(stats[:, 1].sum()), K=chain_k(n, p),
+                node_ms=by.get("nodes"),
+                chase_ms=(by["jump"] + by["chase"]
+                          if "jump" in by and "chase" in by else None))
+
+
+def chain_text(c: dict) -> str:
+    """One line's account of chain_info."""
+    ms = lambda v: "not traced" if v is None else f"{v:.4f} ms"  # noqa: E731
+    return (f"{c['nodes']} nodes, chase {c['hops']} serial hops (K "
+            f"{c['K']}) and {c['edges']} edges expanded; node launch "
+            f"{ms(c['node_ms'])}, jump and chase {ms(c['chase_ms'])}")
 
 
 def max_abs_err(got, want) -> int:
@@ -482,8 +542,8 @@ def kernel_phase(p, B: int, S: int, seed: int) -> dict:
     # kernel's bounds above, where the plain gather loop would walk 4,000-odd
     # W-blocks a call for seconds
     wide = got
-    for step, fn in (("gather", kgather.select_boundaries_gather),
-                     ("event", kevent.select_boundaries_event)):
+    for step, mod in (("gather", kgather), ("event", kevent)):
+        fn = getattr(mod, f"select_boundaries_{step}")
         got = fn(cand, opp, S, p, max_chunks=mc)
         torch.cuda.synchronize()
         if S <= STEP_PLAIN_MAX:
@@ -508,8 +568,10 @@ def kernel_phase(p, B: int, S: int, seed: int) -> dict:
             max_abs_err=err, bound_ms=out["select_boundaries"]["bound_ms"],
             bound_by=out["select_boundaries"]["bound_by"], held=held,
             **kernel_times(lambda: fn(cand, opp, S, p, max_chunks=mc), 10,
-                           f"select_boundaries_{step}_", names=2),
+                           f"select_boundaries_{step}_",
+                           names=mod.LAUNCH_NAMES),
             plain_ms=plain_ms,
+            chain=chain_info(fn, cand, opp, S, p, mc, step),
         ))
     blocks = (S + p.skip_size + 2 * p.block_width - 1) // p.block_width
     return out, dict(ms=out["select_boundaries"]["plain_ms"], blocks=blocks)
@@ -848,54 +910,50 @@ def chunk_kernel_phase(seed: int, n_big: int, n_select: int,
     ))
 
     # the gather and event select kernels on the same gear selector row,
-    # against their plain versions
-    for step, fn in (("gather", kgather.select_boundaries_gather),
-                     ("event", kevent.select_boundaries_event)):
+    # against their plain versions and the wide select kernel
+    wide = got
+    for step, mod in (("gather", kgather), ("event", kevent)):
+        fn = getattr(mod, f"select_boundaries_{step}")
         got = fn(bits, opp, n_select, sp)
         want = automaton.select_boundaries(bits, opp, n_select, sp,
                                            step_impl=step)
         torch.cuda.synchronize()
-        err = max_abs_err(got, want)
+        err = max(max_abs_err(got, want), max_abs_err(got, wide))
         if err:
             raise AssertionError(f"select_boundaries_{step} differs from "
-                                 f"its plain version on a gear selector row")
+                                 f"its plain version or the wide select "
+                                 f"kernel on a gear selector row")
         out[f"select_boundaries_{step} gear row"] = timed(dict(
             max_abs_err=err, bound_ms=bms, bound_by=by,
             shape=f"1x{n_select} gear selector", chunks=int(got[1][0]),
             **kernel_times(lambda: fn(bits, opp, n_select, sp), 10,
-                           f"select_boundaries_{step}_", names=2),
+                           f"select_boundaries_{step}_",
+                           names=mod.LAUNCH_NAMES),
             plain_ms=cuda_ms(lambda: automaton.select_boundaries(
                 bits, opp, n_select, sp, step_impl=step), 1),
+            chain=chain_info(fn, bits, opp, n_select, sp, mc, step),
         ))
 
-    # and on one 4 MiB SeqCDC stream (calibrated 8 KiB knobs), against the
-    # wide select kernel: the plain gather loop took 10 s here
+    # and against the wide select kernel (the plain gather loop took 10 s
+    # at 4 MiB): one 4 MiB SeqCDC stream and one all-zero 4 MiB row
+    # (calibrated 8 KiB knobs: node 0 walks the whole row, cut after cut),
+    # and one all-candidate 1 MiB selector row (a node at every position)
     seqcdc = make_chunker("seqcdc", 8192, device="cuda",
                           **calibrated_kwargs("seqcdc", 8192))
     p = seqcdc.params
-    cand, opp = kmasks.seqcdc_masks(x[None, :n_big // 16], p.seq_length,
-                                    p.mode)
-    n4 = cand.shape[1]
-    mc = automaton.max_chunks_for(n4, p)
-    want = kselect.select_boundaries(cand, opp, n4, p)
+    n4 = n_big // 16
+    rows = {"SeqCDC": (x[None, :n4], p), "all-zero SeqCDC": (
+        torch.zeros((1, n4), dtype=torch.uint8, device="cuda"), p)}
     steps = {}
-    bms, by = bound_ms(2 * n4 + 4 * mc + 4, 4 * n4)
-    for step, fn in (("gather", kgather.select_boundaries_gather),
-                     ("event", kevent.select_boundaries_event)):
-        got = fn(cand, opp, n4, p)
-        torch.cuda.synchronize()
-        err = max_abs_err(got, want)
-        if err:
-            raise AssertionError(f"select_boundaries_{step} differs from "
-                                 f"the wide select kernel on a 4 MiB row")
-        steps[step] = timed(dict(
-            max_abs_err=err, bound_ms=bms, bound_by=by,
-            shape=f"1x{n4} SeqCDC", chunks=int(got[1][0]),
-            **kernel_times(lambda: fn(cand, opp, n4, p), 5,
-                           f"select_boundaries_{step}_", names=2)))
-    out["steps"] = dict(n=n4, kernels=steps, **timed(dict(
-        **kernel_times(lambda: kselect.select_boundaries(cand, opp, n4, p),
-                       5, "select_boundaries_"))))
+    for label, (xr, pr) in rows.items():
+        cand, opp = kmasks.seqcdc_masks(xr, pr.seq_length, pr.mode)
+        steps[label] = chain_rows(kgather, kevent, kselect, cand, opp,
+                                  n4, pr, f"1x{n4} {label}")
+    ones = torch.ones((1, n_select), dtype=torch.bool, device="cuda")
+    steps["all-candidate selector"] = chain_rows(
+        kgather, kevent, kselect, ones, torch.zeros_like(ones), n_select, sp,
+        f"1x{n_select} all-candidate selector")
+    out["steps"] = steps
 
     # each native scan on one stream, as its _seq chunker calls it
     scans = {}
@@ -921,6 +979,37 @@ def chunk_kernel_phase(seed: int, n_big: int, n_select: int,
         ))
     out["native_scan"] = scans
     return out
+
+
+def chain_rows(kgather, kevent, kselect, cand, opp, n: int, p,
+               shape: str) -> dict:
+    """The gather and event select kernels on one batch of bitmaps held
+    against the wide select kernel at a true table, each timed with its
+    node table and chase (chain_info), beside the wide kernel's time."""
+    from repro_torch.core.automaton import max_chunks_for
+
+    mc = max_chunks_for(n, p)
+    want = kselect.select_boundaries(cand, opp, n, p, max_chunks=mc)
+    bms, by = bound_ms(2 * cand.numel() + 4 * mc * cand.shape[0]
+                       + 4 * cand.shape[0], 4 * cand.numel())
+    kernels = {}
+    for step, mod in (("gather", kgather), ("event", kevent)):
+        fn = getattr(mod, f"select_boundaries_{step}")
+        got = fn(cand, opp, n, p, max_chunks=mc)
+        err = max_abs_err(got, want)
+        if err:
+            raise AssertionError(f"select_boundaries_{step} differs from "
+                                 f"the wide select kernel ({shape})")
+        kernels[step] = timed(dict(
+            max_abs_err=err, bound_ms=bms, bound_by=by, shape=shape,
+            chunks=int(got[1].sum()),
+            **kernel_times(lambda: fn(cand, opp, n, p, max_chunks=mc), 5,
+                           f"select_boundaries_{step}_",
+                           names=mod.LAUNCH_NAMES),
+            chain=chain_info(fn, cand, opp, n, p, mc, step)))
+    return dict(n=n, kernels=kernels, **timed(dict(**kernel_times(
+        lambda: kselect.select_boundaries(cand, opp, n, p, max_chunks=mc),
+        5, "select_boundaries_"))))
 
 
 #: the sizes phase 6 launches the native scan and the select kernel at:
@@ -954,6 +1043,8 @@ def launched_phase(seed: int) -> dict:
     from repro_torch.kernels import gear_hash as kgear
     from repro_torch.kernels import native_scan as kscan
     from repro_torch.kernels import select_boundaries as kselect
+    from repro_torch.kernels import select_boundaries_event as kevent
+    from repro_torch.kernels import select_boundaries_gather as kgather
     from repro_torch.kernels import seqcdc_masks as kmasks
 
     rng = np.random.default_rng(seed + 6)
@@ -1036,6 +1127,10 @@ def launched_phase(seed: int) -> dict:
         bound_ms=bms, bound_by=by,
         **kernel_times(lambda: kselect.select_boundaries(bits, zeros, n, sp),
                        5, "select_boundaries_")))
+    # the gather and event select kernels on the same row, against the
+    # wide select kernel's bounds and counts
+    out["steps gear row"] = chain_rows(kgather, kevent, kselect, bits, zeros,
+                                       n, sp, f"1x{n} gear selector")
     return out
 
 
@@ -3812,6 +3907,8 @@ def main(argv=None) -> int:
             f"({r['bound_by']})")
     launched = launched_phase(args.seed)
     measured["launched"] = launched
+    steps_rows = dict(reg["steps"], **{"16 MiB gear row": launched.pop(
+        "steps gear row")})
     for name, r in launched.items():
         clock = ""
         if "calls_ms" in r:
@@ -3831,14 +3928,24 @@ def main(argv=None) -> int:
             f"{chunks}): {check}, {r['ms']:.4f} ms "
             f"({r['ms_source']}){clock}, bound {r['bound_ms']:.6f} ms "
             f"({r['bound_by']})")
-    st = reg["steps"]
-    for step, r in st["kernels"].items():
-        log(f"kernel select_boundaries_{step} ({r['shape']}, {r['chunks']} "
-            f"chunks): bit-equal to the wide select kernel, {r['ms']:.4f} ms "
-            f"({r['ms_source']}; {r['call_ms']:.4f} ms per call), bound "
-            f"{r['bound_ms']:.6f} ms ({r['bound_by']}); the wide select "
-            f"kernel {st['ms']:.4f} ms ({st['ms_source']}; "
-            f"{st['call_ms']:.4f} ms per call)")
+    for label, st in steps_rows.items():
+        for step, r in st["kernels"].items():
+            log(f"kernel select_boundaries_{step} ({r['shape']}, "
+                f"{r['chunks']} chunks): bit-equal to the wide select "
+                f"kernel, {r['ms']:.4f} ms ({r['ms_source']}; "
+                f"{r['call_ms']:.4f} ms per call), bound "
+                f"{r['bound_ms']:.6f} ms ({r['bound_by']}); the wide select "
+                f"kernel {st['ms']:.4f} ms ({st['ms_source']}; "
+                f"{st['call_ms']:.4f} ms per call)")
+            log(f"  chain {step} {label}: {chain_text(r['chain'])}")
+    for label in shapes:
+        for step in ("gather", "event"):
+            log(f"  chain {step} {label}: "
+                + chain_text(measured[label][f"select_boundaries_{step}"]
+                             ["chain"]))
+    for step in ("gather", "event"):
+        log(f"  chain {step} 1 MiB gear row: "
+            + chain_text(reg[f"select_boundaries_{step} gear row"]["chain"]))
     fl = flash_phase(args.seed)
     measured["flash"] = fl
     for name, r in fl.items():
@@ -4373,8 +4480,9 @@ def main(argv=None) -> int:
         select_boundaries.KERNEL: [
             reg["select_boundaries gear row"]["max_abs_err"],
             launched["select_boundaries seqcdc row"]["max_abs_err"]],
-        **{k: [reg[f"{k.name} gear row"]["max_abs_err"],
-               reg["steps"]["kernels"][step]["max_abs_err"]]
+        **{k: [reg[f"{k.name} gear row"]["max_abs_err"]]
+           + [st["kernels"][step]["max_abs_err"]
+              for st in steps_rows.values()]
            for step, k in (("gather", select_boundaries_gather.KERNEL),
                            ("event", select_boundaries_event.KERNEL))},
         native_scan.KERNEL: [m["max_abs_err"]
@@ -4389,8 +4497,8 @@ def main(argv=None) -> int:
     }
     # the times at the sizes phase 6 launches them (no plain time there:
     # the plain versions are Python loops); the gather and event select
-    # kernels' on phase 3's 4 MiB SeqCDC stream (phase 6 times them through
-    # the chunker, by the host clock)
+    # kernels' on phase 3's 4 MiB rows, all-candidate row and 16 MiB gear
+    # row (phase 6 times them through the chunker, by the host clock)
     launched_of = {
         native_scan.KERNEL: {a: launched[f"native_scan {a}"]["ms"]
                              for a in SCAN_ALGOS},
@@ -4400,8 +4508,8 @@ def main(argv=None) -> int:
         seqcdc_masks.KERNEL: {
             r["shape"]: r["ms"] for name, r in launched.items()
             if name.startswith("seqcdc_masks")},
-        **{k: {reg["steps"]["kernels"][step]["shape"]:
-               reg["steps"]["kernels"][step]["ms"]}
+        **{k: {st["kernels"][step]["shape"]: st["kernels"][step]["ms"]
+               for st in steps_rows.values()}
            for step, k in (("gather", select_boundaries_gather.KERNEL),
                            ("event", select_boundaries_event.KERNEL))},
         flash_attn.KERNEL: {

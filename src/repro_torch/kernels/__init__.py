@@ -18,9 +18,12 @@ plain torch version only for tensors on the CPU:
 * ``select_boundaries_packed`` — the same over packed rows' bitmaps,
   resetting at every segment end (the packed split path's phase 2);
 * ``select_boundaries_gather`` — the ``gather`` step over given bitmaps:
-  per-block tables built in parallel, constant work a W-block;
+  per-block tables built in parallel, constant work a W-block, walked from
+  every candidate's emit at once and chased into a row's bounds
+  (``boundary_chain``);
 * ``select_boundaries_event`` — the ``event`` step over given bitmaps:
-  prefix sums built in parallel, one search a event;
+  prefix sums built in parallel, one search an event, walked and chased
+  the same way;
 * ``native_scan`` — the per-byte native CDC scans (the ``_seq`` chunkers
   and ``boundaries_sequential``), one thread's serial loop per stream;
 * ``flash_attn`` — causal (or full) flash attention forward with grouped

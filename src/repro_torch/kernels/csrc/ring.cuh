@@ -1,6 +1,5 @@
 // A ring of shared-memory slabs fed by the copy engine, shared by
-// fused_pipeline.cu, native_scan.cu, select_boundaries.cu and
-// select_boundaries_gather.cu.
+// fused_pipeline.cu, native_scan.cu and select_boundaries.cu.
 //
 // One producer thread streams a row into kSlabs slabs of kSlab bytes with
 // cp.async.bulk; each slab's arrival completes its own `full` mbarrier and

@@ -16,12 +16,15 @@
 //
 // Bound on this card: memory.  The function needs each bitmap byte once
 // (2 * B * n bytes) and writes 4 bytes per bound slot and a count per row:
-// least time (2 * B * n + 4 * B * mc + 4 * B) / 3.35 TB/s.  The walk is
-// serial along a row, two searches an event, so with few rows the kernel is
-// far from that.
+// least time (2 * B * n + 4 * B * mc + 4 * B) / 3.35 TB/s.
 //
-// Design: the prefix sums in two levels, in scratch the wrapper allocates
-// (the design's, not the function's: the bound does not count it).  Two
+// Design.  The walk is serial along a row, but the state after every emit
+// is the same function of the emit's bound (boundary_chain.cuh: the
+// exactness argument; here k = bound + sub_min and c = 0 after every
+// event), so the walk runs from every candidate's emit at once, on every
+// SM, and one short chase a row links the results.  The prefix sums are
+// in two levels, in scratch the wrapper allocates with the chain's tables
+// (the design's, not the function's: the bound does not count it).  Five
 // launches behind one call:
 //
 // 1. select_boundaries_event_prefix_kernel, one warp per group of 1024
@@ -32,19 +35,27 @@
 //    gives each word's exclusive in-group prefix.  Per group a record
 //    (B, G, 3, 32) uint32: cand[i], opp[i], ex[i]; and the group's two
 //    totals in sums (B, G + 1, 2) uint32.
-// 2. select_boundaries_event_walk_kernel, one CTA of 256 threads per row.
-//    The CTA first turns the row's group totals into their exclusive
-//    prefix in place (each thread a contiguous run of groups, a block scan
-//    of the runs), the row's totals at [G]; the prefix of either bitmap
-//    at any position x is then sums[x / 1024] + ex[x / 32 % 32] +
-//    popc(word below bit x % 32).  Then warp 0 walks, every lane on the
-//    same registers, one iteration per event:
+// 2. select_boundaries_event_scan_kernel, one CTA of 1024 threads a row:
+//    the row's group totals into their exclusive prefix in place (each
+//    thread a contiguous run of groups, a block scan of the runs), the
+//    row's totals at [G]; the prefix of either bitmap at any position x
+//    is then sums[x / 1024] + ex[x / 32 % 32] + popc(word below bit
+//    x % 32).  Before the nodes, because every node CTA reads it.
+// 3. select_boundaries_event_nodes_kernel, one CTA of 8 warps a window of
+//    4096 positions of a row, on every SM: the window's nodes
+//    (boundary_chain.cuh) in shared memory, a warp a node walking from
+//    (b + sub_min, 0, b) one iteration per event, every lane on the same
+//    registers, to its first candidate's emit:
 //      kk = clip(k, 0, n); rank_c, rank_o = the prefixes at kk;
 //      kc = the candidate of rank rank_c (if rank_c < its total);
 //      kt = the opposing pair of rank rank_o + T - c (if below its
 //           total; c is 0 at every event, as in the reference);
 //    then the reference's resolution (cut first, then the candidate, else
-//    the skip).  A search for the bit of rank r from group g0 = kk / 1024
+//    the skip).  Either bit, where it lies in the group holding kk, is
+//    found there: lanes read the group's words with the prefixes, a
+//    ballot gives the first candidate at or after kk, a warp prefix sum
+//    of the opposing pairs at or after kk the pair T + 1.  Else the search
+//    for the bit of rank r from group g0 = kk / 1024
 //    (the reference's searchsorted): lanes probe the 32 groups after g0 at
 //    once (a ballot finds the last group whose prefix is <= r); past them,
 //    a 32-way search over the row's remaining groups, each step one probe
@@ -52,10 +63,15 @@
 //    the 32 ex entries at once for the word, and wblock::nth_bit finds the
 //    bit.  The registers are 64-bit, so rank_o + T + 1 cannot overflow
 //    for the selectors' T = 2^30.
+// 4. select_boundaries_event_jump_kernel and
+// 5. select_boundaries_event_chase_kernel: boundary_chain.cuh's jump
+//    table and chase, stopping at the mc-th emit (the event count); the
+//    chase's stop lim is n (a k past n clips to n, where the cut fires).
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "bitmap_words.cuh"
+#include "boundary_chain.cuh"
 #include "wblock.cuh"
 
 namespace {
@@ -66,7 +82,8 @@ using wblock::kFull;
 
 constexpr int kRecWords = 3 * 32;  // cand, opp, ex
 constexpr int kPrefixThreads = 256;
-constexpr int kWalkThreads = 256;
+constexpr int kScanThreads = 1024;
+constexpr int kNodeThreads = 256;  // a warp a node
 
 struct EventParams {
   long long n;
@@ -190,22 +207,12 @@ __device__ __forceinline__ long long find_rank(const uint32_t* rec,
   return g * kGroup + 32 * w + wblock::nth_bit(word, (int)(rr - ex_w) + 1);
 }
 
-__global__ void __launch_bounds__(kWalkThreads)
-select_boundaries_event_walk_kernel(const uint32_t* __restrict__ recs,
-                                    uint2* sums_all,
-                                    int32_t* __restrict__ bounds,
-                                    int32_t* __restrict__ counts,
-                                    EventParams P, long long G) {
+__global__ void __launch_bounds__(kScanThreads)
+select_boundaries_event_scan_kernel(uint2* sums_all, long long G) {
   __shared__ unsigned warp_sums[66];
-  const int tid = threadIdx.x, lane = tid & 31;
-  const long long b = blockIdx.x;
-  const uint32_t* rec = recs + b * G * kRecWords;
-  uint2* sums = sums_all + b * (G + 1);
-  int32_t* bnd = bounds + b * P.mc;
-  for (int i = tid; i < P.mc; i += blockDim.x) bnd[i] = kBig;
-
-  // -- the row's group totals into their exclusive prefix, in place -------
-  const long long run = (G + blockDim.x - 1) / blockDim.x;
+  const int tid = threadIdx.x;
+  uint2* sums = sums_all + blockIdx.x * (G + 1);
+  const long long run = (G + kScanThreads - 1) / kScanThreads;
   const long long g_lo = tid * run < G ? tid * run : G;
   const long long g_hi = g_lo + run < G ? g_lo + run : G;
   uint2 acc = make_uint2(0u, 0u);
@@ -223,58 +230,134 @@ select_boundaries_event_walk_kernel(const uint32_t* __restrict__ recs,
     ex.y += v.y;
   }
   if (tid == 0) sums[G] = total;
-  __syncthreads();
-  if (tid >= 32) return;
+}
 
-  // -- the walk: warp 0, one iteration per event ---------------------------
+// The walk from an emit at b, state (b + sub_min, 0, b), to its first
+// candidate's emit (its bound), or chain::kEnd if the row ends first; by
+// the whole warp, every lane on the same values.  An event's reads: the
+// prefixes at kk, and lane i word i of both bitmaps in the group holding
+// kk, all at once; where the candidate of rank rank_c (the first at or
+// after kk) or the opposing pair of rank rank_o + T (the pair T + 1 at or
+// after kk) lies in that group, a ballot or a warp prefix sum over those
+// words finds it, else find_rank.
+__device__ __forceinline__ int node_walk(const uint32_t* rec,
+                                         const uint2* sums, long long G,
+                                         uint2 total, long long b,
+                                         const EventParams& P, int lane) {
   const long long n = P.n;
-  long long k = P.sub_min, s = 0, cnt = 0, last = 0;
-  while (s < n && cnt < P.mc) {
+  long long k = b + P.sub_min, s = b;
+  while (s < n) {
     const long long kk = k < 0 ? 0 : (k > n ? n : k);
     const long long g0 = kk / kGroup;
     const unsigned rank_c = prefix_at(rec, sums, G, kk, 0);
     const unsigned rank_o = prefix_at(rec, sums, G, kk, 1);
-    const long long kc =
-        rank_c < total.x ? find_rank(rec, sums, G, g0, rank_c, 0, lane)
-                         : kBig;
+    unsigned cm = 0, om = 0;  // the group's bits at or after kk
+    if (g0 < G) {
+      const uint32_t* r = rec + g0 * kRecWords;
+      const int xo = (int)(kk - g0 * kGroup), wx = xo >> 5;
+      const unsigned keep =
+          lane > wx ? kFull : (lane == wx ? kFull << (xo & 31) : 0u);
+      cm = r[lane] & keep;
+      om = r[32 + lane] & keep;
+    }
+    long long kc = kBig, kt = kBig;
+    if (rank_c < total.x) {
+      const unsigned cb = __ballot_sync(kFull, cm != 0);
+      if (cb) {
+        const int l = __ffs(cb) - 1;
+        kc = g0 * kGroup + 32 * l + __ffs(__shfl_sync(kFull, cm, l)) - 1;
+      } else {
+        kc = find_rank(rec, sums, G, g0, rank_c, 0, lane);
+      }
+    }
     // c is 0 at every iteration: each event resets the counter
     const long long want = (long long)rank_o + P.T + 1;  // 1-based rank
-    const long long kt =
-        want <= (long long)total.y
-            ? find_rank(rec, sums, G, g0, (unsigned)(want - 1), 1, lane)
-            : kBig;
+    if (want <= (long long)total.y) {
+      const unsigned pc = __popc(om);
+      const unsigned incl = bitmap_words::warp_inclusive_sum(pc, lane);
+      const long long need = want - rank_o;  // T + 1 at or after kk
+      if (need <= (long long)__shfl_sync(kFull, incl, 31)) {
+        const unsigned excl = incl - pc;
+        const int l =
+            __ffs(__ballot_sync(kFull, excl < need && need <= incl)) - 1;
+        const int bit = wblock::nth_bit(om, (int)(need - excl));
+        kt = g0 * kGroup + 32 * l + __shfl_sync(kFull, bit, l);
+      } else {
+        kt = find_rank(rec, sums, G, g0, (unsigned)(want - 1), 1, lane);
+      }
+    }
     const long long cut_b = s + P.max_size < n ? s + P.max_size : n;
     const long long cut_k = cut_b - (P.L - 1);
     const long long e_cut = cut_k > k ? cut_k : k;
-    const bool fire_cut = e_cut <= (kc < kt ? kc : kt);
-    const bool fire_cand = !fire_cut && kc < kt;
-    if (fire_cut || fire_cand) {
-      const long long bound = fire_cut ? cut_b : kc + P.L;
-      if (lane == 0) bnd[cnt] = (int32_t)bound;  // cnt < mc here
-      ++cnt;
-      s = last = bound;
-      k = bound + P.sub_min;
+    if (e_cut <= (kc < kt ? kc : kt)) {  // the cut
+      s = cut_b;
+      k = cut_b + P.sub_min;
+    } else if (kc < kt) {
+      return (int)(kc + P.L);
     } else {
       k = kt + P.skip;
     }
   }
-  // select_boundaries' fix-up: the final boundary n
-  if ((cnt > 0 ? last : 0) < n && n > 0) {
-    if (cnt < P.mc && lane == 0) bnd[cnt] = (int32_t)n;
-    ++cnt;
+  return chain::kEnd;
+}
+
+__global__ void __launch_bounds__(kNodeThreads)
+select_boundaries_event_nodes_kernel(const uint32_t* __restrict__ recs,
+                                     const uint2* __restrict__ sums_all,
+                                     int32_t* __restrict__ nxt_all,
+                                     EventParams P, long long G,
+                                     long long nwin) {
+  __shared__ int list[chain::kWindow + 1];
+  __shared__ unsigned warp_tot[kNodeThreads / 32];
+  const long long row = blockIdx.x / nwin, w = blockIdx.x % nwin;
+  const uint32_t* rec = recs + row * G * kRecWords;
+  const uint2* sums = sums_all + row * (G + 1);
+  const int cnt = chain::window_nodes<kNodeThreads>(
+      rec, kRecWords, G, w * chain::kWindow, P.n, P.L, list, warp_tot);
+  const uint2 total = sums[G];
+  int32_t* nxt = nxt_all + row * (P.n + 1);
+  const int lane = threadIdx.x & 31;
+  for (int i = threadIdx.x >> 5; i < cnt; i += kNodeThreads / 32) {
+    const int x = list[i];
+    const int e = node_walk(rec, sums, G, total, x, P, lane);
+    if (lane == 0) nxt[x] = e;
   }
-  if (lane == 0) counts[b] = (int32_t)cnt;
+}
+
+__global__ void __launch_bounds__(kNodeThreads)
+select_boundaries_event_jump_kernel(const uint32_t* __restrict__ recs,
+                                    const int32_t* __restrict__ nxt,
+                                    int2* __restrict__ jmp,
+                                    chain::ChainParams C, int L, long long G,
+                                    long long nwin) {
+  __shared__ int list[chain::kWindow + 1];
+  __shared__ unsigned warp_tot[kNodeThreads / 32];
+  chain::jump_body<kNodeThreads>(recs, kRecWords, G, nxt, jmp, C, L, nwin,
+                                 list, warp_tot);
+}
+
+__global__ void __launch_bounds__(chain::kChaseThreads)
+select_boundaries_event_chase_kernel(const int32_t* __restrict__ nxt,
+                                     const int2* __restrict__ jmp,
+                                     int32_t* __restrict__ bounds,
+                                     int32_t* __restrict__ counts,
+                                     int32_t* __restrict__ stats,
+                                     chain::ChainParams C) {
+  chain::chase_body(nxt, jmp, bounds, counts, stats, C, false);
 }
 
 }  // namespace
 
 extern "C" int select_boundaries_event_launch(
-    const void* cand, const void* opp, void* rec, void* sums, void* bounds,
-    void* counts, int B, long long n, int mc, int L, int T, int skip,
-    int sub_min, int max_size, void* stream) {
-  if (L < 1 || mc < 1 || n < 0 || n > 0xffffffffLL)
+    const void* cand, const void* opp, void* rec, void* sums, void* nxt,
+    void* jmp, void* bounds, void* counts, void* stats, int B, long long n,
+    int mc, int L, int T, int skip, int sub_min, int max_size, int K,
+    void* stream) {
+  if (L < 1 || mc < 1 || K < 1 || max_size < 1 || n < 0 ||
+      n >= 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const EventParams P{n, mc, L, T, skip, sub_min, max_size};
+  const chain::ChainParams C{n, n, mc, max_size, K};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0) return static_cast<int>(cudaGetLastError());
   const long long G = (n + kGroup - 1) / kGroup;
@@ -286,12 +369,30 @@ extern "C" int select_boundaries_event_launch(
                                  static_cast<const uint8_t*>(opp),
                                  static_cast<uint32_t*>(rec),
                                  static_cast<uint2*>(sums), B, n, G);
-    const cudaError_t err = cudaGetLastError();
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    select_boundaries_event_scan_kernel<<<B, kScanThreads, 0, st>>>(
+        static_cast<uint2*>(sums), G);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long nwin = (n + chain::kWindow - 1) / chain::kWindow;
+    const unsigned grid = (unsigned)(B * nwin);
+    select_boundaries_event_nodes_kernel<<<grid, kNodeThreads, 0, st>>>(
+        static_cast<const uint32_t*>(rec), static_cast<const uint2*>(sums),
+        static_cast<int32_t*>(nxt), P, G, nwin);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    select_boundaries_event_jump_kernel<<<grid, kNodeThreads, 0, st>>>(
+        static_cast<const uint32_t*>(rec), static_cast<const int32_t*>(nxt),
+        static_cast<int2*>(jmp), C, L, G, nwin);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  select_boundaries_event_walk_kernel<<<B, kWalkThreads, 0, st>>>(
-      static_cast<const uint32_t*>(rec), static_cast<uint2*>(sums),
-      static_cast<int32_t*>(bounds), static_cast<int32_t*>(counts), P, G);
+  // n = 0: no node; the chase writes the sentinels and count 0
+  select_boundaries_event_chase_kernel<<<B, chain::kChaseThreads, 0, st>>>(
+      static_cast<const int32_t*>(nxt), static_cast<const int2*>(jmp),
+      static_cast<int32_t*>(bounds), static_cast<int32_t*>(counts),
+      static_cast<int32_t*>(stats), C);
   return static_cast<int>(cudaGetLastError());
 }
 

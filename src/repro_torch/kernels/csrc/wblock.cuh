@@ -166,8 +166,8 @@ struct ScanState {
 // search h; every lane on the same values.  An emitted bound (and, where
 // ln is not null, the chunk length) goes to the row's table; emits past mc
 // are counted and dropped, as the split path's mode="drop" scatter drops
-// them.
-__device__ __forceinline__ void resolve(ScanState& st, const BlockHit& h,
+// them.  Returns 0 (no emit), 1 (a cut) or 2 (a candidate's emit).
+__device__ __forceinline__ int resolve(ScanState& st, const BlockHit& h,
                                         long long bend, const ScanParams& P,
                                         int32_t* bnd, int32_t* ln, int lane) {
   const long long kc = h.kc, kt = h.kt, k = st.k, s = st.s;
@@ -198,6 +198,7 @@ __device__ __forceinline__ void resolve(ScanState& st, const BlockHit& h,
     ++st.cnt;
     st.s = bound;
   }
+  return emit ? (emit_cut ? 1 : 2) : 0;
 }
 
 // The automaton's walk over a row by one warp, event by event: the W-block

@@ -1015,6 +1015,84 @@ def test_step_kernel_never_takes_the_plain_version(dev, step, monkeypatch):
                                        i * 7000 + 9000 + 1000 * i].tobytes()
 
 
+#: the node table's edge rows' parameter sets (tests/test_torch_select_steps
+#: .py holds the chain's model against the reference on the same rows): W
+#: 32; a cover stop (the gather walk's padded range ends before n); the
+#: selector's T = 2^30; paper 8 KiB
+STEP_EDGE_PARAMS = {
+    "P": P,
+    "cover": SeqCDCParams(avg_size=256, seq_length=3, skip_trigger=2,
+                          skip_size=8, min_size=128, max_size=200),
+    "selector": SelectorParams(min_size=1024, max_size=1500),
+    "paper8k": PARAMS["paper8k"],
+}
+
+
+def _edge_rows(rng, n: int):
+    """All-candidate, candidate-free (with and without opposing pairs),
+    dense and sparse random bitmaps, (6, n) each."""
+    ones, zeros = np.ones((1, n), bool), np.zeros((1, n), bool)
+    cand = np.concatenate([ones, zeros, zeros, rng.random((2, n)) < 0.05,
+                           rng.random((1, n)) < 0.002])
+    opp = np.concatenate([zeros, zeros, ones, rng.random((2, n)) < 0.3,
+                          zeros])
+    return cand, opp
+
+
+@pytest.mark.parametrize("step", ["gather", "event"])
+@pytest.mark.parametrize("pname", sorted(STEP_EDGE_PARAMS))
+def test_step_kernel_edge_rows(dev, step, pname):
+    """Each step's kernel against its plain version on the node table's
+    edge rows: a node at every position, cut runs to n (n = 3 * max_size
+    cuts exactly at n), n = 0, n below W, n not a multiple of 1024; at a
+    true table and at 5 and 1, with the chase's statistics asked for."""
+    p = STEP_EDGE_PARAMS[pname]
+    rng = np.random.default_rng(21)
+    fn = STEP_KERNELS[step][1]
+    for n in (0, 5, 3001, 3 * p.max_size):
+        cand, opp = (torch.from_numpy(a).to(dev) for a in _edge_rows(rng, n))
+        for mc in (max_chunks_for(n, p), 5, 1):
+            stats = torch.zeros((6, 2), dtype=torch.int32, device=dev)
+            got = fn(cand, opp, n, p, max_chunks=mc, stats=stats)
+            torch.cuda.synchronize()
+            _equal(got, select_plain(cand, opp, n, p, step_impl=step,
+                                     max_chunks=mc))
+            assert bool((stats >= 0).all())
+
+
+@pytest.mark.parametrize("step", ["gather", "event"])
+def test_step_kernel_64_short_rows_of_mixed_lengths(dev, step):
+    """64 rows of 1-20,000 bytes (every row kind, paper 8 KiB and the
+    small set), each its own call, against the plain version."""
+    rng = np.random.default_rng(23)
+    fn = STEP_KERNELS[step][1]
+    for i, n in enumerate(rng.integers(1, 20_001, 64)):
+        n = int(n)
+        p = PARAMS["paper8k"] if i % 2 else P
+        host = _big_row(rng, p, n, ROW_KINDS[i % 4])[None]
+        cand, opp = kmasks.seqcdc_masks(torch.from_numpy(host).to(dev),
+                                        p.seq_length, p.mode)
+        got = fn(cand, opp, n, p)
+        torch.cuda.synchronize()
+        _equal(got, select_plain(cand, opp, n, p, step_impl=step))
+
+
+@pytest.mark.parametrize("step", ["gather", "event"])
+@pytest.mark.parametrize("kind,n", [("random", 64 << 20), ("zero", 4 << 20)])
+def test_step_kernel_against_the_wide_kernel(dev, step, kind, n):
+    """One 64 MiB random row (about 540,000 nodes) and one all-zero 4 MiB
+    row (node 0 walks the whole row, cut after cut), paper 8 KiB, against
+    the wide select kernel at a true table."""
+    p = PARAMS["paper8k"]
+    x = (torch.from_numpy(np.random.default_rng(25).integers(
+        0, 256, (1, n), dtype=np.uint8)).to(dev) if kind == "random"
+        else torch.zeros((1, n), dtype=torch.uint8, device=dev))
+    cand, opp = kmasks.seqcdc_masks(x, p.seq_length, p.mode)
+    mc = max_chunks_for(n, p)
+    got = STEP_KERNELS[step][1](cand, opp, n, p, max_chunks=mc)
+    _equal(got, kselect.select_boundaries(cand, opp, n, p, max_chunks=mc))
+
+
 def test_step_wrappers_reject_what_the_kernels_do_not_take(dev):
     b = torch.zeros((2, 100), dtype=torch.bool, device=dev)
     for _, fn in STEP_KERNELS.values():

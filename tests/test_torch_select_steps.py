@@ -10,18 +10,26 @@ also check that every entry point reaches the wrapper of its step, that
 the wrappers refuse what the kernels do not take, and, emulated in Python
 integer arithmetic, the kernels' own table and search formulas (the
 records of 1024 positions, the in-group prefixes, the next-candidate
-entries, the rank searches) against the plain versions: a CUDA kernel
-cannot run here.  Every output is an integer: tolerance 0.
+entries, the rank searches) against the plain versions, and the node table
+and chase the two kernels share (``chain_emulated``: every candidate's
+emit walked on its own, the jump table, the anchored chase) against the
+reference's ``select_boundaries``, on adversarial rows and at true and
+undersized tables: a CUDA kernel cannot run here.  Every output is an
+integer: tolerance 0.
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
+from repro.core import automaton as jautomaton
 from repro.core import seqcdc as jseqcdc
+from repro.core.baselines.selectors import SelectorParams as JSelectorParams
 from repro.core.baselines.selectors import select_jax
 from repro.core.params import SeqCDCParams as JParams
 
@@ -35,6 +43,7 @@ from repro_torch.core.baselines.selectors import SelectorParams
 from repro_torch.core.params import SeqCDCParams
 from repro_torch.kernels import select_boundaries_event as kevent
 from repro_torch.kernels import select_boundaries_gather as kgather
+from repro_torch.kernels.boundary_chain import chain_k
 from repro_torch.service import DedupService
 
 STEPS = ("gather", "event")
@@ -236,7 +245,8 @@ def nth_bit(u: int, r: int) -> int:
 
 def resolve(st, kc, kt, total, bend, p, n, mc, bnd):
     """wblock::resolve: the reference's ``_resolve`` and carry update for
-    the W-block ending at ``bend`` that holds the scan position."""
+    the W-block ending at ``bend`` that holds the scan position; returns
+    0 (no emit), 1 (a cut) or 2 (a candidate's emit)."""
     k, c, s = st["k"], st["c"], st["s"]
     cut_b = min(s + p.max_size, n)
     cut_k = cut_b - (p.seq_length - 1)
@@ -256,6 +266,7 @@ def resolve(st, kc, kt, total, bend, p, n, mc, bnd):
             st["last"] = bound
         st["cnt"] += 1
         st["s"] = bound
+    return 0 if not emit else 1 if emit_cut else 2
 
 
 def final_cut(st, n, mc, bnd):
@@ -268,92 +279,124 @@ def final_cut(st, n, mc, bnd):
     return cnt
 
 
-def gather_emulated(cand_row, opp_row, n, p, mc):
-    """select_boundaries_gather.cu for one row: the tables launch's records
-    (cand, opp, ex, next) and the walk's per-block reads."""
-    G = -(-n // GROUP)
-    cw, ow = words_of(cand_row, G), words_of(opp_row, G)
-    ex, nxt = [], []
-    for g in range(G):
-        e, acc = [], 0
-        for i in range(32):
-            e.append(acc)
-            acc += popc(ow[g][i])
-        ex.append(e)
-        row, best = [0] * 32, NONE
-        for i in range(31, -1, -1):
-            if cw[g][i]:
-                best = min(best, 32 * i + nth_bit(cw[g][i], 1))
-            row[i] = best
-        nxt.append(row)
+class GatherTables:
+    """select_boundaries_gather.cu's tables launch for one row: a record
+    (cand, opp, ex, next) a group of 1024 positions."""
 
-    def opp_before(g, x):
+    def __init__(self, cand_row, opp_row, n):
+        G = self.G = -(-n // GROUP)
+        self.cw, self.ow = words_of(cand_row, G), words_of(opp_row, G)
+        self.ex, self.nxt = [], []
+        for g in range(G):
+            e, acc = [], 0
+            for i in range(32):
+                e.append(acc)
+                acc += popc(self.ow[g][i])
+            self.ex.append(e)
+            row, best = [0] * 32, NONE
+            for i in range(31, -1, -1):
+                if self.cw[g][i]:
+                    best = min(best, 32 * i + nth_bit(self.cw[g][i], 1))
+                row[i] = best
+            self.nxt.append(row)
+
+    def opp_before(self, g, x):
         if x >= GROUP:
-            return ex[g][31] + popc(ow[g][31])
+            return self.ex[g][31] + popc(self.ow[g][31])
         w = x >> 5
-        return ex[g][w] + popc(ow[g][w] & ((1 << (x & 31)) - 1))
+        return self.ex[g][w] + popc(self.ow[g][w] & ((1 << (x & 31)) - 1))
 
-    W = p.block_width
-    cover = (n + p.skip_size + W + W - 1) // W * W
-    bnd = [_BIG] * mc
-    st = dict(k=p.sub_min_skip, c=0, s=0, cnt=0, last=0)
-    while st["s"] < n and st["k"] < cover:
+    def first_cand(self, g, q):
+        """The group-relative first candidate at or after q, or NONE."""
+        m = self.cw[g][q >> 5] & ((0xFFFFFFFF << (q & 31)) & 0xFFFFFFFF)
+        if m:
+            return (q & ~31) + nth_bit(m, 1)
+        return self.nxt[g][(q >> 5) + 1] if (q >> 5) < 31 else NONE
+
+    def block(self, st, p):
+        """The walk's reads for the W-block holding the scan position:
+        (kc, kt, total, bend)."""
+        W = p.block_width
         bstart = st["k"] & ~(W - 1)
         g, gb = bstart // GROUP, bstart % GROUP
         o = st["k"] - bstart
         kc = kt = _BIG
         total = 0
-        if g < G:
+        if g < self.G:
             q = gb + o
-            m = cw[g][q >> 5] & ((0xFFFFFFFF << (q & 31)) & 0xFFFFFFFF)
-            kcg = ((q & ~31) + nth_bit(m, 1) if m else
-                   nxt[g][(q >> 5) + 1] if (q >> 5) < 31 else NONE)
+            kcg = self.first_cand(g, q)
             if kcg < gb + W:
                 kc = bstart + (kcg - gb)
-            p_b, p_q = opp_before(g, gb), opp_before(g, q)
-            p_e = opp_before(g, gb + W)
+            p_b, p_q = self.opp_before(g, gb), self.opp_before(g, q)
+            p_e = self.opp_before(g, gb + W)
             rank = p.skip_trigger - st["c"] + (p_q - p_b)
             if rank < p_e - p_b:
                 want = p_b + rank
                 lo, hi = gb >> 5, (gb + W - 1) >> 5
                 while lo < hi:
                     mid = (lo + hi + 1) >> 1
-                    if ex[g][mid] <= want:
+                    if self.ex[g][mid] <= want:
                         lo = mid
                     else:
                         hi = mid - 1
-                ktg = 32 * lo + nth_bit(ow[g][lo], want - ex[g][lo] + 1)
+                ktg = 32 * lo + nth_bit(self.ow[g][lo],
+                                        want - self.ex[g][lo] + 1)
                 if ktg - gb >= o:
                     kt = bstart + (ktg - gb)
             total = p_e - p_q
-        resolve(st, kc, kt, total, bstart + W, p, n, mc, bnd)
+        return kc, kt, total, bstart + W
+
+
+def gather_cover(n, p):
+    """The plain automaton's padded block range (core/automaton.py)."""
+    W = p.block_width
+    return (n + p.skip_size + W + W - 1) // W * W
+
+
+def gather_emulated(cand_row, opp_row, n, p, mc):
+    """The gather step as one serial walk a row: the tables launch's
+    records and the per-block reads, block after block (what every node of
+    chain_emulated runs from its own start)."""
+    t = GatherTables(cand_row, opp_row, n)
+    cover = gather_cover(n, p)
+    bnd = [_BIG] * mc
+    st = dict(k=p.sub_min_skip, c=0, s=0, cnt=0, last=0)
+    while st["s"] < n and st["k"] < cover:
+        kc, kt, total, bend = t.block(st, p)
+        resolve(st, kc, kt, total, bend, p, n, mc, bnd)
     return bnd, final_cut(st, n, mc, bnd)
 
 
-def event_emulated(cand_row, opp_row, n, p, mc):
-    """select_boundaries_event.cu for one row: the prefix launch's words,
-    in-group prefixes and group totals, the walk's scan of the totals and
-    its searches (the first 32-group probe, then the 32-way search)."""
-    G = -(-n // GROUP)
-    words = [words_of(cand_row, G), words_of(opp_row, G)]
-    ex = [[[sum(popc(wf[g][j]) for j in range(i)) for i in range(32)]
-           for g in range(G)] for wf in words]
-    sums = [[0] * (G + 1) for _ in range(2)]
-    for f in range(2):
-        for g in range(G):
-            sums[f][g + 1] = sums[f][g] + ex[f][g][31] + popc(words[f][g][31])
-    total = [sums[0][G], sums[1][G]]
+class EventTables:
+    """select_boundaries_event.cu's prefix and scan launches for one row:
+    the words, their in-group prefixes and the groups' scanned totals,
+    and the walk's searches (the first 32-group probe, then the 32-way
+    search)."""
 
-    def prefix_at(x, f):
+    def __init__(self, cand_row, opp_row, n):
+        G = self.G = -(-n // GROUP)
+        self.words = [words_of(cand_row, G), words_of(opp_row, G)]
+        self.ex = [[[sum(popc(wf[g][j]) for j in range(i))
+                     for i in range(32)] for g in range(G)]
+                   for wf in self.words]
+        self.sums = [[0] * (G + 1) for _ in range(2)]
+        for f in range(2):
+            for g in range(G):
+                self.sums[f][g + 1] = (self.sums[f][g] + self.ex[f][g][31]
+                                       + popc(self.words[f][g][31]))
+        self.total = [self.sums[0][G], self.sums[1][G]]
+
+    def prefix_at(self, x, f):
         g = x // GROUP
-        if g >= G:
-            return sums[f][G]
+        if g >= self.G:
+            return self.sums[f][self.G]
         w = (x >> 5) & 31
-        return (sums[f][g] + ex[f][g][w]
-                + popc(words[f][g][w] & ((1 << (x & 31)) - 1)))
+        return (self.sums[f][g] + self.ex[f][g][w]
+                + popc(self.words[f][g][w] & ((1 << (x & 31)) - 1)))
 
-    def find_rank(g0, r, f):
-        past = [g0 + 1 + lane >= G or sums[f][g0 + 1 + lane] > r
+    def find_rank(self, g0, r, f):
+        G, sums = self.G, self.sums[f]
+        past = [g0 + 1 + lane >= G or sums[g0 + 1 + lane] > r
                 for lane in range(32)]
         if any(past):
             g = g0 + past.index(True)
@@ -362,42 +405,211 @@ def event_emulated(cand_row, opp_row, n, p, mc):
             while hi - lo > 1:
                 stride = (hi - lo + 31) // 32
                 over = [lo + stride * (lane + 1) >= hi
-                        or sums[f][lo + stride * (lane + 1)] > r
+                        or sums[lo + stride * (lane + 1)] > r
                         for lane in range(32)]
                 lane = over.index(True)
                 lo, hi = lo + stride * lane, min(lo + stride * (lane + 1), hi)
             g = lo
-        rr = r - sums[f][g]
-        w = sum(e <= rr for e in ex[f][g]) - 1
-        return g * GROUP + 32 * w + nth_bit(words[f][g][w], rr - ex[f][g][w]
-                                           + 1)
+        rr = r - sums[g]
+        w = sum(e <= rr for e in self.ex[f][g]) - 1
+        return g * GROUP + 32 * w + nth_bit(self.words[f][g][w],
+                                           rr - self.ex[f][g][w] + 1)
 
-    L, T = p.seq_length, p.skip_trigger
+    def event(self, k, s, n, p):
+        """One iteration of the walk from (k, s): ("cut", bound),
+        ("cand", bound) or ("skip", new k)."""
+        L = p.seq_length
+        kk = min(max(k, 0), n)
+        g0 = kk // GROUP
+        kc = kt = None
+        if g0 < self.G:  # group_events: the group holding kk, no prefix
+            keep = [0 if i < (kk % GROUP) >> 5 else 0xFFFFFFFF
+                    if i > (kk % GROUP) >> 5 else
+                    (0xFFFFFFFF << (kk & 31)) & 0xFFFFFFFF
+                    for i in range(32)]
+            cm = [w & m for w, m in zip(self.words[0][g0], keep)]
+            om = [w & m for w, m in zip(self.words[1][g0], keep)]
+            lanes = [i for i in range(32) if cm[i]]
+            if lanes:
+                kc = g0 * GROUP + 32 * lanes[0] + nth_bit(cm[lanes[0]], 1)
+            need, excl = p.skip_trigger + 1, 0
+            for i in range(32):
+                if excl < need <= excl + popc(om[i]):
+                    kt = g0 * GROUP + 32 * i + nth_bit(om[i], need - excl)
+                excl += popc(om[i])
+        if kc is None:
+            rank_c = self.prefix_at(kk, 0)
+            kc = (self.find_rank(g0, rank_c, 0) if rank_c < self.total[0]
+                  else _BIG)
+        if kt is None:
+            want = self.prefix_at(kk, 1) + p.skip_trigger + 1
+            kt = (self.find_rank(g0, want - 1, 1) if want <= self.total[1]
+                  else _BIG)
+        cut_b = min(s + p.max_size, n)
+        e_cut = max(cut_b - (L - 1), k)
+        if e_cut <= min(kc, kt):
+            return "cut", cut_b
+        if kc < kt:
+            return "cand", kc + L
+        return "skip", kt + p.skip_size
+
+
+def event_emulated(cand_row, opp_row, n, p, mc):
+    """The event step as one serial walk a row: one iteration an event,
+    to max_chunks emits (what every node of chain_emulated runs from its
+    own start)."""
+    t = EventTables(cand_row, opp_row, n)
     bnd = [_BIG] * mc
     k, s, cnt, last = p.sub_min_skip, 0, 0, 0
     while s < n and cnt < mc:
-        kk = min(max(k, 0), n)
-        g0 = kk // GROUP
-        rank_c, rank_o = prefix_at(kk, 0), prefix_at(kk, 1)
-        kc = find_rank(g0, rank_c, 0) if rank_c < total[0] else _BIG
-        want = rank_o + T + 1
-        kt = find_rank(g0, want - 1, 1) if want <= total[1] else _BIG
-        cut_b = min(s + p.max_size, n)
-        e_cut = max(cut_b - (L - 1), k)
-        fire_cut = e_cut <= min(kc, kt)
-        if fire_cut or kc < kt:
-            bound = cut_b if fire_cut else kc + L
-            bnd[cnt] = bound
-            cnt += 1
-            s = last = bound
-            k = bound + p.sub_min_skip
-        else:
-            k = kt + p.skip_size
+        kind, v = t.event(k, s, n, p)
+        if kind == "skip":
+            k = v
+            continue
+        bnd[cnt] = v
+        cnt += 1
+        s = last = v
+        k = v + p.sub_min_skip
     if (last if cnt > 0 else 0) < n and n > 0:
         if cnt < mc:
             bnd[cnt] = n
         cnt += 1
     return bnd, cnt
+
+
+# -- the node table and the chase (boundary_chain.cuh), emulated -------------
+
+END = -1  # a node whose walk ends the row without a candidate's emit
+CHAIN_WINDOW = 4096  # positions a node CTA enumerates
+CHASE_THREADS = 256  # anchors a batch of the chase
+
+
+def gather_node_walk(t, n, p, cover):
+    """The gather node launch's walk from an emit at b: the one-row walk
+    from (b + sub_min, 0, b) to the first candidate's emit, skipping a
+    group whose rest holds no candidate, no trigger and no cut."""
+    def walk(b):
+        st = dict(k=b + p.sub_min_skip, c=0, s=b, cnt=0, last=0)
+        while st["s"] < n and st["k"] < cover:
+            k = st["k"]
+            g = k // GROUP
+            gend = (g + 1) * GROUP
+            cut_b = min(st["s"] + p.max_size, n)
+            if max(cut_b - (p.seq_length - 1), k) >= gend:
+                if g >= t.G:
+                    st["k"] = gend
+                    continue
+                q = k - g * GROUP
+                rest = t.opp_before(g, GROUP) - t.opp_before(g, q)
+                if (t.first_cand(g, q) == NONE
+                        and st["c"] + rest <= p.skip_trigger):
+                    st["c"] += rest
+                    st["k"] = gend
+                    continue
+            kc, kt, total, bend = t.block(st, p)
+            if resolve(st, kc, kt, total, bend, p, n, 0, None) == 2:
+                return st["s"]
+        return END
+    return walk
+
+
+def event_node_walk(t, n, p):
+    """The event node launch's walk from an emit at b: events from
+    (b + sub_min, 0, b) to the first candidate's emit."""
+    def walk(b):
+        k, s = b + p.sub_min_skip, b
+        while s < n:
+            kind, v = t.event(k, s, n, p)
+            if kind == "cand":
+                return v
+            if kind == "cut":
+                s, k = v, v + p.sub_min_skip
+            else:
+                k = v
+        return END
+    return walk
+
+
+def chain_emulated(step, cand_row, opp_row, n, p, mc, stats=None):
+    """Both kernels' three stages for one row, as boundary_chain.cuh runs
+    them: every node's next candidate's emit (the node launch, window by
+    window), every node's K-th successor with the emits on the way (the
+    jump launch), then the chase: anchors a jump apart, each expanded K
+    edges (cuts b + j * max_size between an emit at b and the next), the
+    last node's run of cuts, select_boundaries' fix-up.  ``stats`` gets
+    the nodes, the chase's serial hops and the edges expanded."""
+    L, mx = p.seq_length, p.max_size
+    if step == "gather":
+        walk = gather_node_walk(GatherTables(cand_row, opp_row, n), n, p,
+                                gather_cover(n, p))
+        lim = min(n, gather_cover(n, p) - p.sub_min_skip)
+    else:
+        walk = event_node_walk(EventTables(cand_row, opp_row, n), n, p)
+        lim = n
+    count_all = step == "gather"
+    nodes = [0] if lim > 0 else []
+    cands = np.flatnonzero(cand_row[:n])
+    nodes += [int(c) + L for c in cands if c + L < lim]
+    nxt = {x: walk(x) for x in nodes}
+    K = chain_k(n, p)
+    jmp = {}
+    for x in nodes:
+        z, cnt = x, 0
+        for _ in range(K):
+            if z >= lim or nxt[z] == END:
+                break
+            cnt += -(-(nxt[z] - z) // mx)
+            z = nxt[z]
+        jmp[x] = (z, cnt)
+
+    bnd = [_BIG] * mc
+
+    def put(i, v):
+        if i < mc:
+            bnd[i] = v
+
+    x = idx = hops = edges = 0
+    done = last_end = False
+    while not done:
+        anchors = []
+        while len(anchors) < CHASE_THREADS:
+            if x >= lim or (not count_all and idx >= mc):
+                done = True
+                break
+            z, cnt = jmp[x]
+            hops += 1
+            if z == x:  # x's walk ends the row
+                done = last_end = True
+                break
+            if idx < mc:
+                anchors.append((x, idx))
+            idx, x = idx + cnt, z
+        for z, i in anchors:  # the batch's expansions, a thread each
+            for _ in range(K):
+                if z >= lim or i >= mc or nxt[z] == END:
+                    break
+                v = nxt[z]
+                for cut in range(z + mx, v, mx):
+                    put(i, cut)
+                    i += 1
+                put(i, v)
+                i += 1
+                z = v
+                edges += 1
+    total = idx
+    if last_end:  # cuts to n, or to the gather walk's cover stop
+        j = -(-(lim - x) // mx)
+        for jj in range(1, min(j, mc - idx) + 1):
+            put(idx + jj - 1, min(x + jj * mx, n))
+        total += j
+    count = total if count_all else min(total, mc)
+    last = bnd[min(count, mc) - 1] if count > 0 else 0
+    if last < n:
+        put(count, n)
+        count += 1
+    if stats is not None:
+        stats.update(nodes=len(nodes), hops=hops, edges=edges, K=K)
+    return bnd, count
 
 
 EMULATED = {"gather": gather_emulated, "event": event_emulated}
@@ -469,3 +681,89 @@ def test_kernel_arithmetic_far_events(step):
                      skip_size=512, min_size=1024, max_size=120_000)
     for mc in (max_chunks_for(n, p), 2):
         _emulated_equal(step, cand, opp, n, p, mc)
+
+
+# -- the node table and the chase against the reference ------------------------
+
+@functools.partial(jax.jit, static_argnames=("n", "p", "step", "mc"))
+def _reference_rows(cand, opp, n, p, step, mc):
+    """The reference's select_boundaries on each row of (B, n) bitmaps."""
+    return jax.vmap(lambda c, o: jautomaton.select_boundaries(
+        c, o, n, p, step_impl=step, max_chunks=mc))(cand, opp)
+
+
+def _chain_equal(step, cand, opp, n, p, reference, mcs=(None, 5, 1)):
+    """chain_emulated on every row against ``reference(mc)``'s (bounds,
+    counts), at each table (None: a true one)."""
+    cand, opp = np.asarray(cand, bool), np.asarray(opp, bool)
+    for mc in mcs:
+        mc = mc or max_chunks_for(n, p)
+        want_b, want_c = (np.asarray(t) for t in reference(mc))
+        for r in range(cand.shape[0]):
+            b, c = chain_emulated(step, cand[r], opp[r], n, p, mc)
+            assert c == int(want_c[r]), (r, mc, c, int(want_c[r]))
+            assert b == want_b[r].tolist(), (r, mc)
+
+
+@pytest.mark.parametrize("name", sorted(ALL_PARAMS))
+@pytest.mark.parametrize("step", STEPS)
+def test_chain_matches_reference_on_seqcdc_bitmaps(step, name):
+    """The node table and chase on the adversarial rows' SeqCDC bitmaps
+    (W from 4 to 1024 positions) against the reference's two-phase
+    boundaries_batch, at a true table and at 5 and 1."""
+    p, d, cand, opp = seqcdc_case(name)
+    n = d.shape[1]
+    _chain_equal(step, cand.numpy(), opp.numpy(), n, tp(p),
+                 lambda mc: jseqcdc.boundaries_batch(
+                     jnp.asarray(d), p, step_impl=step, max_chunks=mc))
+
+
+def _reference(step, cand, opp, n, jp):
+    return lambda mc: _reference_rows(jnp.asarray(cand), jnp.asarray(opp),
+                                      n, jp, step, mc)
+
+
+@pytest.mark.parametrize("density", DENSITIES)
+@pytest.mark.parametrize("step", STEPS)
+def test_chain_matches_reference_on_selector_bitmaps(step, density):
+    """The hash chunkers' selector rows (L = 1, T = 2^30, skip 2^20): no
+    opposing pair, every candidate a node."""
+    bits = selector_bits(density)[None]
+    n, zeros = bits.shape[1], np.zeros_like(bits)
+    jp = JSelectorParams(min_size=1024, max_size=4096)
+    _chain_equal(step, bits, zeros, n, SelectorParams(1024, 4096),
+                 _reference(step, bits, zeros, n, jp))
+
+
+#: the edge rows' parameter sets: W 32; a cover stop (sub_min 125 past
+#: skip 8 + W 8: the gather walk's padded range ends before n); the
+#: selector's T = 2^30 (W 512)
+CHAIN_EDGE_PARAMS = {
+    "P": P,
+    "cover": JParams(avg_size=256, seq_length=3, skip_trigger=2,
+                     skip_size=8, min_size=128, max_size=200),
+    "selector": JSelectorParams(min_size=1024, max_size=1500),
+}
+
+
+@pytest.mark.parametrize("pname", sorted(CHAIN_EDGE_PARAMS))
+@pytest.mark.parametrize("step", STEPS)
+def test_chain_matches_reference_on_edge_rows(step, pname):
+    """All-candidate rows (a node at every position), candidate-free rows
+    (cut runs to n, with and without opposing pairs), dense and sparse
+    random rows; n = 0 (not for the selector: its 2^20 padding folds to
+    constants), n below W, and n = 3 * max_size (the candidate-free rows
+    cut exactly at n; not a multiple of 1024); at a true table and at 5
+    and 1."""
+    jp = CHAIN_EDGE_PARAMS[pname]
+    p = (SelectorParams(jp.min_size, jp.max_size) if pname == "selector"
+         else tp(jp))
+    rng = np.random.default_rng(11)
+    for n in (0, 5, 3 * jp.max_size)[pname == "selector":]:
+        ones, zeros = np.ones((1, n), bool), np.zeros((1, n), bool)
+        cand = np.concatenate([ones, zeros, zeros, rng.random((2, n)) < 0.05,
+                               rng.random((1, n)) < 0.002])
+        opp = np.concatenate([zeros, zeros, ones, rng.random((2, n)) < 0.3,
+                              zeros])
+        _chain_equal(step, cand, opp, n, p,
+                     _reference(step, cand, opp, n, jp))

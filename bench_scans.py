@@ -29,7 +29,8 @@ time, the wrapper's allocations included), after one warm-up call:
 * the packed pipeline (``kernels.packed_pipeline``) on ``chip_smoke.py``
   phase 3's three segment mixes, 8 packed rows of 16 KiB at paper 8 KiB
   parameters (the sharded service's launched shape), twenty timed calls
-  each;
+  each, and the packed select kernel (``kernels.select_boundaries_packed``)
+  on the masks kernel's bitmaps of the same rows, twenty timed calls each;
 * the Gear hash (``kernels.gear_hash``) over one 64 MiB stream, ten
   timed calls, and the registry's gear chunker (``make_chunker("gear")``
   at calibrated 8 KiB knobs, phase 6's call) on its first 16 MiB, twenty
@@ -59,11 +60,11 @@ time, the wrapper's allocations included), after one warm-up call:
   at B 1 and at B 8 (a step's time from the slope, apart from the waves of
   clusters).
 
-The select, packed, gear, masks and fingerprint rows also give the
-kernels' device time a call, from a ``torch.profiler`` trace
-(``chip_smoke.device_ms``; the packed one also for its scan and hash
-launches apart): at these sizes a call's host overhead can exceed its
-kernels' time.
+The select, packed (the packed select kernel too), gear, masks and
+fingerprint rows also give the kernels' device time a call, from a
+``torch.profiler`` trace (``chip_smoke.device_ms``; the packed one also
+for its scan and hash launches apart): at these sizes a call's host
+overhead can exceed its kernels' time.
 
 ``--only`` takes a comma-separated subset of the groups ``select`` (with
 the fused pipeline), ``native``, ``packed``, ``gear``, ``masks``,
@@ -248,7 +249,9 @@ def packed_rows_timed(seed: int) -> dict:
     import torch
 
     from repro_torch.core.params import paper_params
+    from repro_torch.core.seqcdc import packed_masks, segment_end_positions
     from repro_torch.kernels import packed_pipeline as kpacked
+    from repro_torch.kernels import select_boundaries_packed as kselp
 
     p = paper_params(8192)
     B, S = 8, 16 << 10
@@ -270,6 +273,17 @@ def packed_rows_timed(seed: int) -> dict:
             scan_device_ms=device_ms(run, 20, "packed_pipeline_scan")[0],
             hash_device_ms=device_ms(run, 20, "packed_pipeline_hash")[0],
             streams=sum(len(r) for r in rows), digest=digest(run()))
+        # the packed select kernel on the same rows' masks-kernel bitmaps
+        # (chip_smoke.py select_packed_phase's inputs)
+        cand, opp = packed_masks(x, segment_end_positions(e, S), p,
+                                 mask_impl="cuda")
+        run = lambda: kselp.select_boundaries_packed(  # noqa: E731
+            cand, opp, e, p, max_chunks=mc)
+        ms = call_ms(run, 20)
+        out[f"select packed 16KiBx8 {mix}"] = dict(
+            ms=ms, mean_ms=sum(ms) / len(ms),
+            device_ms=device_ms(run, 20, "select_boundaries_packed")[0],
+            digest=digest(run()))
     return out
 
 

@@ -685,12 +685,14 @@ def packed_phase(p, B: int, S: int, seed: int) -> dict:
     return out
 
 
-def select_packed_phase(p, B: int, S: int, seed: int) -> dict:
+def select_packed_phase(p, B: int, S: int, seed: int,
+                        mixes=tuple(PACKED_MIXES), rows=None) -> dict:
     """The packed select kernel against its plain version (the packed
     automaton's loop over W-blocks, torch ops on the card) and against the
     packed kernel's bounds and counts, on the masks kernel's bitmaps of
-    ``packed_phase``'s rows (the same seed) clipped per segment; each mix
-    also at a table one short of its fullest row (emits dropped)."""
+    ``packed_phase``'s rows (the same seed) clipped per segment, or of
+    ``rows`` ({label: (data, ends)}); each mix also at a table one short
+    of its fullest row (emits dropped)."""
     import numpy as np
     import torch
 
@@ -701,8 +703,10 @@ def select_packed_phase(p, B: int, S: int, seed: int) -> dict:
 
     out = {}
     rng = np.random.default_rng(seed)
-    for mix in PACKED_MIXES:
-        data, ends, _ = packed_rows(rng, mix, B, S)
+    if rows is None:
+        rows = {mix: packed_rows(rng, mix, B, S)[:2] for mix in mixes}
+    for mix, (data, ends) in rows.items():
+        B, S = data.shape
         x = torch.from_numpy(data).cuda()
         e = torch.from_numpy(ends).cuda()
         G = ends.shape[1]
@@ -3876,10 +3880,32 @@ def main(argv=None) -> int:
     measured["16KiBx8 packed"] = packed
     sel_packed = select_packed_phase(p, 8, 16 << 10, args.seed)
     measured["16KiBx8 select packed"] = sel_packed
-    for mix, r in sel_packed.items():
-        log(f"kernel select_boundaries_packed 16KiBx8 {mix} (G {r['G']}, mc "
-            f"{r['mc']}, {r['chunks']} chunks): bit-equal to plain and to "
-            f"the packed kernel's bounds and counts (also at mc "
+    # the same kernel on one 1 KiB row holding one segment shorter than
+    # min_size (no walk: the kernel's own floor) and on 8 rows of 64 KiB
+    # from the heavy-tail draw (segments below the row, walks up to 64 KiB)
+    import numpy as np
+
+    trivial = (np.random.default_rng(args.seed).integers(
+        0, 256, (1, 1024), dtype=np.uint8),
+        np.full((1, 4), 1000, np.int32))
+    sel_packed_more = select_packed_phase(
+        p, 8, 64 << 10, args.seed, rows={
+            "floor 1x1KiB": trivial,
+            "64KiBx8 heavy-tail": packed_rows(
+                np.random.default_rng(args.seed), "heavy-tail<16KiB", 8,
+                64 << 10)[:2]})
+    measured["select packed floor and 64KiBx8"] = sel_packed_more
+    sel_packed_kernel = next(k for k in KERNELS
+                             if k.name == "select_boundaries_packed")
+    ptxas = [line.strip() for line in sel_packed_kernel.build_log.splitlines()
+             if "Used" in line or "spill" in line]  # -Xptxas -v
+    for line in ptxas or ["not built in this run (its library was built)"]:
+        log(f"kernel select_boundaries_packed ptxas: {line}")
+    for mix, r in list(sel_packed.items()) + list(sel_packed_more.items()):
+        log(f"kernel select_boundaries_packed "
+            f"{'' if mix in sel_packed_more else '16KiBx8 '}{mix} (G "
+            f"{r['G']}, mc {r['mc']}, {r['chunks']} chunks): bit-equal to "
+            f"plain and to the packed kernel's bounds and counts (also at mc "
             f"{r['short_mc']}, emits dropped), {r['ms']:.4f} ms "
             f"({r['ms_source']}; {r['call_ms']:.4f} ms per call), plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
@@ -4475,8 +4501,9 @@ def main(argv=None) -> int:
     }
     errs = {
         packed_pipeline.KERNEL: [m["max_abs_err"] for m in packed.values()],
-        select_boundaries_packed.KERNEL: [m["max_abs_err"]
-                                          for m in sel_packed.values()],
+        select_boundaries_packed.KERNEL: [
+            m["max_abs_err"] for m in list(sel_packed.values())
+            + list(sel_packed_more.values())],
         select_boundaries.KERNEL: [
             reg["select_boundaries gear row"]["max_abs_err"],
             launched["select_boundaries seqcdc row"]["max_abs_err"]],

@@ -1,6 +1,8 @@
 // The segment-parallel packed automaton, shared by packed_pipeline.cu
-// (mask words computed from the row's bytes) and
-// select_boundaries_packed.cu (mask words read from given bitmaps).
+// (walk_segments, mask words computed from the row's bytes) and
+// select_boundaries_packed.cu (take_segments with a walk of its own: words
+// built from the resident bitmap bytes a window at a time, no pack pass,
+// and a trigger search from a window prefix).
 //
 // The packed automaton (repro/core/automaton.py:_scan_wide_packed) resets
 // at every segment end, and the per-segment mask clip keeps every bit of a
@@ -15,7 +17,8 @@
 //    min_size).  Longer segments go on a list.
 // 2. walk_segments: the warps take the listed segments from a shared
 //    counter and walk each as its own stream of length l with wblock.cuh's
-//    walk_windows, resolve and final_cut.  A warp cannot know where its
+//    walk_windows, resolve and final_cut (take_segments: the same with the
+//    caller's walk, which ends in final_cut).  A warp cannot know where its
 //    segment's chunks go in the row's table before the segments ahead are
 //    scanned, so segment g writes its bounds at slot start_g / min_size + g
 //    of a scratch area: a stream of l bytes emits at most l / min_size + 1
@@ -114,6 +117,37 @@ __device__ __forceinline__ void walk_segments(const Params& P,
           words(st, l, wstart, cw, ow);
         });
     if (lane == 0) sc.cnt[g] = (int32_t)wblock::final_cut(ss, SP, sb, nullptr);
+  }
+}
+
+// Step 2 with the walk the caller's, by every warp: warp w takes listed
+// segment w, then the next from the shared counter, as walk_segments does;
+// walk(st, l, SP, sb) runs the whole walk of segment [st, st + l) (SP its
+// scan parameters, sb its slots) and returns its count, every emit
+// counted.  Its integers are 32-bit (a row is at most 65,536 bytes) and W a
+// power of two.
+template <int kWarps, class Params, class Walk>
+__device__ __forceinline__ void take_segments(const Params& P,
+                                              const int32_t* ends,
+                                              const Scratch& sc,
+                                              Shared<kWarps>& sh, int warp,
+                                              int lane, Walk&& walk) {
+  const int m = P.sub_min + P.L;
+  const int W = P.W, nlong = sh.nlong;
+  for (int i = warp; i < nlong;) {
+    const int g = sc.list[i];
+    const int st = (int)end_at(ends, g - 1, P.n);
+    const int l = (int)end_at(ends, g, P.n) - st;
+    const wblock::ScanParams SP{
+        l, (l + P.skip + W + W - 1) & -W, l / m + 1, P.L, W, P.T,
+        P.skip, P.sub_min, P.max_size};
+    const long long c = walk(st, l, SP, sc.slot + st / m + g);
+    int j = 0;
+    if (lane == 0) {
+      sc.cnt[g] = (int32_t)c;
+      j = atomicAdd(&sh.next, 1);
+    }
+    i = kWarps + __shfl_sync(kFull, j, 0);
   }
 }
 

@@ -2,17 +2,20 @@
 // select_boundaries.cu and (through packed_walk.cuh) packed_pipeline.cu and
 // select_boundaries_packed.cu.
 //
-// Each walks a stream event by event over windows of kWin positions
-// (walk_windows): lane i holds word i of the window's candidate and
-// opposing bits, and block_search_words and resolve find and apply the
+// The first three walk a stream event by event over windows of kWin
+// positions (walk_windows): lane i holds word i of the window's candidate
+// and opposing bits, and block_search_words and resolve find and apply the
 // next event.  fused_pipeline.cu and packed_pipeline.cu compute a window's
 // words from the stream's bytes in shared memory (mask_word: a row fed
-// through a ring, a packed row resident whole); select_boundaries.cu and
-// select_boundaries_packed.cu read them from bitmaps turned into words.
-// W <= 1024, so at most 32 words a block.  select_boundaries_gather.cu
-// resolves a block from its tables with resolve and nth_bit (one W-block a
-// step, not a window), and select_boundaries_event.cu finds a rank's bit
-// with nth_bit.
+// through a ring, a packed row resident whole); select_boundaries.cu reads
+// them from bitmaps turned into words.  select_boundaries_packed.cu walks
+// the same windows with a loop of its own: it builds a window's words from
+// the resident bitmap bytes and searches an event from the window's
+// opposing prefix (its window_hit finds what block_search_words finds),
+// then applies resolve and final_cut.  W <= 1024, so at most 32 words a
+// block.  select_boundaries_gather.cu resolves a block from its tables
+// with resolve and nth_bit (one W-block a step, not a window), and
+// select_boundaries_event.cu finds a rank's bit with nth_bit.
 #pragma once
 
 #include <cstdint>

@@ -4,13 +4,15 @@ The device form of ``repro/core/automaton.py:_scan_wide_packed`` (run
 through ``select_boundaries_packed``), which the reference runs as a
 ``lax.scan`` over W-blocks with a ``while_loop`` a block: it has no Pallas
 kernel, but a Python loop over W-blocks is no GPU path.  The kernel
-(``csrc/select_boundaries_packed.cu``) is one launch, one CTA a row: it
-turns both bitmap rows into words in shared memory, walks each segment of
-``min_size`` or more as its own stream on a warp, and places the
-segments' bounds by a prefix sum over their counts (the packed kernel's
-scan, ``csrc/packed_walk.cuh``, its mask words read from the bitmaps).
-Its least time on an H100 is ``2*B*S + 4*B*G + 4*B*mc + 4*B`` bytes at
-3.35 TB/s.  Its plain version is ``core.automaton.select_boundaries_packed``.
+(``csrc/select_boundaries_packed.cu``) is one launch, one CTA a row: the
+copy engine brings both bitmap rows into shared memory while the threads
+sort the segments, each segment of ``min_size`` or more is walked as its
+own stream on a warp (the words of a search window built from the resident
+bytes where the walk reaches it, an event's trigger found from the
+window's opposing prefix), and a prefix sum over the segments' counts
+places their bounds (``csrc/packed_walk.cuh``).  Its least time on an H100
+is ``2*B*S + 4*B*G + 4*B*mc + 4*B`` bytes at 3.35 TB/s.  Its plain version
+is ``core.automaton.select_boundaries_packed``.
 
 It serves the packed split path (``core.seqcdc.boundaries_packed_batch``
 with ``select_impl="cuda"``), which the scheduler's packed dispatches run
@@ -38,6 +40,30 @@ KERNEL = Kernel(
     + [ctypes.c_int] * 8,
     replaces="src/repro/core/automaton.py:133",
 )
+
+
+#: shared memory a CTA may take (``csrc/select_boundaries_packed.cu``
+#: ``kSmemMax``)
+SMEM_MAX = 200 << 10
+
+
+def scratch_ints(n: int, G: int, min_size: int) -> int:
+    """The kernel's scratch a row: G counts, its list of segments of
+    ``min_size`` or more and each segment's slots
+    (``csrc/packed_walk.cuh``)."""
+    return 2 * G + 2 * (n // min_size) + 1
+
+
+def device_scratch_ints(n: int, G: int, min_size: int) -> int:
+    """Ints a row of device scratch the kernel needs: 0 where its scratch
+    fits in shared memory beside both bitmap rows, else
+    :func:`scratch_ints`.  The kernel's rule, repeated here (a launch that
+    needs the buffer and is given none is refused): a bitmap row takes its
+    16-byte floor and ceiling and 48 bytes its last word's loads may reach,
+    ``region_bytes`` in ``csrc/select_boundaries_packed.cu``."""
+    region = ((n + 15) & ~15) + 64
+    ints = scratch_ints(n, G, min_size)
+    return 0 if 2 * region + 4 * ints <= SMEM_MAX else ints
 
 
 def select_boundaries_packed(cand: torch.Tensor, opp: torch.Tensor,
@@ -85,18 +111,19 @@ def select_boundaries_packed(cand: torch.Tensor, opp: torch.Tensor,
                          f"{tuple(ends.shape)} on {ends.device}, opp on "
                          f"{opp.device}")
     cand, opp = cand.contiguous(), opp.contiguous()
-    # the kernel's scratch a row: G counts, its list of segments of
-    # min_size or more, and each segment's slots (csrc/packed_walk.cuh)
-    ints = 2 * G + 2 * (n // p.min_size) + 1
-    scratch = torch.empty((B, ints), dtype=torch.int32, device=dev)
-    bounds = torch.empty((B, mc), dtype=torch.int32, device=dev)
-    counts = torch.empty((B,), dtype=torch.int32, device=dev)
+    min_size = p.min_size
+    ints = scratch_ints(n, G, min_size)
+    scratch = (torch.empty((B, ints), dtype=torch.int32, device=dev)
+               if device_scratch_ints(n, G, min_size) else None)
+    out = torch.empty((B * mc + B,), dtype=torch.int32, device=dev)
+    bounds, counts = out[:B * mc].view(B, mc), out[B * mc:]
     with torch.cuda.device(dev):
         KERNEL.launch(
             cand.data_ptr(), opp.data_ptr(), ends.data_ptr(),
-            bounds.data_ptr(), counts.data_ptr(), scratch.data_ptr(), ints,
-            B, n, G, mc, p.seq_length, p.block_width, p.skip_trigger,
-            p.skip_size, p.sub_min_skip, p.max_size,
+            bounds.data_ptr(), counts.data_ptr(),
+            0 if scratch is None else scratch.data_ptr(), ints, B, n, G, mc,
+            p.seq_length, p.block_width, p.skip_trigger, p.skip_size,
+            p.sub_min_skip, p.max_size,
             stream=torch.cuda.current_stream(dev).cuda_stream,
         )
     return bounds, counts

@@ -600,11 +600,24 @@ def test_sharded_packed_service_on_the_card_counts_launches(dev):
 
 # -- the packed select kernel ----------------------------------------------
 
-def _select_packed_equal(dev, p, data, ends, short=0):
+def _bitmap_at(dev, t: torch.Tensor, off: int, rng) -> torch.Tensor:
+    """A copy of the (B, n) bool bitmap ``t`` as a view that starts ``off``
+    bytes into an allocation of its own, random bits before it; the last
+    row ends where the allocation's requested bytes end."""
+    buf = torch.from_numpy(rng.random(off + t.numel()) < 0.5).to(dev)
+    buf[off:] = t.reshape(-1)
+    view = buf[off:].view(t.shape)
+    assert view.data_ptr() % 16 == off % 16
+    return view
+
+
+def _select_packed_equal(dev, p, data, ends, short=0, offsets=None):
     """The packed select kernel on the masks kernel's bitmaps of packed
     ``data``, clipped per segment, against its plain version and against
     the packed kernel's bounds and counts; ``short`` > 0 cuts the table to
-    the fullest row's count less ``short`` (emits dropped)."""
+    the fullest row's count less ``short`` (emits dropped); ``offsets``
+    (oc, oo) gives the kernel the bitmaps as views starting oc and oo bytes
+    past a 16-byte boundary."""
     x = torch.from_numpy(data).to(dev)
     e = torch.from_numpy(ends).to(dev)
     S = data.shape[1]
@@ -614,7 +627,12 @@ def _select_packed_equal(dev, p, data, ends, short=0):
     if short:
         counts = select_packed_plain(cand, opp, e, p, max_chunks=mc)[1]
         mc = max(1, int(counts.max()) - short)
-    got = kselp.select_boundaries_packed(cand, opp, e, p, max_chunks=mc)
+    kc, ko = cand, opp
+    if offsets is not None:
+        rng = np.random.default_rng(sum(offsets))
+        kc, ko = (_bitmap_at(dev, t, o, rng)
+                  for t, o in zip((cand, opp), offsets))
+    got = kselp.select_boundaries_packed(kc, ko, e, p, max_chunks=mc)
     torch.cuda.synchronize()
     _equal(got, select_packed_plain(cand, opp, e, p, max_chunks=mc))
     _equal(got, kpacked.packed_pipeline_batch(x, e, p, max_chunks=mc)[:2])
@@ -692,6 +710,112 @@ def test_select_packed_kernel_65536_one_byte_segments(dev, name):
     data, _, ends, _ = _packing_cases.pack(rows, S, S)
     got = _select_packed_equal(dev, p, data, ends)
     assert int(got[1][0]) == S
+
+
+@pytest.mark.parametrize("oc,oo", [(1, 15), (15, 1), (3, 8), (0, 13),
+                                   (9, 0), (6, 6)])
+@pytest.mark.parametrize("short", [0, 2])
+def test_select_packed_kernel_bitmaps_at_byte_offsets(dev, oc, oo, short):
+    """Bitmap rows whose candidate and opposing rows start at independent
+    byte offsets (views into a wider buffer, the last row ending at the
+    buffer's end): the kernel copies each from its 16-byte floor."""
+    p = PARAMS["P"]
+    streams = _packed_cases(np.random.default_rng(oc + 16 * oo), p, 4096)
+    data, _, ends, _ = _packing_cases.pack(
+        [[seg.tobytes() for seg in row] for row in streams], 4096)
+    _select_packed_equal(dev, p, data, ends, short, (oc, oo))
+    data, ends, _ = _chip_mix("heavy-tail<16KiB", 40 + oc)
+    _select_packed_equal(dev, PARAMS["paper8k"], data, ends, short, (oc, oo))
+
+
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 1 << 16])
+@pytest.mark.parametrize("B", [1, 64])
+def test_select_packed_kernel_row_widths_and_batches(dev, S, B):
+    """Rows of 1, 15, 16, 17 and 65,536 bytes at B 1 and 64, each row its
+    own random mix of segment lengths (long ones walked at S 65,536), at a
+    true and an undersized table."""
+    p = PARAMS["P"]
+    rng = np.random.default_rng(S + B)
+    rows = []
+    for _ in range(B):
+        row, fill = [], 0
+        top = int(rng.choice([4, 200, 3000]))
+        while True:
+            n = int(rng.integers(0, top))
+            if fill + n > S:
+                break
+            row.append(rng.integers(0, 256, n, dtype=np.uint8).tobytes())
+            fill += n
+        rows.append(row or [b""])
+    data, _, ends, _ = _packing_cases.pack(rows, S)
+    for short in (0, 1):
+        _select_packed_equal(dev, p, data, ends, short)
+
+
+@pytest.mark.parametrize("mix", ["all-tiny", "512-2048",
+                                 "heavy-tail<16KiB"])
+@pytest.mark.parametrize("seed", range(5))
+def test_select_packed_kernel_on_the_chip_mixes_at_seeds(dev, mix, seed):
+    """``chip_smoke.py``'s three segment mixes, 8 x 16 KiB, at five more
+    seeds, at a true and an undersized table."""
+    data, ends, _ = _chip_mix(mix, 100 + seed)
+    for short in (0, 1):
+        _select_packed_equal(dev, PARAMS["paper8k"], data, ends, short)
+
+
+def _switch_rows(G: int, S: int = 1 << 16):
+    """Two 64 KiB rows of exactly G segments (most of 1-3 bytes, eight of
+    about 3,000 walked at P's min_size 64)."""
+    rng = np.random.default_rng(G)
+    rows = []
+    for _ in range(2):
+        lens = [int(n) for n in rng.integers(1, 4, G - 8)]
+        lens += [int(n) for n in rng.integers(2800, 3200, 8)]
+        rng.shuffle(lens)
+        rows.append([rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+                     for n in lens])
+    return _packing_cases.pack(rows, S, G)
+
+
+@pytest.mark.parametrize("G", [8175, 8176])
+def test_select_packed_kernel_at_the_shared_scratch_switch(dev, G):
+    """Just below and just above the G where the scratch stops fitting in
+    shared memory beside both 64 KiB bitmap rows (P's min_size 64): the
+    wrapper's rule and the kernel's agree, and both sides give the plain
+    version's bounds."""
+    p = PARAMS["P"]
+    S = 1 << 16
+    ints = kselp.scratch_ints(S, G, p.min_size)
+    assert kselp.device_scratch_ints(S, G, p.min_size) == (
+        0 if G == 8175 else ints)
+    data, _, ends, _ = _switch_rows(G, S)
+    assert ends.shape[1] == G
+    for short in (0, 3):
+        _select_packed_equal(dev, p, data, ends, short)
+
+
+def test_select_packed_kernel_refuses_a_missing_scratch(dev):
+    """A launch whose scratch does not fit in shared memory and that gets
+    no device buffer is refused (the kernel's check of the wrapper's
+    rule), and counts no launch."""
+    p = PARAMS["P"]
+    S = G = 1 << 16
+    ints = kselp.scratch_ints(S, G, p.min_size)
+    assert kselp.device_scratch_ints(S, G, p.min_size) == ints
+    cand = torch.zeros((1, S), dtype=torch.bool, device=dev)
+    ends = torch.full((1, G), S, dtype=torch.int32, device=dev)
+    mc = _select_packed_cases.true_max_chunks(S, p.min_size, G)
+    bounds = torch.empty((1, mc), dtype=torch.int32, device=dev)
+    counts = torch.empty((1,), dtype=torch.int32, device=dev)
+    before = kselp.KERNEL.launches
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        kselp.KERNEL.launch(
+            cand.data_ptr(), cand.data_ptr(), ends.data_ptr(),
+            bounds.data_ptr(), counts.data_ptr(), 0, ints, 1, S, G, mc,
+            p.seq_length, p.block_width, p.skip_trigger, p.skip_size,
+            p.sub_min_skip, p.max_size,
+            stream=torch.cuda.current_stream(dev).cuda_stream)
+    assert kselp.KERNEL.launches == before
 
 
 def test_select_packed_wrapper_rejects_what_the_kernel_does_not_take(dev):

@@ -15,6 +15,15 @@ tensors.  Here, on seeded bitmaps clipped per segment
   chunked alone by the unpacked plain automaton, a shorter one a chunk of
   its own length, the bounds placed in order, emits past ``max_chunks``
   dropped and the fix-up at the payload end;
+* the redesigned kernel's walk emulated in numpy (``window_emulated``:
+  bitmap rows resident at byte offsets, window words built from their
+  bytes, the trigger found from a window's opposing prefix, ``c`` carried
+  across windows) against the reference on the same cases and on rows
+  built for its edges (segments at every offset mod 32, a trigger on a
+  window's last bit, a max-size cut at a segment end, a 65,536-byte
+  segment), at a true and a short ``max_chunks``;
+* the wrapper's rule for device scratch (only where the kernel's does not
+  fit in shared memory);
 * ``boundaries_packed_batch(select_impl="cuda")`` equal to ``"torch"``;
 * the scheduler's packed split and chunk-only dispatches call the wrapper.
 
@@ -137,6 +146,248 @@ def _segments_alone(cand, opp, ends, p, mc):
     return bounds, counts
 
 
+#: positions a search window of the kernel's walk (wblock.cuh kWin)
+WIN = 1024
+BIG = 1 << 30
+
+
+def _resident(bits: np.ndarray, a: int, rng) -> np.ndarray:
+    """A bitmap row as the kernel holds it in shared memory: row byte q at
+    virtual byte q + a, ``region_bytes(n)`` bytes in all, every byte
+    outside the row random (copied from around the tensor, or never
+    written)."""
+    n = bits.size
+    rb = rng.integers(0, 256, ((n + 15) & ~15) + 64, dtype=np.uint8)
+    rb[a:a + n] = bits
+    return rb
+
+
+def _word(rb: np.ndarray, vst: int, p0: int, l: int) -> int:
+    """word_from_bytes: positions p0 .. p0 + 31 of the segment whose
+    position 0 is virtual byte vst, from three aligned 16-byte loads (bit 0
+    of each byte), shifted by the byte offset, masked at the length l."""
+    if p0 >= l:
+        return 0
+    v = vst + p0
+    f = v & ~15
+    bits = int.from_bytes(np.packbits(rb[f:f + 48] & 1,
+                                      bitorder="little").tobytes(), "little")
+    keep = (1 << min(32, l - p0)) - 1
+    return (bits >> (v & 15)) & keep
+
+
+def _nth_bit(u: int, r: int) -> int:
+    """wblock.cuh nth_bit: the position of the r-th set bit of u."""
+    pos = 0
+    for half in (16, 8, 4, 2, 1):
+        cnt = bin(u & ((1 << half) - 1)).count("1")
+        if cnt < r:
+            r -= cnt
+            u >>= half
+            pos += half
+    return pos
+
+
+def _window_walk(crb, orb, vc, vo, l, p, stats):
+    """One segment of length l walked as the kernel's warp walks it: the
+    words of a window built where the walk enters it, each lane's
+    exclusive prefix of the opposing popcounts made once a window, each
+    event's search from it (the first candidate, the opposing bits below
+    k, the lane holding the trigger's rank, its nth_bit), resolve and
+    final_cut.  Returns the segment's bounds, every emit kept (its table
+    is a true bound)."""
+    W, L, T = p.block_width, p.seq_length, p.skip_trigger
+    cover = (l + p.skip_size + W + W - 1) // W * W
+    k, c, s, out = p.sub_min_skip, 0, 0, []
+    wstart, events = -WIN, 0
+    while s < l and k < cover:
+        if k >= wstart + WIN:
+            if wstart >= 0 and not events and c:
+                stats["carried"] += 1  # a window left with c, no event
+            wstart = k & ~(W - 1)
+            cw = [_word(crb, vc, wstart + 32 * i, l) for i in range(32)]
+            ow = [_word(orb, vo, wstart + 32 * i, l) for i in range(32)]
+            pc = [bin(w).count("1") for w in ow]
+            excl = np.concatenate([[0], np.cumsum(pc)[:-1]]).tolist()
+            total = sum(pc)
+            events = 0
+        o = k - wstart
+        act = [0xFFFFFFFF if o <= 32 * i else 0 if o >= 32 * i + 32
+               else (0xFFFFFFFF << (o - 32 * i)) & 0xFFFFFFFF
+               for i in range(32)]
+        kcs = [32 * i + ((cw[i] & act[i]) & -(cw[i] & act[i])).bit_length()
+               - 1 for i in range(32) if cw[i] & act[i]]
+        kc = wstart + min(kcs) if kcs else BIG
+        lane = o >> 5
+        below = excl[lane] + bin(ow[lane] & ~act[lane] & 0xFFFFFFFF).count(
+            "1")
+        m = T - c + 1
+        rank = below + m
+        hit = [i for i in range(32)
+               if m >= 1 and excl[i] < rank <= excl[i] + pc[i]]
+        kt = (wstart + 32 * hit[0] + _nth_bit(ow[hit[0]], rank - excl[hit[0]])
+              if hit else BIG)
+        # wblock.cuh resolve
+        bend = min(wstart + WIN, cover)
+        cut_b = min(s + p.max_size, l)
+        cut_k = cut_b - (L - 1)
+        e_cut = max(cut_k, k)
+        fire_cut = e_cut < bend and e_cut <= min(kc, kt)
+        fire_cand = not fire_cut and kc < kt
+        fire_trig = not fire_cut and not fire_cand and kt < BIG
+        emit_cut = fire_cut or (fire_trig and kt + p.skip_size >= cut_k)
+        bound = cut_b if emit_cut else kc + L
+        if emit_cut or fire_cand:
+            k = bound + p.sub_min_skip
+            out.append(bound)
+            s = bound
+            if emit_cut and bound == l:
+                stats["cut_at_end"] += 1
+        elif fire_trig:
+            k = kt + p.skip_size
+            if kt - wstart == WIN - 1:
+                stats["last_bit"] += 1
+        else:
+            k = bend
+        c = 0 if (fire_cut or fire_cand or fire_trig) else c + total - below
+        events += fire_cut or fire_cand or fire_trig
+    if (out[-1] if out else 0) < l:  # final_cut
+        out.append(l)
+    return out
+
+
+def window_emulated(cand, opp, ends, p, mc, offsets, seed=0):
+    """The redesigned kernel's walk in numpy, row by row: both bitmap rows
+    resident at virtual offsets ``offsets`` (ac, ao) with random bytes
+    around them, the segments sorted (shorter than min_size: one chunk of
+    its own length), each long one walked window by window
+    (``_window_walk``), the bounds placed in segment order with emits past
+    ``mc`` dropped and counted, then the fix-up at the payload end.
+    Returns ``(bounds, counts, stats)``; stats counts the edges the walk
+    met: triggers on a window's last bit, windows left with ``c`` carried
+    and no event, max-size cuts at a segment end."""
+    rng = np.random.default_rng(seed)
+    B = ends.shape[0]
+    ac, ao = offsets
+    bounds = np.full((B, mc), BIG, np.int32)
+    counts = np.zeros(B, np.int32)
+    stats = dict(last_bit=0, carried=0, cut_at_end=0)
+    for bi in range(B):
+        crb = _resident(cand[bi], ac, rng)
+        orb = _resident(opp[bi], ao, rng)
+        out, st = [], 0
+        for e in ends[bi].tolist():
+            seg = e - st
+            if seg >= p.min_size:
+                out += [st + b for b in _window_walk(crb, orb, st + ac,
+                                                     st + ao, seg, p, stats)]
+            elif seg > 0:
+                out.append(e)
+            st = e
+        kept = min(len(out), mc)
+        bounds[bi, :kept] = out[:kept]
+        c, n_row = len(out), int(ends[bi, -1])
+        if (out[kept - 1] if kept else 0) < n_row and n_row > 0:
+            if c < mc:
+                bounds[bi, c] = n_row
+            c += 1
+        counts[bi] = c
+    return bounds, counts, stats
+
+
+#: rows built for the redesigned walk's edges
+CONSTRUCTED = ("offsets mod 32", "last-bit trigger", "carried c",
+               "max-size cut at end", "G1 65536")
+
+
+def _clip(ends, cand, opp, L):
+    """Clip hand-made bitmaps per segment as the packed split path does."""
+    rng = np.random.default_rng(0)
+    c, o = cases.clipped_bitmaps(rng, ends, cand.shape[1], L, (1.0, 1.0))
+    return ends, cand & c, opp & o
+
+
+def _constructed(name):
+    """``(params name, ends, cand, opp)`` of one of ``CONSTRUCTED``."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name == "offsets mod 32":  # long segments starting at every residue
+        S, L = 4096, cases.SMALL["seq_length"]
+        ends = cases.ends_table([[65] * 40 + [1496], [97] * 42])
+        cand, opp = cases.clipped_bitmaps(rng, ends, S, L,
+                                          cases.DENSITY["small"])
+        return "small", ends, cand, opp
+    if name == "last-bit trigger":
+        # paper 8 KiB: the walk starts at k = sub_min = 4091 in the window
+        # [3840, 4864) (W 256); the 51st opposing pair from k, the trigger
+        # at T = 50, is the window's last position, 4863
+        S, L = 16384, cases.PAPER8K["seq_length"]
+        ends = cases.ends_table([[S], [6000, S - 6000]], 4)
+        cand, opp = cases.clipped_bitmaps(rng, ends, S, L,
+                                          cases.DENSITY["paper8k"])
+        cand[:, 3840:4864] = False
+        opp[:, 3840:4864] = False
+        opp[:, 4813:4864] = True
+        return ("paper8k",) + _clip(ends, cand, opp, L)
+    if name == "carried c":  # fewer than T opposing pairs a window
+        S, L = 16384, cases.PAPER8K["seq_length"]
+        ends = cases.ends_table([[9000, 7000], [5000, 5000, 6384]])
+        cand, opp = cases.clipped_bitmaps(rng, ends, S, L, (0.0003, 0.02))
+        return "paper8k", ends, cand, opp
+    if name == "max-size cut at end":
+        # segments of max_size and its multiples with no bit set: every
+        # chunk a max-size cut, the last one on the segment end
+        S, L = 4096, cases.SMALL["seq_length"]
+        ends = cases.ends_table([[512, 1024, 1536, 612, 400], [512] * 8])
+        cand, opp = cases.clipped_bitmaps(rng, ends, S, L,
+                                          cases.DENSITY["small"])
+        cand[:, :3072] = opp[:, :3072] = False
+        cand[1] = opp[1] = False
+        return "small", ends, cand, opp
+    if name == "G1 65536":  # one segment filling a row of the bound's width
+        return ("small",) + cases.edge_case("G1", 1 << 16)
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", ("mixes",) + cases.EDGES
+                         + ("random short 1",) + CONSTRUCTED)
+def test_window_emulated_matches_reference(name):
+    """The redesigned kernel's walk (window words from resident bytes at
+    byte offsets, the prefix-rank trigger search, ``c`` carried across
+    windows) gives the reference's bounds and counts, at a true and at a
+    short table; the constructed rows reach the edges they were built
+    for."""
+    if name in CONSTRUCTED:
+        pname, ends, cand, opp = _constructed(name)
+        mc = cases.true_max_chunks(cand.shape[1], JPARAMS[pname].min_size,
+                                   ends.shape[1])
+    else:
+        pname, ends, cand, opp, mc = _case(name)
+    p = tp(pname)
+    offsets = ([(a, 15 - a) for a in range(16)]
+               if name == "offsets mod 32" else [(0, 0), (7, 12)])
+    full = window_emulated(cand, opp, ends, p, mc, offsets[0])
+    short = max(1, int(full[1].max()) - 2)
+    for m in (mc, short):
+        want_b, want_c = (np.asarray(t) for t in _jselect_packed(pname, m)(
+            jnp.asarray(cand), jnp.asarray(opp), jnp.asarray(ends)))
+        for i, off in enumerate(offsets):
+            got_b, got_c, stats = window_emulated(cand, opp, ends, p, m, off,
+                                                  seed=i)
+            np.testing.assert_array_equal(got_c, want_c)
+            np.testing.assert_array_equal(got_b, want_b)
+    stats = full[2]
+    if name == "offsets mod 32":
+        st = np.concatenate([[0], ends[0, :-1]])
+        long_ = (ends[0] - st) >= p.min_size
+        assert set((st[long_] % 32).tolist()) == set(range(32))
+    if name == "last-bit trigger":
+        assert stats["last_bit"] >= 2
+    if name == "carried c":
+        assert stats["carried"] >= 1
+    if name == "max-size cut at end":
+        assert stats["cut_at_end"] >= 4 + 8
+
+
 @pytest.mark.parametrize("name", ("mixes",) + cases.EDGES
                          + ("random short 1", "random short 3"))
 def test_select_packed_cpu_route_matches_reference(name):
@@ -199,6 +450,24 @@ def test_select_packed_wrapper_rejects_what_the_kernel_does_not_take():
     b = torch.zeros((1, 1024), dtype=torch.bool)
     with pytest.raises(ValueError, match="bitmaps"):
         kselp.select_boundaries_packed(b, b[:, :512], e, p, max_chunks=8)
+
+
+@pytest.mark.parametrize("n,G,min_size,device_ints", [
+    (16 << 10, 16, 4096, 0),  # the scheduler's 16 KiB rows
+    (1 << 16, 64, 4096, 0),  # a 64 KiB row at paper 8 KiB
+    (1 << 16, 8175, 64, 0),  # the last G whose scratch fits beside the rows
+    (1 << 16, 8176, 64, 2 * 8176 + 2 * 1024 + 1),
+    (1 << 16, 1 << 16, 64, 2 * 65536 + 2 * 1024 + 1),  # one-byte segments
+    (1, 1, 64, 0)])
+def test_select_packed_wrapper_scratch_rule(n, G, min_size, device_ints):
+    """The wrapper allocates device scratch only where the kernel's does
+    not fit in shared memory beside both bitmap rows (the kernel's rule:
+    2 * (ceil16(n) + 64) + 4 * ints bytes against 200 KiB)."""
+    ints = kselp.scratch_ints(n, G, min_size)
+    assert ints == 2 * G + 2 * (n // min_size) + 1
+    assert kselp.device_scratch_ints(n, G, min_size) == device_ints
+    region = ((n + 15) // 16) * 16 + 64
+    assert (2 * region + 4 * ints <= kselp.SMEM_MAX) == (device_ints == 0)
 
 
 @pytest.mark.parametrize("pipeline_impl,with_fp,calls", [
